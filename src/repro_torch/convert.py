@@ -1,0 +1,52 @@
+"""Carry state across from the JAX package, as plain numpy arrays.
+
+A parity test runs ``repro`` and ``repro_torch`` on the very same operands,
+bucket plan and sample rows.  These helpers build the port's objects from
+numpy arrays — what ``np.asarray`` gives for a JAX array or a JAX-side
+dataclass field — so the port never sees a JAX object.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.binning import BinningPlan, RowBucket
+from repro_torch.core.csr import CSRDevice, resolve_device
+
+
+def csr_device_from_numpy(rpt, col, val, shape, device=None) -> CSRDevice:
+    """The port's ``CSRDevice`` from a device CSR's arrays (capacity-padded
+    ``col``/``val`` are taken as they are)."""
+    dev = resolve_device(device)
+    return CSRDevice(
+        rpt=torch.from_numpy(np.array(rpt, dtype=np.int32)).to(dev),
+        col=torch.from_numpy(np.array(col, dtype=np.int32)).to(dev),
+        val=torch.from_numpy(np.array(val, dtype=np.float32)).to(dev),
+        shape=(int(shape[0]), int(shape[1])))
+
+
+def binning_plan_from_numpy(buckets, *, global_deg_a: int | None = None,
+                            global_deg_b: int | None = None) -> BinningPlan:
+    """The port's ``BinningPlan`` from per-bucket dicts with the keys
+    ``rows, deg_a, deg_b, block_rows, route, tile_n, n_tiles, span``.
+
+    Buckets partition the output rows, so the row count and the row →
+    bucket map follow from them.  The global degree bounds only feed lane
+    statistics; they default to the largest bucket bounds."""
+    bks = tuple(RowBucket(rows=np.asarray(d["rows"], dtype=np.int32),
+                          deg_a=int(d["deg_a"]), deg_b=int(d["deg_b"]),
+                          block_rows=int(d["block_rows"]),
+                          route=str(d["route"]), tile_n=int(d["tile_n"]),
+                          n_tiles=int(d["n_tiles"]), span=int(d["span"]))
+                for d in buckets)
+    nrows = sum(b.n_rows for b in bks)
+    row_bucket = np.zeros(nrows, dtype=np.int32)
+    for i, b in enumerate(bks):
+        row_bucket[b.rows] = i
+    return BinningPlan(
+        buckets=bks, nrows=nrows,
+        global_deg_a=int(global_deg_a if global_deg_a is not None
+                         else max((b.deg_a for b in bks), default=1)),
+        global_deg_b=int(global_deg_b if global_deg_b is not None
+                         else max((b.deg_b for b in bks), default=1)),
+        row_bucket=row_bucket)
