@@ -9,7 +9,8 @@ The paper's whole point end to end (DESIGN.md §6), single-device subset of
      from the prediction restricted to that bucket's rows
      (``predictor.BinnedAllocationPlan``);
   3. **execute through the binned kernels**: every bucket runs through
-     ``spgemm.routed_spgemm_rows`` (the ESC kernel with ``use_kernel``).
+     ``spgemm.routed_spgemm_rows`` on its planned accumulator route (ESC,
+     SPA or BIN; with ``use_kernel`` through that route's CUDA kernel).
 
 Executors are built once per *plan key* — matrix shapes, padded device-CSR
 capacities and the ordered per-bucket ``(signature, population, capacity)``
@@ -24,7 +25,7 @@ plan templates, population quantization, overflow re-planning
 
 Public API::
 
-    plan = plan_spgemm(a, b, route="esc", use_kernel=True)
+    plan = plan_spgemm(a, b, use_kernel=True)   # route="auto"
     out  = execute(plan, a, b)                  # SpGEMMOut
     c    = reassemble(plan, out, ncols=b.ncols) # host CSR
 """
@@ -192,11 +193,12 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
 
     ``a``/``b`` are host ``CSR``; planning is a launch-time host step, and
     the prediction pass runs on ``device`` (default: the CUDA card; with
-    none present this raises unless ``device="cpu"`` is given).  Only the
-    ESC route executes in this port, so pass ``route="esc"``: an SPA or BIN
-    bucket raises :class:`PlanMismatchError` when it is reached.  Any of the
-    JAX planner's distributed, panel, template, quantization, retry or
-    watchdog options raises :class:`PlanMismatchError` (not ported yet).
+    none present this raises unless ``device="cpu"`` is given).  ``route``
+    picks each bucket's accumulator: ``"auto"`` by the analytic cost model,
+    or ``"esc"``/``"spa"``/``"bin"`` for every bucket; the plan's buckets,
+    prediction and capacities do not depend on it.  Any of the JAX
+    planner's distributed, panel, template, quantization, retry or watchdog
+    options raises :class:`PlanMismatchError` (not ported yet).
     """
     for name, value in unported.items():
         if name not in _UNPORTED:
@@ -205,7 +207,7 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
         if value != _UNPORTED[name]:
             raise PlanMismatchError(
                 f"plan_spgemm({name}=...) is not ported yet: the port plans "
-                "single-device ESC execution only", field=name)
+                "single-device execution only", field=name)
     dev = csr_mod.resolve_device(device)
     operands_validated = 0
     if validate:
@@ -268,14 +270,17 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
 # --------------------------------------------------------------------------- #
 def _bucket_meta(bucket: binning_mod.RowBucket, cap: int) -> tuple:
     """Hashable static execution metadata for one bucket."""
-    return (bucket.deg_a, bucket.deg_b, bucket.route, int(cap))
+    return (bucket.deg_a, bucket.deg_b, bucket.block_rows, bucket.route,
+            bucket.tile_n, bucket.n_tiles, bucket.span, int(cap))
 
 
 def _run_bucket(ad: CSRDevice, bd: CSRDevice, rows: torch.Tensor, meta: tuple,
                 use_kernel: bool) -> SpGEMMOut:
-    deg_a, deg_b, route, cap = meta
-    return routed_spgemm_rows(ad, bd, rows, row_capacity=cap, deg_a=deg_a,
-                              deg_b=deg_b, route=route, use_kernel=use_kernel)
+    deg_a, deg_b, block_rows, route, tile_n, n_tiles, span, cap = meta
+    return routed_spgemm_rows(
+        ad, bd, rows, row_capacity=cap, deg_a=deg_a, deg_b=deg_b,
+        block_rows=block_rows, route=route, tile_n=tile_n, n_tiles=n_tiles,
+        span=span, use_kernel=use_kernel)
 
 
 def _build_local_executor(metas: tuple, nrows: int, cap_out: int,

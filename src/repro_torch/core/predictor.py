@@ -9,9 +9,11 @@ distinct ones, and sum over the sample:
 
 The same counts drive the reference design  Z1* = z*/p  (paper eq. 2).
 
-With ``use_kernel`` the per-bucket counting runs in the port's hand-written
-CUDA kernels (``repro_torch.kernels``) on a CUDA tensor; without it — and
-always on a CPU tensor — the plain tensor-op versions below run.  Integer
+Each degree bucket counts distinct columns on its planned accumulator route:
+ESC sorts, SPA and BIN set bits in a bitmask.  With ``use_kernel`` the
+per-bucket counting runs in the port's hand-written CUDA kernels
+(``repro_torch.kernels``) on a CUDA tensor; without it — and always on a CPU
+tensor — the plain tensor-op versions below run.  Integer
 counts are int32 and the eq. 4 chain is float32 in the JAX package's order
 of operations, so both packages predict the same numbers.
 """
@@ -23,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .binning import BinningPlan, ceil_pow2
+from .binning import ROUTE_BIN, ROUTE_SPA, BinningPlan, ceil_pow2
 from .csr import COL_SENTINEL, CSRDevice, expand_products, row_chunks
 from .flop import flop_per_row
 
@@ -65,18 +67,34 @@ def count_distinct_sorted(cols: torch.Tensor) -> torch.Tensor:
     return first[:, 0] + ascents.sum(dim=-1, dtype=torch.int32)
 
 
+def count_distinct_dense(cols: torch.Tensor, ncols_b: int,
+                         span: int = 0) -> torch.Tensor:
+    """Distinct non-sentinel entries per row via the bitmask accumulator —
+    the SPA and BIN routes' plain path.  A distinct count is a property of
+    the column set, so this equals :func:`count_distinct_sorted` exactly.
+    ``span`` (the planner's per-row column-extent bound, 0 → B's column
+    space) sizes the bitmask, addressed relative to each row's smallest
+    column."""
+    from repro_torch.kernels.accumulator import bitmask_distinct
+    n = min(int(span), ncols_b) if span else ncols_b
+    return bitmask_distinct(cols, -(-n // 32))
+
+
 def sampled_counts(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
                    max_deg_a: int, max_deg_b: int,
-                   rownnz_b: torch.Tensor | None = None
+                   rownnz_b: torch.Tensor | None = None,
+                   count=count_distinct_sorted
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(z, f) over ``rows`` at the given degree bounds, expanded in chunks
-    so a wide bucket never materialises all its rows at once."""
+    so a wide bucket never materialises all its rows at once.  ``count``
+    maps a chunk's product columns to its distinct count per row (ESC's
+    sort by default)."""
     z = torch.zeros((), dtype=torch.int32, device=a.rpt.device)
     f = torch.zeros((), dtype=torch.int32, device=a.rpt.device)
     for lo, hi in row_chunks(rows.shape[0], max_deg_a * max_deg_b):
         cols, valid = gather_sampled_products(a, b, rows[lo:hi], max_deg_a,
                                               max_deg_b, rownnz_b=rownnz_b)
-        z = z + count_distinct_sorted(cols).sum(dtype=torch.int32)
+        z = z + count(cols).sum(dtype=torch.int32)
         f = f + valid.sum(dtype=torch.int32)
     return z, f
 
@@ -122,10 +140,9 @@ def binned_symbolic_counts(a: CSRDevice, b: CSRDevice, rows,
                            plan: BinningPlan, use_kernel: bool = False
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Σ over buckets of the sampled (z*, f*), each bucket at its own degree
-    bounds — exact ints, equal to the global-pad totals bit for bit.
-
-    Only the ESC route is ported: a bucket planned on SPA or BIN raises
-    :class:`~repro_torch.core.errors.PlanMismatchError`."""
+    bounds and on its planned accumulator route — exact ints, so the totals
+    equal the global-pad / all-ESC totals bit for bit whatever the
+    routing."""
     from repro_torch.kernels import ops as kops
     dev = a.rpt.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -139,7 +156,12 @@ def binned_symbolic_counts(a: CSRDevice, b: CSRDevice, rows,
         if use_kernel:
             zb, fb, _ = kops.fused_flop_symbolic_routed(
                 a, b, sub_d, max_deg_a=bucket.deg_a, max_deg_b=bucket.deg_b,
-                route=bucket.route, rownnz_b=rownnz_b)
+                route=bucket.route, span=bucket.span, rownnz_b=rownnz_b)
+        elif bucket.route in (ROUTE_SPA, ROUTE_BIN):
+            zb, fb = sampled_counts(
+                a, b, sub_d, bucket.deg_a, bucket.deg_b, rownnz_b=rownnz_b,
+                count=lambda cols, span=bucket.span: count_distinct_dense(
+                    cols, b.ncols, span))
         else:
             zb, fb = sampled_counts(a, b, sub_d, bucket.deg_a, bucket.deg_b,
                                     rownnz_b=rownnz_b)

@@ -181,10 +181,46 @@ def max_smem(name: str, device) -> int:
     return _SMEM[key]
 
 
-# Global scratch the ESC kernels may take for rows whose workspace does not
-# fit shared memory (power-law hub buckets): one slice per resident block.
+# Global scratch the row kernels may take: for rows whose workspace does not
+# fit shared memory (power-law hub buckets), and for the BIN kernel's
+# scattered pairs.  One slice per resident block.
 SCRATCH_BYTES = 1 << 30
 STATIC_SMEM_RESERVE = 1024   # the kernels' own static shared memory
+
+
+def align16(n: int) -> int:
+    return -(-int(n) // 16) * 16
+
+
+def row_threads(lanes: int) -> int:
+    """Threads of a one-block-per-row kernel whose rows hold up to ``lanes``
+    products (a power of two): two products a thread, 32 to 512."""
+    return min(512, max(32, lanes // 2))
+
+
+def block_workspace(name: str, device, ws_bytes: int, threads: int,
+                    n_rows: int, pair_bytes: int = 0):
+    """Launch shape of a one-block-per-row kernel: ``(grid, threads,
+    smem_bytes, scratch, slice_bytes, ws_off)``.
+
+    Each resident block gets a ``slice_bytes`` slice of the global
+    ``scratch`` tensor (``None`` when no block needs one), holding first
+    ``pair_bytes`` of the kernel's own global buffers, then the row's
+    ``ws_bytes`` workspace when that does not fit the card's opt-in shared
+    memory: ``ws_off`` is then its offset in the slice, else -1 and the
+    workspace is ``smem_bytes`` of dynamic shared memory.  Blocks loop over
+    the rows when the grid is cut to keep scratch within
+    :data:`SCRATCH_BYTES`; a workspace in scratch runs 1024 threads."""
+    in_smem = ws_bytes + STATIC_SMEM_RESERVE <= max_smem(name, device)
+    slice_bytes = align16(pair_bytes) + (0 if in_smem else align16(ws_bytes))
+    if slice_bytes == 0:
+        return n_rows, threads, ws_bytes, None, 0, -1
+    grid = max(1, min(n_rows, SCRATCH_BYTES // slice_bytes))
+    scratch = torch.empty(grid * slice_bytes, dtype=torch.uint8,
+                          device=device)
+    if in_smem:
+        return grid, threads, ws_bytes, scratch, slice_bytes, -1
+    return grid, 1024, 0, scratch, slice_bytes, align16(pair_bytes)
 
 
 def row_workspace(name: str, device, max_deg_a: int, f2: int,
@@ -192,13 +228,10 @@ def row_workspace(name: str, device, max_deg_a: int, f2: int,
     """Launch shape of a one-block-per-row ESC kernel: ``(ws_bytes, grid,
     threads, smem_bytes, scratch)``.  A row's workspace (``csrc/common.cuh``)
     is A's row prefix (``max_deg_a + 1`` ints, 16-byte aligned) and ``f2``
-    lanes of ``lane_bytes`` each.  It lives in dynamic shared memory when it
-    fits the card's opt-in limit (``scratch`` is then ``None``), else in a
-    global scratch tensor of ``grid`` slices."""
-    ws_bytes = -(-4 * (max_deg_a + 1) // 16) * 16 + lane_bytes * f2
-    if ws_bytes + STATIC_SMEM_RESERVE <= max_smem(name, device):
-        threads = min(512, max(32, f2 // 2))
-        return ws_bytes, n_rows, threads, ws_bytes, None
-    grid = max(1, min(n_rows, SCRATCH_BYTES // ws_bytes))
-    scratch = torch.empty(grid * ws_bytes, dtype=torch.uint8, device=device)
-    return ws_bytes, grid, 1024, 0, scratch
+    lanes of ``lane_bytes`` each, in shared memory when it fits (``scratch``
+    is then ``None``), else in a global scratch tensor of ``grid`` slices
+    (:func:`block_workspace`)."""
+    ws_bytes = align16(4 * (max_deg_a + 1)) + lane_bytes * f2
+    grid, threads, smem, scratch, _, _ = block_workspace(
+        name, device, ws_bytes, row_threads(f2), n_rows)
+    return ws_bytes, grid, threads, smem, scratch

@@ -1,4 +1,4 @@
-"""The port's three kernels against the JAX package's Pallas kernels (run in
+"""The port's six kernels against the JAX package's Pallas kernels (run in
 interpret mode, as tests/test_kernels.py runs them) and against its jnp
 twins, on tiny inputs.  On the CPU each wrapper runs its plain version;
 the CUDA kernels themselves are held against those plain versions on a card
@@ -10,11 +10,14 @@ import torch
 
 from repro.core import csr as jcsr
 from repro.core import spgemm as jspgemm
+from repro.kernels import accumulator as jacc_k
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.sparse import random as jrand
 from repro_torch import convert
+from repro_torch.core.csr import COL_SENTINEL
 from repro_torch.core.errors import PlanMismatchError
+from repro_torch.kernels import accumulator as tacc_k
 from repro_torch.kernels import flop_per_row as tflop_k
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -125,17 +128,127 @@ def test_spgemm_numeric_matches_pallas_and_jnp(row_capacity):
     np.testing.assert_array_equal(oracle[0].numpy(), got[0].numpy())
 
 
+def _banded(m, n, deg, band, seed):
+    """A banded operand with standard-normal values (narrow extents: the
+    SPA route's regime)."""
+    x = jrand.banded(m, n, deg, band, seed=seed)
+    x.val[:] = np.random.default_rng(seed).standard_normal(x.nnz).astype(
+        np.float32)
+    return x
+
+
+def test_extent_relative_and_bitmask_distinct_match_jax():
+    rng = np.random.default_rng(7)
+    cols = (rng.integers(0, 40, size=(6, 32)) + 100 * np.arange(6)[:, None]
+            ).astype(np.int32)
+    cols[rng.random(cols.shape) < 0.3] = COL_SENTINEL
+    cols[2] = COL_SENTINEL                       # a row without products
+    rel, lo = tacc_k.extent_relative(torch.from_numpy(cols))
+    jrel, jlo = jacc_k.extent_relative(jnp.asarray(cols))
+    np.testing.assert_array_equal(rel.numpy(), np.asarray(jrel))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    assert int(lo[2]) == 0 and bool((rel[2] == COL_SENTINEL).all())
+    for n_words in (1, 2):          # one word drops columns past lane 31
+        np.testing.assert_array_equal(
+            tacc_k.bitmask_distinct(torch.from_numpy(cols), n_words).numpy(),
+            np.asarray(jacc_k.bitmask_distinct(jnp.asarray(cols), n_words)))
+
+
+@pytest.mark.parametrize("span", [0, 64])
+def test_fused_flop_symbolic_bitmask_matches_pallas_and_esc(span):
+    samples = 13            # not a multiple of the Pallas block: padded rows
+    a = _banded(80, 80, 4, 6, seed=91)
+    ja, jb, ta, tb = _pair(a, a)
+    rows = np.random.default_rng(samples).integers(
+        0, a.nrows, samples).astype(np.int32)
+    da = db = int(a.row_nnz.max())
+    zp, fp, flp = jops.fused_flop_symbolic_routed(
+        ja, jb, jnp.asarray(rows), max_deg_a=da, max_deg_b=db, route="spa",
+        span=span, block_samples=8)
+    z, f, fl = tacc_k.fused_flop_symbolic_bitmask(
+        ta, tb, torch.from_numpy(rows), max_deg_a=da, max_deg_b=db,
+        span=span)
+    assert (int(z), int(f)) == (int(zp), int(fp))
+    np.testing.assert_array_equal(fl.numpy(), np.asarray(flp))
+    # bit for bit the ESC counts, and the unfused oracles'
+    ze, fe, fle = tsym_k.fused_flop_symbolic(ta, tb, torch.from_numpy(rows),
+                                             max_deg_a=da, max_deg_b=db)
+    assert (int(z), int(f)) == (int(ze), int(fe))
+    np.testing.assert_array_equal(fl.numpy(), fle.numpy())
+    zr, fr = tref.bitmask_symbolic_ref(ta, tb, torch.from_numpy(rows), da,
+                                       db)
+    zj, fj = jref.bitmask_symbolic_ref(ja, jb, jnp.asarray(rows), da, db)
+    assert (int(zr), int(fr)) == (int(zj), int(fj)) == (int(z), int(f))
+
+
+@pytest.mark.parametrize("row_capacity", [4, 32])
+@pytest.mark.parametrize("route", ["spa", "bin"])
+def test_accumulator_numeric_matches_pallas_and_jnp(route, row_capacity):
+    """SPA and BIN through the JAX package's Pallas kernels + compact_dense,
+    against the port's wrappers (plain on the CPU), two tiles / bins wide;
+    the small capacity truncates and must drop the same entries as ESC."""
+    a = _banded(64, 300, 5, 150, seed=101)
+    b = _banded(300, 300, 4, 40, seed=103)
+    ja, jb, ta, tb = _pair(a, b)
+    rows = np.arange(0, 24, dtype=np.int32)
+    da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+    tile_n, n_tiles = 128, 4
+    jfn = jops.spgemm_numeric_spa if route == "spa" else jops.spgemm_numeric_bin
+    want = jfn(ja, jb, jnp.asarray(rows), max_deg_a=da, max_deg_b=db,
+               row_capacity=row_capacity, tile_n=tile_n, n_tiles=n_tiles,
+               block_rows=8)
+    tfn = tacc_k.spa_numeric if route == "spa" else tacc_k.bin_numeric
+    got = tfn(ta, tb, torch.from_numpy(rows), max_deg_a=da, max_deg_b=db,
+              row_capacity=row_capacity, tile_n=tile_n, n_tiles=n_tiles)
+    esc = tnum_k.spgemm_numeric(ta, tb, torch.from_numpy(rows), max_deg_a=da,
+                                max_deg_b=db, row_capacity=row_capacity)
+    for ref in (want, esc):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+        assert int(got[3]) == int(ref[3])
+        _assert_vals_close(got[1].numpy(), ref[1])
+    if row_capacity == 4:
+        assert int(got[3]) > 0      # the small capacity truly truncates
+    oracle = (tref.spa_numeric_ref(ta, tb, torch.from_numpy(rows), da, db,
+                                   row_capacity) if route == "spa" else
+              tref.bin_numeric_ref(ta, tb, torch.from_numpy(rows), da, db,
+                                   row_capacity, tile_n, n_tiles))
+    np.testing.assert_array_equal(oracle[0].numpy(), got[0].numpy())
+    np.testing.assert_array_equal(oracle[2].numpy(), got[2].numpy())
+
+
 @pytest.mark.parametrize("route", ["spa", "bin", "nope"])
 def test_ops_refuse_unported_and_unknown_routes(route):
-    a, b = _operands(71)
-    _, _, ta, tb = _pair(a, b)
-    rows = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(PlanMismatchError):
-        tops.fused_flop_symbolic_routed(ta, tb, rows, max_deg_a=4,
-                                        max_deg_b=4, route=route)
-    with pytest.raises(PlanMismatchError):
-        tops.spgemm_numeric_routed(ta, tb, rows, max_deg_a=4, max_deg_b=4,
-                                   row_capacity=8, route=route)
+    """Every planned route now runs through ``ops`` and gives what the JAX
+    package's routed ops give (their tiling derived from the span when the
+    caller passes none); only an unknown route is refused."""
+    a = _banded(60, 60, 4, 8, seed=71)
+    ja, jb, ta, tb = _pair(a, a)
+    rows = np.arange(16, dtype=np.int32)
+    kw = dict(max_deg_a=4, max_deg_b=4, route=route)
+    if route == "nope":
+        with pytest.raises(PlanMismatchError):
+            tops.fused_flop_symbolic_routed(ta, tb, torch.from_numpy(rows),
+                                            **kw)
+        with pytest.raises(PlanMismatchError):
+            tops.spgemm_numeric_routed(ta, tb, torch.from_numpy(rows),
+                                       row_capacity=8, **kw)
+        return
+    span = 32
+    got = tops.fused_flop_symbolic_routed(ta, tb, torch.from_numpy(rows),
+                                          span=span, **kw)
+    want = jops.fused_flop_symbolic_routed(ja, jb, jnp.asarray(rows),
+                                           span=span, **kw)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    got = tops.spgemm_numeric_routed(ta, tb, torch.from_numpy(rows),
+                                     row_capacity=8, span=span, **kw)
+    want = jops.spgemm_numeric_routed(ja, jb, jnp.asarray(rows),
+                                      row_capacity=8, span=span, **kw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[3]) == int(want[3])
+    _assert_vals_close(got[1].numpy(), want[1])
 
 
 def test_wrappers_raise_off_the_cpu_without_a_kernel():
@@ -154,3 +267,10 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel():
     with pytest.raises(RuntimeError):
         tnum_k.spgemm_numeric(ma, mb, rows, max_deg_a=4, max_deg_b=4,
                               row_capacity=8)
+    with pytest.raises(RuntimeError):
+        tacc_k.fused_flop_symbolic_bitmask(ma, mb, rows, max_deg_a=4,
+                                           max_deg_b=4)
+    for numeric in (tacc_k.spa_numeric, tacc_k.bin_numeric):
+        with pytest.raises(RuntimeError):
+            numeric(ma, mb, rows, max_deg_a=4, max_deg_b=4, row_capacity=8,
+                    tile_n=128, n_tiles=1)

@@ -1,6 +1,7 @@
-"""The slice as a whole: ``plan_spgemm(route="esc")`` → ``execute`` →
-``reassemble`` in the port against the JAX package on all five mini
-families (same operands, same sample rows) and against the dense oracle;
+"""The slice as a whole: ``plan_spgemm`` → ``execute`` → ``reassemble`` in
+the port against the JAX package on all five mini families (same operands,
+same sample rows), with the default ``route="auto"``, and forced ESC, SPA
+and BIN, and against the dense oracle;
 plus the executor cache, the options the port refuses, and the rule that
 the plan runs on the CUDA card unless the CPU is asked for."""
 import numpy as np
@@ -41,27 +42,29 @@ def _rows(jm, n=40):
     return np.random.default_rng(2).integers(0, jm.nrows, n)
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_plan_execute_reassemble_matches_jax(family):
+def _assert_slice_matches_jax(family, route, use_kernel):
     jm = _MINI[family]
     tm = _host(jm)
     rows = _rows(jm)
     # a safety factor wide enough that no row overflows on any family, so
     # the reassembled product can be held against the dense oracle
-    jp = jplan_mod.plan_spgemm(jm, jm, route="esc", sample_rows=rows,
+    jp = jplan_mod.plan_spgemm(jm, jm, route=route, sample_rows=rows,
                                safety=4.0)
     jout = jplan_mod.execute(jp, jm, jm)
-    tp = tplan_mod.plan_spgemm(tm, tm, route="esc", use_kernel=True,
+    tp = tplan_mod.plan_spgemm(tm, tm, route=route, use_kernel=use_kernel,
                                sample_rows=rows, safety=4.0, device="cpu")
     tout = tplan_mod.execute(tp, tm, tm)
-    # the same executor key, bar the use_kernel flag at index 3
+    # the same executor key (routes, tiles and spans included), bar the
+    # use_kernel flag at index 3
     assert tp.key[:3] + tp.key[4:] == jp.key[:3] + jp.key[4:]
+    assert tp.binning.route_rows() == jp.binning.route_rows()
     assert tp.alloc.bucket_capacities == jp.alloc.bucket_capacities
     np.testing.assert_array_max_ulp(np.float32(tp.predicted_nnz),
                                     np.float32(jp.predicted_nnz), maxulp=1)
     np.testing.assert_array_max_ulp(np.float32(tp.compression_ratio),
                                     np.float32(jp.compression_ratio),
                                     maxulp=1)
+    np.testing.assert_array_equal(tp.structure, np.asarray(jp.structure))
     np.testing.assert_array_equal(tout.col.numpy(), np.asarray(jout.col))
     np.testing.assert_array_equal(tout.row_nnz.numpy(),
                                   np.asarray(jout.row_nnz))
@@ -76,6 +79,25 @@ def test_plan_execute_reassemble_matches_jax(family):
     np.testing.assert_array_equal(tc.col, jc.col)
     np.testing.assert_allclose(tc.to_dense(), spgemm_dense_oracle(jm, jm),
                                rtol=1e-5, atol=1e-5)
+    return tp
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_plan_execute_reassemble_matches_jax(family):
+    _assert_slice_matches_jax(family, "esc", use_kernel=True)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_auto_route_plan_execute_reassemble_matches_jax(family, use_kernel):
+    """The default route: band and fem plan all SPA, pl and rmat partly
+    BIN, er all ESC."""
+    tp = _assert_slice_matches_jax(family, "auto", use_kernel)
+    routes = tp.binning.route_rows()
+    if family in ("mini_band", "mini_fem"):
+        assert routes["spa"] == tp.shape_a[0]
+    if family in ("mini_pl", "mini_rmat"):
+        assert routes["bin"] > 0 and routes["esc"] > 0
 
 
 def test_plain_and_kernel_paths_agree_and_share_the_cache():
@@ -124,10 +146,12 @@ def test_unported_options_are_refused(option, value):
 
 @pytest.mark.parametrize("route", ["spa", "bin"])
 def test_spa_and_bin_plans_are_refused(route):
-    tm = _host(_MINI["mini_band"])
-    with pytest.raises(PlanMismatchError, match="not ported yet"):
-        tplan_mod.plan_spgemm(tm, tm, route=route, device="cpu",
-                              sample_rows=_rows(tm))
+    """Forced SPA and BIN plans, once refused, run and give what the JAX
+    package gives, plain and through the kernel wrappers."""
+    for family in ("mini_band", "mini_pl"):
+        for use_kernel in (False, True):
+            tp = _assert_slice_matches_jax(family, route, use_kernel)
+            assert tp.binning.route_rows()[route] == tp.shape_a[0]
 
 
 def test_operands_must_match_the_plan():

@@ -18,7 +18,6 @@ from repro_torch import convert
 from repro_torch.core import binning as tbinning
 from repro_torch.core import predictor as tpred
 from repro_torch.core.csr import COL_SENTINEL
-from repro_torch.core.errors import PlanMismatchError
 
 torch.set_num_threads(1)
 
@@ -64,6 +63,40 @@ def test_count_distinct_sorted_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("span", [0, 8, 64])
+def test_count_distinct_dense_matches_jax(span):
+    """Equal to the sorted count while the span covers the extent; a span
+    too narrow drops the same columns in both packages."""
+    rng = np.random.default_rng(4)
+    cols = (rng.integers(0, 30, size=(7, 40)) + 50 * np.arange(7)[:, None]
+            ).astype(np.int32)
+    cols[rng.random(cols.shape) < 0.3] = COL_SENTINEL
+    cols[5] = COL_SENTINEL
+    got = tpred.count_distinct_dense(torch.from_numpy(cols), 400, span)
+    want = jpred.count_distinct_dense(jnp.asarray(cols), 400, span)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if span != 8:
+        np.testing.assert_array_equal(
+            got.numpy(), tpred.count_distinct_sorted(
+                torch.from_numpy(cols)).numpy())
+
+
+@pytest.mark.parametrize("route", ["auto", "spa", "bin"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_routed_binned_symbolic_counts_match_jax(family, route):
+    """Each bucket counts on its route (the bitmask on SPA and BIN), and
+    the totals equal JAX's and the all-ESC totals, plain and through the
+    kernel wrappers."""
+    jd, td, jplan, tplan, rows = _case(_MINI[family], route=route)
+    zj, fj = jpred.binned_symbolic_counts(jd, jd, jnp.asarray(rows), jplan)
+    ze, fe = tpred.binned_symbolic_counts(td, td, torch.from_numpy(rows),
+                                          _case(_MINI[family])[3])
+    for use_kernel in (False, True):
+        zt, ft = tpred.binned_symbolic_counts(td, td, torch.from_numpy(rows),
+                                              tplan, use_kernel=use_kernel)
+        assert (int(zt), int(ft)) == (int(zj), int(fj)) == (int(ze), int(fe))
+
+
 @pytest.mark.parametrize("use_kernel", [False, True])
 @pytest.mark.parametrize("family", FAMILIES)
 def test_binned_symbolic_counts_match_jax(family, use_kernel):
@@ -85,16 +118,29 @@ def test_proposed_predict_binned_matches_jax(family):
         _assert_pred_matches(tp, jp)
 
 
-def test_proposed_predict_binned_matches_jax_pallas_kernels():
-    """The JAX side through its Pallas kernels (interpret mode): the
-    per-bucket FLOP kernel and the fused symbolic kernel."""
-    jm = jrand.power_law(96, 96, 3, 1.6, seed=9)
-    jd, td, jplan, tplan, rows = _case(jm, samples=24, seed=4)
+def _assert_predict_matches_jax_pallas_kernels(jm, route):
+    jd, td, jplan, tplan, rows = _case(jm, route=route, samples=24, seed=4)
     jp = jpred.proposed_predict_binned(jd, jd, jnp.asarray(rows), jplan,
                                        use_kernel=True)
     tp = tpred.proposed_predict_binned(td, td, torch.from_numpy(rows), tplan,
                                        use_kernel=True)
     _assert_pred_matches(tp, jp)
+    return tplan
+
+
+def test_proposed_predict_binned_matches_jax_pallas_kernels():
+    """The JAX side through its Pallas kernels (interpret mode): the
+    per-bucket FLOP kernel and the fused symbolic kernel."""
+    _assert_predict_matches_jax_pallas_kernels(
+        jrand.power_law(96, 96, 3, 1.6, seed=9), "esc")
+
+
+def test_auto_route_predict_binned_matches_jax_pallas_kernels():
+    """A banded matrix's auto-routed SPA buckets: the JAX side through its
+    bitmask symbolic Pallas kernel (interpret mode)."""
+    tplan = _assert_predict_matches_jax_pallas_kernels(
+        jrand.banded(96, 96, 12, 8, seed=9), "auto")
+    assert tplan.route_rows()["spa"] > 0
 
 
 @pytest.mark.parametrize("family", ["mini_pl", "mini_fem"])
@@ -134,8 +180,11 @@ def test_allocation_plans_match_jax(family, pow2):
 
 
 def test_spa_buckets_are_refused():
+    """SPA buckets, once refused, predict what the JAX package predicts,
+    plain and through the kernel wrappers."""
     jd, td, jplan, tplan, rows = _case(_MINI["mini_band"], route="spa")
+    jp = jpred.proposed_predict_binned(jd, jd, jnp.asarray(rows), jplan)
     for use_kernel in (False, True):
-        with pytest.raises(PlanMismatchError, match="not ported yet"):
-            tpred.binned_symbolic_counts(td, td, torch.from_numpy(rows),
-                                         tplan, use_kernel=use_kernel)
+        tp = tpred.proposed_predict_binned(td, td, torch.from_numpy(rows),
+                                           tplan, use_kernel=use_kernel)
+        _assert_pred_matches(tp, jp)

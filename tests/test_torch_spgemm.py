@@ -1,7 +1,7 @@
-"""Parity of the port's numeric phase (ESC route) with the JAX package's jnp
-twins: ``col``, ``row_nnz`` and ``overflow`` match exactly, ``val`` to
-rtol 1e-5 with atol 1e-6 × the row's largest |value| (run sums are taken in
-another order).  The whole slice, executor included, is held against the JAX
+"""Parity of the port's numeric phase (ESC, SPA and BIN routes) with the JAX
+package's jnp twins: ``col``, ``row_nnz`` and ``overflow`` match exactly,
+``val`` to rtol 1e-5 with atol 1e-6 × the row's largest |value| (run sums
+are taken in another order).  The whole slice, executor included, is held against the JAX
 package on all five families in test_torch_plan.py."""
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +19,6 @@ from repro_torch import convert
 from repro_torch.core import binning as tbinning
 from repro_torch.core import predictor as tpred
 from repro_torch.core import spgemm as tspgemm
-from repro_torch.core.errors import PlanMismatchError
 from repro_torch.sparse.formats import CSR
 
 torch.set_num_threads(1)
@@ -47,12 +46,12 @@ def _pair(jm):
     return jd, td
 
 
-def _plans(jm):
+def _plans(jm, route="esc"):
     """The JAX bucket plan and the port's copy built from the same host
     arrays (their equality is pinned in test_torch_csr.py)."""
     host = CSR(rpt=jm.rpt, col=jm.col, val=jm.val, shape=jm.shape)
-    return (jbinning.build_plan(jm, jm, route="esc"),
-            tbinning.build_plan(host, host, route="esc"))
+    return (jbinning.build_plan(jm, jm, route=route),
+            tbinning.build_plan(host, host, route=route))
 
 
 def _assert_out_matches(got, want):
@@ -81,12 +80,10 @@ def test_spgemm_rows_matches_jax(family, row_capacity):
     _assert_out_matches(got, want)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-@pytest.mark.parametrize("family", ["mini_band", "mini_fem"])
-def test_spgemm_binned_matches_jax_and_the_dense_oracle(family, use_kernel):
+def _assert_binned_matches_jax(family, use_kernel, route):
     jm = _MINI[family]
     jd, td = _pair(jm)
-    jplan, tplan = _plans(jm)
+    jplan, tplan = _plans(jm, route)
     rows = np.random.default_rng(1).integers(0, jm.nrows, 40)
     jp = jpred.proposed_predict_binned(jd, jd, jnp.asarray(rows), jplan)
     alloc_j = jpred.BinnedAllocationPlan.from_prediction(
@@ -99,11 +96,26 @@ def test_spgemm_binned_matches_jax_and_the_dense_oracle(family, use_kernel):
     want = jspgemm.spgemm_binned(jd, jd, jplan, alloc=alloc_j)
     got = tspgemm.spgemm_binned(td, td, tplan, alloc=alloc_t,
                                 use_kernel=use_kernel)
+    if route == "auto":      # these families plan every row on SPA
+        assert tplan.route_rows()["spa"] == jm.nrows
     _assert_out_matches(got, want)
     if int(got.overflow) == 0:
         np.testing.assert_allclose(
             tspgemm.dense_of(got, jm.ncols).numpy(),
             spgemm_dense_oracle(jm, jm), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("family", ["mini_band", "mini_fem"])
+def test_spgemm_binned_matches_jax_and_the_dense_oracle(family, use_kernel):
+    _assert_binned_matches_jax(family, use_kernel, "esc")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("family", ["mini_band", "mini_fem"])
+def test_auto_spgemm_binned_matches_jax_and_the_dense_oracle(family,
+                                                            use_kernel):
+    _assert_binned_matches_jax(family, use_kernel, "auto")
 
 
 def test_spgemm_binned_uniform_capacity_overflow_matches_jax():
@@ -116,11 +128,69 @@ def test_spgemm_binned_uniform_capacity_overflow_matches_jax():
     _assert_out_matches(got, want)
 
 
+@pytest.mark.parametrize("row_capacity", [8, 64])
+@pytest.mark.parametrize("family", ["mini_pl", "mini_band"])
+def test_spgemm_rows_spa_and_bin_match_jax(family, row_capacity):
+    jm = _MINI[family]
+    jd, td = _pair(jm)
+    rows = np.random.default_rng(6).integers(0, jm.nrows, 50).astype(np.int32)
+    da = int(jm.row_nnz.max())
+    kw = dict(row_capacity=row_capacity, max_deg_a=da, max_deg_b=da)
+    for span in (0, 256):
+        want = jspgemm.spgemm_rows_spa(jd, jd, jnp.asarray(rows),
+                                       block_rows=16, span=span, **kw)
+        got = tspgemm.spgemm_rows_spa(td, td, torch.from_numpy(rows),
+                                      span=span, **kw)
+        _assert_out_matches(got, want)
+    want = jspgemm.spgemm_rows_bin(jd, jd, jnp.asarray(rows), block_rows=16,
+                                   tile_n=128, n_tiles=2, **kw)
+    got = tspgemm.spgemm_rows_bin(td, td, torch.from_numpy(rows), tile_n=128,
+                                  n_tiles=2, **kw)
+    _assert_out_matches(got, want)
+
+
+@pytest.mark.parametrize("col_offset", [False, True])
+@pytest.mark.parametrize("row_capacity", [3, 16])
+def test_compact_dense_matches_jax(row_capacity, col_offset):
+    """Capacity below a row's nnz drops its last columns but keeps the true
+    nnz; a sum that cancels to 0.0 stays an entry."""
+    rng = np.random.default_rng(11)
+    present = rng.random((5, 24)) < 0.4
+    present[0] = False                           # an empty row
+    acc = np.where(present, rng.standard_normal((5, 24)), 0.0).astype(
+        np.float32)
+    acc[1, np.flatnonzero(present[1])[:2]] = 0.0  # cancelled sums
+    off = (100 * np.arange(5)).astype(np.int32) if col_offset else None
+    want = jspgemm.compact_dense(jnp.asarray(acc), jnp.asarray(present),
+                                 row_capacity,
+                                 col_offset=None if off is None
+                                 else jnp.asarray(off))
+    got = tspgemm.compact_dense(torch.from_numpy(acc),
+                                torch.from_numpy(present), row_capacity,
+                                col_offset=None if off is None
+                                else torch.from_numpy(off))
+    _assert_out_matches(tspgemm.SpGEMMOut(*got), jspgemm.SpGEMMOut(*want))
+    assert int(got[2][1]) == int(present[1].sum())   # zeros still count
+    if row_capacity == 3:
+        assert int(got[3]) > 0
+
+
 def test_routed_spgemm_rows_refuses_unported_routes():
-    _, td = _pair(_MINI["mini_er"])
-    rows = torch.arange(8, dtype=torch.int32)
-    for use_kernel in (False, True):
-        with pytest.raises(PlanMismatchError, match="not ported yet"):
-            tspgemm.routed_spgemm_rows(td, td, rows, row_capacity=8, deg_a=4,
-                                       deg_b=4, route="spa",
-                                       use_kernel=use_kernel)
+    """The routes once refused here run, plain and through the kernel
+    wrappers, and give what the JAX package's dispatch gives — including
+    its rule that a BIN bucket without a bin layout runs ESC."""
+    jm = _MINI["mini_pl"]
+    jd, td = _pair(jm)
+    rows = np.random.default_rng(8).integers(0, jm.nrows, 40).astype(np.int32)
+    da = int(jm.row_nnz.max())
+    for route, tile_n, n_tiles in ((r, t, n) for r in ("spa", "bin")
+                                   for t, n in ((0, 0), (128, 4))):
+        kw = dict(row_capacity=16, deg_a=da, deg_b=da, block_rows=8,
+                  route=route, tile_n=tile_n, n_tiles=n_tiles, span=512)
+        want = jspgemm.routed_spgemm_rows(jd, jd, jnp.asarray(rows), **kw)
+        for use_kernel in (False, True):
+            got = tspgemm.routed_spgemm_rows(td, td, torch.from_numpy(rows),
+                                             use_kernel=use_kernel, **kw)
+            _assert_out_matches(got, want)
+
+
