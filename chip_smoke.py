@@ -8,7 +8,7 @@ Run from the repository root with no arguments::
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (``nvcc``, at first use), then
 
-1. drives the main path through its two entry points, with every kernel's
+1. drives the main path through its entry points, with every kernel's
    launch count set to 0 just before each call and read just after:
    (a) the paper's predictor, ``predictor.proposed_predict_binned(...,
        use_kernel=True)``, on five suite matrices squared;
@@ -17,15 +17,28 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        (SuiteSparse cant and webbase-1M sizes);
    (c) the same with the default ``route="auto"``, which puts the banded
        and FEM products on the SPA route and R-MAT's hub rows on BIN;
+   (d) the paper's predictor at global degree bounds,
+       ``predictor.proposed_predict`` and ``reference_predict`` with
+       ``use_kernel=True``, on all seven products and (a)'s sampled rows,
+       and ``ops.bitmask_symbolic`` on the same rows;
+   (e) the quickstart flow at full size: ``AllocationPlan`` →
+       ``spgemm.spgemm(use_kernel=True)`` on the seven products, and
+       ``python -m repro_torch.quickstart`` once;
+   (f) the paper's Section VI accuracy experiment,
+       ``experiment.run_subset()``, 75 cases with their sampled counts on
+       the card, held to the committed baseline's pinned limits;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
    structure; (c)'s plan, ``col``, ``row_nnz`` and ``overflow`` against
-   (b)'s exactly (routes change no bucket, prediction or capacity); small
-   products on every route against the dense oracle;
-3. holds each kernel against its plain version at the path's bucket shapes
-   (the bitmask symbolic kernel also against the ESC one on the same
-   sampled rows) and times both, with CUDA events, beside the bound.
+   (b)'s exactly (routes change no bucket, prediction or capacity); (d)'s
+   counts and predicted nnz against (a)'s bit for bit; (e)'s ``row_nnz``
+   against the exact structure and its output against the plain
+   ``spgemm`` on the card; small products on every route against the
+   dense oracle;
+3. holds each kernel against its plain version at the path's shapes (the
+   bitmask symbolic kernels also against the ESC ones on the same sampled
+   rows) and times both, with CUDA events, beside the bound.
 
 It prints one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last
@@ -51,6 +64,13 @@ TIMED_RUNS = 5
 SAFETY = 1.3
 PREDICT_MATRICES = ("er_120k_d3", "pl_100k_d4", "rmat_80k", "band_60k_d16",
                     "fem_30k_d48")
+# (e) holds the kernel's whole global-pad output against the plain spgemm
+# where that expands at most this many product lanes on the card; wider
+# products (power-law hubs at global bounds) compare their sampled and
+# widest rows
+PLAIN_GLOBAL_LANES = 1 << 31
+WIDEST_ROWS = 64
+BASELINE = os.path.join("artifacts", "accuracy_subset_baseline.json")
 
 
 def emit(obj) -> None:
@@ -114,6 +134,13 @@ def bytes_symbolic(np, m, rows, deg_a, deg_b) -> int:
             + 8 * rows.size)
 
 
+def bytes_flop_all(np, m, deg_a) -> int:
+    """Algorithm 1 over all rows: the row pointers, A's column ids and the
+    referenced B row lengths read, one int32 FLOP written per row."""
+    ks, n_a = referenced(np, m, np.arange(m.nrows), deg_a)
+    return 4 * (m.nrows + 1) + 4 * n_a + 4 * ks.size + 4 * m.nrows
+
+
 def bytes_numeric(np, m, rows, deg_a, deg_b, cap) -> int:
     """rows + row pointers + A's entries (col, val) + referenced B rows
     (pointer, length, entries) read; the capacity slots (col, val) and the
@@ -136,9 +163,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
-    from repro_torch.core import binning, csr, oracle, plan, predictor
+    from repro_torch.core import (binning, csr, experiment, oracle, plan,
+                                  predictor, spgemm)
     from repro_torch.core import flop as flop_mod
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import accumulator as acc_k
     from repro_torch.kernels import flop_per_row as flop_k
     from repro_torch.kernels import spgemm_numeric as num_k
@@ -169,10 +198,13 @@ def main() -> int:
               shapes={n: [m.nrows, m.ncols, m.nnz] for n, m in mats}))
     kernels = (flop_k.flop_rows, sym_k.fused_flop_symbolic,
                num_k.spgemm_numeric, acc_k.fused_flop_symbolic_bitmask,
-               acc_k.spa_numeric, acc_k.bin_numeric)
+               acc_k.spa_numeric, acc_k.bin_numeric, sym_k.sampled_symbolic,
+               acc_k.bitmask_symbolic, flop_k.flop_per_row)
     names = [k.__name__ for k in kernels]
     launches = {path: dict.fromkeys(names, 0)
-                for path in ("predict", "plan_esc", "plan_auto")}
+                for path in ("predict", "plan_esc", "plan_auto",
+                             "global_predict", "global_bitmask",
+                             "global_spgemm", "experiment")}
 
     def drive(path, fn):
         """One call of a main path, every launch count set to 0 just before
@@ -205,6 +237,7 @@ def main() -> int:
     # ---- the main path, counted: plain versions and host oracles check
     # ---- each result on the way, and they launch no kernel
     exact = {}
+    binned = {}         # matrix -> (a)'s binned prediction
     for name, m in mats[:len(PREDICT_MATRICES)]:
         binplan = binning.build_plan(m, m, route="esc")
         rows = oracle.sample_rows(m.nrows, seed=0)
@@ -240,7 +273,8 @@ def main() -> int:
                   predicted_nnz=float(pred.nnz_total), exact_nnz=nnz_exact,
                   rel_err=(float(pred.nnz_total) - nnz_exact) / nnz_exact,
                   seconds=secs))
-        del ad, pred, plain
+        binned[name] = pred
+        del ad, plain
 
     def run_plan(m, route):
         """plan → execute → reassemble on the card: the plan, the output,
@@ -268,6 +302,7 @@ def main() -> int:
     num_err = dict.fromkeys(("spgemm_numeric", "spa_numeric",
                              "bin_numeric"), 0.0)
     auto_runs = {}      # matrix -> (rows per route, launch counts) of (c)
+    b_row_nnz = {}      # matrix -> (b)'s row_nnz
     for name, m in mats:
         # (b) every bucket on ESC
         (p, out, c, secs), _ = drive("plan_esc", lambda: run_plan(m, "esc"))
@@ -289,6 +324,7 @@ def main() -> int:
                 float((got_v - want[1]).abs().max()))
             del want, got_v
         row_nnz = out.row_nnz.cpu().numpy()
+        b_row_nnz[name] = row_nnz
         caps = np.asarray(p.alloc.bucket_capacities)[p.binning.row_bucket]
         overflow = int(out.overflow)
         if (overflow != int(np.maximum(row_nnz - caps, 0).sum())
@@ -354,11 +390,195 @@ def main() -> int:
                   launches=counts, **secs))
         del p, out, pa, outa, ca, ad
         torch.cuda.empty_cache()
+
+    # ---- (d) the paper's predictor at global bounds: one pad, no buckets,
+    # on (a)'s sampled rows; its integers and nnz equal (a)'s bit for bit
+    global_structure = {}   # matrix -> (d)'s predicted structure (host)
+    for name, m in mats:
+        rows = oracle.sample_rows(m.nrows, seed=0)
+        ad = csr.to_device(m, device=dev)
+        rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        da = int(m.row_nnz.max())
+        binplan = binning.build_plan(m, m, route="esc")
+        if name not in binned:      # the analogues: (a) ran on the suite
+            binned[name] = predictor.proposed_predict_binned(
+                ad, ad, rows_d, binplan, use_kernel=True)
+        want = binned[name]
+        want_ref = predictor.reference_predict_binned(ad, ad, rows_d, binplan,
+                                                      use_kernel=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (pred, ref), counts = drive("global_predict", lambda: (
+            predictor.proposed_predict(ad, ad, rows_d, da, da,
+                                       use_kernel=True),
+            predictor.reference_predict(ad, ad, rows_d, da, da,
+                                        use_kernel=True)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        floprc_host, total_host = oracle.flop_per_row(m, m)
+        host = (oracle.exact_sampled_nnz(m, m, rows),
+                int(floprc_host[rows].sum()), total_host)
+        for p_, w_ in ((pred, want), (ref, want_ref)):
+            got = (int(p_.sampled_nnz), int(p_.sampled_flop),
+                   int(p_.total_flop))
+            if got != host or got != (int(w_.sampled_nnz),
+                                      int(w_.sampled_flop),
+                                      int(w_.total_flop)):
+                fail(f"global_predict {name}: (z*, f*, F) {got} != binned "
+                     f"or host oracle {host}")
+            if not all(torch.equal(getattr(p_, k), getattr(w_, k)) for k in
+                       ("nnz_total", "compression_ratio", "structure")):
+                fail(f"global_predict {name}: prediction != the binned one")
+        # floprC exactly: the structure is floprC / r* in float32
+        if not torch.equal(pred.structure, torch.from_numpy(
+                floprc_host.astype(np.float32)).to(dev)
+                / pred.compression_ratio):
+            fail(f"global_predict {name}: floprC != host oracle")
+        if counts["sampled_symbolic"] <= 0 or counts["flop_per_row"] <= 0:
+            fail(f"global_predict {name}: kernels 7 and 9 not launched")
+        (zb, fb), bcounts = drive("global_bitmask", lambda: kops.bitmask_symbolic(
+            ad, ad, rows_d, da, da))
+        if (int(zb), int(fb)) != host[:2] or bcounts["bitmask_symbolic"] <= 0:
+            fail(f"global_bitmask {name}: (z*, f*) != host oracle or kernel "
+                 "8 not launched")
+        global_structure[name] = pred.structure.cpu().numpy()
+        nnz_exact = int(exact[name].sum()) if name in exact else None
+        emit(dict(phase="global_predict", matrix=name, samples=int(rows.size),
+                  max_deg=da, z_star=host[0], f_star=host[1],
+                  total_flop=total_host,
+                  predicted_nnz=float(pred.nnz_total),
+                  reference_nnz=float(ref.nnz_total), exact_nnz=nnz_exact,
+                  rel_err=(None if nnz_exact is None else
+                           (float(pred.nnz_total) - nnz_exact) / nnz_exact),
+                  equals_binned=True, equals_host_oracle=True,
+                  launches=counts, bitmask_launches=bcounts, seconds=secs))
+        del ad, pred, ref, want_ref
+
+    # ---- (e) the quickstart flow at full size: one global capacity from
+    # the global prediction, all rows through the ESC numeric kernel at
+    # global bounds
+    for name, m in mats:
+        ad = csr.to_device(m, device=dev)
+        da = int(m.row_nnz.max())
+        floprc_host, _ = oracle.flop_per_row(m, m)
+        alloc = predictor.AllocationPlan.from_prediction(
+            global_structure[name], floprc_host, safety=SAFETY)
+        kw = dict(row_capacity=alloc.row_capacity, max_deg_a=da,
+                  max_deg_b=da)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out, counts = drive("global_spgemm", lambda: spgemm.spgemm(
+            ad, ad, use_kernel=True, **kw))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        row_nnz = out.row_nnz.cpu().numpy()
+        # the exact structure where (a) computed it, else (b)'s row_nnz,
+        # which equals each bucket's plain numeric phase
+        want_nnz = exact.get(name, b_row_nnz[name])
+        overflow = int(out.overflow)
+        if (not np.array_equal(row_nnz, want_nnz) or overflow != int(
+                np.maximum(row_nnz - alloc.row_capacity, 0).sum())
+                or not bool(torch.isfinite(out.val).all())
+                or counts["spgemm_numeric"] <= 0):
+            fail(f"global_spgemm {name}: row_nnz, overflow or values wrong")
+        if m.nrows * da * da <= PLAIN_GLOBAL_LANES:
+            chk = np.arange(m.nrows)
+        else:
+            chk = np.union1d(oracle.sample_rows(m.nrows, seed=0),
+                             np.argsort(m.row_nnz)[-WIDEST_ROWS:])
+        chk_d = torch.from_numpy(chk.astype(np.int32)).to(dev)
+        want = spgemm.spgemm_rows(ad, ad, chk_d, **kw)
+        rl = chk_d.long()
+        got_v = out.val[rl]
+        if not (torch.equal(out.col[rl], want.col)
+                and torch.equal(out.row_nnz[rl], want.row_nnz)
+                and vals_close(got_v, want.val)):
+            fail(f"global_spgemm {name}: kernel != plain spgemm")
+        num_err["spgemm_numeric"] = max(num_err["spgemm_numeric"],
+                                        float((got_v - want.val).abs().max()))
+        emit(dict(phase="global_spgemm", matrix=name, rows=m.nrows,
+                  max_deg=da, row_capacity=alloc.row_capacity,
+                  upper_bound_capacity=int(floprc_host.max()),
+                  nnz_c=int(row_nnz.sum()), overflow=overflow, safety=SAFETY,
+                  row_nnz_equals=("exact" if name in exact else "plan_esc"),
+                  plain_rows_compared=int(chk.size), seconds=secs,
+                  peak_bytes=peak, launches=counts))
+        del ad, out, want, got_v
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    qs = subprocess.run(
+        [sys.executable, "-m", "repro_torch.quickstart"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=600)
+    lines = qs.stdout.strip().splitlines()
+    if qs.returncode != 0 or not lines or not lines[-1].startswith("OK"):
+        fail(f"quickstart exited {qs.returncode}:\n{qs.stdout}\n{qs.stderr}")
+    emit(dict(phase="quickstart", seconds=time.perf_counter() - t,
+              output=lines))
+
+    # ---- (f) the paper's accuracy experiment: the 75-case subset, z*, f*
+    # and F of every case from the card, each held to the host oracle; the
+    # card's share of the time (upload, kernels 9 and 7, the read-back) is
+    # measured apart from the host's (exact structure, k-min-hash)
+    seen = []
+    card_counts = experiment.sampled_counts
+
+    def recorded(a, b, rows, device=None):
+        t = time.perf_counter()
+        got = card_counts(a, b, rows, device)      # ints: synchronised
+        seen.append((a, b, rows, got, time.perf_counter() - t))
+        return got
+
+    experiment.sampled_counts = recorded
+    t = time.perf_counter()
+    try:
+        res, counts = drive("experiment",
+                            lambda: experiment.run_subset(device=dev))
+    finally:
+        experiment.sampled_counts = card_counts
+    secs = time.perf_counter() - t
+    if len(seen) != len(res["cases"]):
+        fail("experiment: not every case took its counts from the card")
+    card_secs = sum(x[4] for x in seen)
+    for (a, b, rows, got, _), case in zip(seen, res["cases"]):
+        floprc_host, total_host = oracle.flop_per_row(a, b)
+        host = (oracle.exact_sampled_nnz(a, b, rows),
+                int(floprc_host[rows].sum()), total_host)
+        if got != host or case["flop"] != total_host:
+            fail(f"experiment {case['A']}x{case['B']}: (z*, f*, F) {got} "
+                 f"!= host oracle {host}")
+    with open(os.path.join(ROOT, BASELINE)) as f:
+        baseline = json.load(f)
+    agg, pin = res["aggregate"], baseline["pinned"]
+    if not (agg["n_cases"] == 75
+            and agg["mean_abs_e2"] <= pin["max_mean_abs_e2"]
+            and agg["worst_abs_e2"] <= pin["max_worst_abs_e2"]
+            and agg["mean_abs_e2"] < agg["mean_abs_e1"]
+            and counts["sampled_symbolic"] > 0
+            and counts["flop_per_row"] > 0):
+        fail(f"experiment: aggregate {agg} outside the pinned limits {pin}")
+    keys = ("mean_abs_e1", "worst_abs_e1", "mean_abs_e2", "worst_abs_e2",
+            "mean_abs_e3", "worst_abs_e3", "proposed_better_frac",
+            "corr_e1_ef", "max_eq5_resid")
+    emit(dict(phase="experiment", cases=agg["n_cases"], seconds=secs,
+              card_seconds=card_secs, host_seconds=secs - card_secs,
+              counts_equal_host_oracle=True, launches=counts,
+              aggregate={k: agg[k] for k in keys},
+              baseline={k: baseline["aggregate"][k] for k in keys},
+              pinned=pin))
+
     emit(dict(phase="main_path_launches", **launches))
-    # plan_spgemm takes floprC from the host, so the FLOP kernel runs on
-    # path (a) only
+    # plan_spgemm takes floprC from the host, so the per-bucket FLOP kernel
+    # runs on path (a) only
     for path, kinds in (("predict", names[:2]), ("plan_esc", names[1:3]),
-                        ("plan_auto", names[3:])):
+                        ("plan_auto", names[3:6]),
+                        ("global_predict", names[6:9:2]),
+                        ("global_bitmask", names[7:8]),
+                        ("global_spgemm", names[2:3]),
+                        ("experiment", names[6:9:2])):
         for k in kinds:
             if launches[path][k] <= 0:
                 fail(f"kernel {k} was not launched on main path {path}")
@@ -387,7 +607,8 @@ def main() -> int:
     # ---- each kernel against its plain version, then timed ----------- #
     # Integer outputs must be equal; the errors are still measured.
     int_err = dict(flop_rows=0, fused_flop_symbolic=0,
-                   fused_flop_symbolic_bitmask=0)
+                   fused_flop_symbolic_bitmask=0, sampled_symbolic=0,
+                   bitmask_symbolic=0, flop_per_row=0)
     calls = {}          # (kernel, matrix) -> [(kwargs, host rows, ...), ...]
     for name, m in mats[:len(PREDICT_MATRICES)]:
         binplan = binning.build_plan(m, m, route="esc")
@@ -453,6 +674,51 @@ def main() -> int:
             bc.append((dict(kw, span=bk.span), sub, bk.deg_a, bk.deg_b))
         if bc:
             calls["fused_flop_symbolic_bitmask", name] = bc
+    # kernels 7-9 at (d)'s global-pad shapes: kernel 9 over all rows at the
+    # global max_deg_a, kernels 7 and 8 over (a)'s sampled rows, against
+    # their plain versions, the host oracles and each other, and kernel 7
+    # against the fused ESC kernel (kernel 2) on the same rows at the same
+    # bounds; the contract line times 7 and 8 on R-MAT's rows, 9 on cant's
+    for name, m in mats:
+        rows = oracle.sample_rows(m.nrows, seed=0)
+        ad = csr.to_device(m, device=dev)
+        rnb = torch.diff(ad.rpt)
+        da = int(m.row_nnz.max())
+        floprc_host, _ = oracle.flop_per_row(m, m)
+        kw9 = dict(a=ad, rownnz_b=rnb, max_deg_a=da)
+        fl = flop_k.flop_per_row(**kw9)
+        err = int((fl - flop_k.flop_per_row_plain(**kw9)).abs().max())
+        if err or not np.array_equal(fl.cpu().numpy(), floprc_host):
+            fail(f"flop_per_row {name}: kernel != plain/host")
+        int_err["flop_per_row"] = max(int_err["flop_per_row"], err)
+        rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        kw = dict(a=ad, b=ad, rows=rows_d, max_deg_a=da, max_deg_b=da,
+                  rownnz_b=rnb)
+        hint = fl[rows_d.long()]
+        host = (oracle.exact_sampled_nnz(m, m, rows),
+                int(floprc_host[rows].sum()))
+        got7 = sym_k.sampled_symbolic(**kw, row_flop=hint)
+        got8 = acc_k.bitmask_symbolic(**kw)
+        for k, got, others in (
+                ("sampled_symbolic", got7,
+                 (sym_k.sampled_symbolic_plain(**kw),
+                  sym_k.sampled_symbolic(**kw),
+                  sym_k.fused_flop_symbolic(**kw)[:2])),
+                ("bitmask_symbolic", got8,
+                 (acc_k.bitmask_symbolic_plain(**kw), got7))):
+            got = (int(got[0]), int(got[1]))
+            err = max(max(abs(g - int(w)) for g, w in zip(got, want))
+                      for want in others)
+            if err or got != host:
+                fail(f"{k} {name}: kernel != plain/ESC kernel/host oracle")
+            int_err[k] = max(int_err[k], err)
+        if name == "cant_like":
+            calls["flop_per_row", name] = [(kw9, None, da, None)]
+        if name == "rmat_80k":
+            calls["sampled_symbolic", name] = [
+                (dict(kw, row_flop=hint), rows, da, da)]
+            calls["bitmask_symbolic", name] = [(kw, rows, da, da)]
+        del ad, fl, hint
     emit(dict(phase="kernels_checked", bucket_calls={
         k: sum(len(c) for (kk, _), c in calls.items() if kk == k)
         for k in int_err}))
@@ -496,7 +762,18 @@ def main() -> int:
                  "bin_numeric": (
                      acc_k.bin_numeric, acc_k.bin_numeric_plain,
                      num_k.spgemm_numeric, "bin_numeric.cu",
-                     "accumulator.py:387")}
+                     "accumulator.py:387"),
+                 "sampled_symbolic": (
+                     sym_k.sampled_symbolic, sym_k.sampled_symbolic_plain,
+                     sym_k.fused_flop_symbolic, "sampled_symbolic.cu",
+                     "spgemm_symbolic.py:142"),
+                 "bitmask_symbolic": (
+                     acc_k.bitmask_symbolic, acc_k.bitmask_symbolic_plain,
+                     sym_k.sampled_symbolic, "bitmask_symbolic.cu",
+                     "accumulator.py:223"),
+                 "flop_per_row": (
+                     flop_k.flop_per_row, flop_k.flop_per_row_plain, None,
+                     "flop_rows.cu", "flop_per_row.py:39")}
     library = {}
 
     def library_ms(name):
@@ -511,22 +788,48 @@ def main() -> int:
                                     lambda: torch.sparse.mm(a_sp, a_sp))
         return library[name]
 
+    def library_flop_ms(name):
+        """Yardstick only: Algorithm 1 as one cuSPARSE product of A's
+        pattern (values 1.0) by B's row lengths as float32, exact below
+        2^24."""
+        m = dict(mats)[name]
+        pattern = torch.sparse_csr_tensor(
+            torch.from_numpy(m.rpt).to(dev),
+            torch.from_numpy(m.col.astype(np.int64)).to(dev),
+            torch.ones(m.nnz, dtype=torch.float32, device=dev), size=m.shape)
+        lengths = torch.from_numpy(np.diff(m.rpt).astype(np.float32)).to(
+            dev)[:, None]
+        got = torch.sparse.mm(pattern, lengths)[:, 0]
+        if not np.array_equal(got.cpu().numpy(),
+                              oracle.flop_per_row(m, m)[0]):
+            fail(f"library FLOP {name}: != host oracle")
+        return cuda_ms(torch, lambda: torch.sparse.mm(pattern, lengths))
+
     def entry(kernel, name):
         fn, plain_fn, esc_fn, source, replaces = kernel_of[kernel]
         cs = calls[kernel, name]
         m = dict(mats)[name]
         ms = cuda_ms(torch, lambda: [fn(**c[0]) for c in cs])
-        plain_ms = cuda_ms(torch, lambda: [plain_fn(**c[0]) for c in cs])
+        # the workspace hint is the kernel's own: the plain versions and
+        # the fused ESC kernel take none
+        plain_kw = [{k: v for k, v in c[0].items() if k != "row_flop"}
+                    for c in cs]
+        plain_ms = cuda_ms(torch, lambda: [plain_fn(**kw) for kw in plain_kw])
         esc_ms = None
         if esc_fn is not None:
             # the ESC kernel on the same rows, at the same bounds
             esc_kw = [{k: v for k, v in c[0].items()
-                       if k not in ("span", "tile_n", "n_tiles")} for c in cs]
+                       if k not in ("span", "tile_n", "n_tiles", "row_flop")}
+                      for c in cs]
             esc_ms = cuda_ms(torch, lambda: [esc_fn(**kw) for kw in esc_kw])
         ops = 0
+        lib_ms = None
         if kernel == "flop_rows":
             nbytes = sum(bytes_flop_rows(np, m, c[1], c[2]) for c in cs)
-        elif kernel.startswith("fused_flop_symbolic"):
+        elif kernel == "flop_per_row":
+            nbytes = sum(bytes_flop_all(np, m, c[2]) for c in cs)
+            lib_ms = library_flop_ms(name)
+        elif "symbolic" in kernel:
             nbytes = sum(bytes_symbolic(np, m, c[1], c[2], c[3]) for c in cs)
         else:
             nbytes = sum(bytes_numeric(np, m, *c[1:]) for c in cs)
@@ -543,23 +846,78 @@ def main() -> int:
                     ms=ms, plain_ms=plain_ms,
                     bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                    library_ms=library_ms(name) if numeric else None,
+                    library_ms=library_ms(name) if numeric else lib_ms,
                     esc_ms=esc_ms, timed_on=name, calls=len(cs),
                     bytes=nbytes, operations=ops)
 
     # every (kernel, matrix) timing gets its own line; the contract line
     # takes one matrix per kernel: the power-law predict input for the ESC
     # predict kernels, the cant-sized FEM product for the ESC numeric, the
-    # bitmask symbolic and the SPA kernels, R-MAT's hub rows for BIN
+    # fused bitmask symbolic, the SPA and the all-rows FLOP kernels, R-MAT's
+    # hub rows for BIN and R-MAT's sampled rows at global bounds for the
+    # unfused symbolic kernels
     timings = {key: entry(*key) for key in calls}
+    # the global pad's cost in the predictor: kernel 7 on R-MAT's sampled
+    # rows beside the binned predictor's fused per-bucket calls on the same
+    # rows, all-ESC (kernel 2) and auto-routed (kernels 2 and 4)
+    m = dict(mats)["rmat_80k"]
+    ad = csr.to_device(m, device=dev)
+    rnb = torch.diff(ad.rpt)
+    rows = oracle.sample_rows(m.nrows, seed=0)
+    for route in ("esc", "auto"):
+        bp = binning.build_plan(m, m, route=route)
+        bk_calls = [
+            dict(a=ad, b=ad, rows=torch.from_numpy(sub).to(dev),
+                 max_deg_a=bk.deg_a, max_deg_b=bk.deg_b, route=bk.route,
+                 span=bk.span, rownnz_b=rnb)
+            for bk, sub in zip(bp.buckets, bp.subset(rows)) if sub.size]
+        timings["sampled_symbolic", "rmat_80k"][f"binned_{route}_ms"] = \
+            cuda_ms(torch, lambda: [kops.fused_flop_symbolic_routed(**kw)
+                                    for kw in bk_calls])
+        timings["sampled_symbolic", "rmat_80k"][
+            f"binned_{route}_launches"] = len(bk_calls)
+    del ad, bk_calls
     for e in timings.values():
         emit(dict(phase="kernel_time", **e))
+    # the global pad's cost in the numeric phase: kernel 3 over all rows at
+    # global bounds (the quickstart's spgemm) beside the binned auto-routed
+    # execute and cuSPARSE on the same product
+    for name in ("cant_like", "rmat_80k"):
+        m = dict(mats)[name]
+        ad = csr.to_device(m, device=dev)
+        da = int(m.row_nnz.max())
+        cap = predictor.AllocationPlan.from_prediction(
+            global_structure[name], floprc[name],
+            safety=SAFETY).row_capacity
+        global_ms = cuda_ms(torch, lambda: spgemm.spgemm(
+            ad, ad, row_capacity=cap, max_deg_a=da, max_deg_b=da,
+            use_kernel=True))
+        p = plan.plan_spgemm(m, m, use_kernel=True, safety=SAFETY,
+                             device=dev)
+        pa = p.to_device(m, "a")
+        execute_ms = cuda_ms(torch, lambda: plan.execute(p, pa, pa))
+        all_rows = np.arange(m.nrows)
+        nbytes = bytes_numeric(np, m, all_rows, da, da, cap)
+        ops = numeric_ops(floprc[name], all_rows)
+        emit(dict(phase="global_numeric_time", matrix=name,
+                  global_ms=global_ms, global_row_capacity=cap,
+                  binned_execute_ms=execute_ms,
+                  binned_row_capacity=p.alloc.row_capacity,
+                  binned_esc_kernel_ms=timings["spgemm_numeric", name]["ms"],
+                  library_ms=library_ms(name),
+                  bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                               ops / FP32_FLOP_PER_S) * 1e3))
+        del ad, pa, p
+        torch.cuda.empty_cache()
     report = [timings["flop_rows", "pl_100k_d4"],
               timings["fused_flop_symbolic", "pl_100k_d4"],
               timings["spgemm_numeric", "cant_like"],
               timings["fused_flop_symbolic_bitmask", "cant_like"],
               timings["spa_numeric", "cant_like"],
-              timings["bin_numeric", "rmat_80k"]]
+              timings["bin_numeric", "rmat_80k"],
+              timings["sampled_symbolic", "rmat_80k"],
+              timings["bitmask_symbolic", "rmat_80k"],
+              timings["flop_per_row", "cant_like"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in report]}),

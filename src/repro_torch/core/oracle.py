@@ -1,14 +1,25 @@
 """Numpy oracles of the paper's output-structure quantities (host-side).
 
-The ground truth the device pipeline is checked against:
+The ground truth the device pipeline is checked against, and the host side
+of the accuracy experiment (``core.experiment``):
 
-  * ``flop_per_row``    — Algorithm 1: the upper-bound method.
-  * ``exact_structure`` — the precise method (symbolic phase).
-  * ``sample_rows``     — Algorithm 2 lines 1-3: the sampled row ids.
+  * ``flop_per_row``      — Algorithm 1: the upper-bound method.
+  * ``exact_structure``   — the precise method (symbolic phase).
+  * ``exact_sampled_nnz`` — z*, the exact NNZ of the sampled result rows.
+  * ``sample_rows``       — Algorithm 2 lines 1-3: the sampled row ids.
+  * ``reference_predict`` — the existing sampling method's reference
+                            design, Z1* = z*/p (paper eq. 2).
+  * ``proposed_predict``  — THE PAPER'S METHOD, r* = f*/z*, Z2* = F/r*
+                            (paper eq. 4).
+  * ``minhash_predict``   — the k-min-hash distinct-count estimator on the
+                            same sampled product stream.
 
 All functions operate on host ``CSR`` (see ``repro_torch.sparse.formats``).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -85,6 +96,14 @@ def exact_structure(a: CSR, b: CSR, chunk_flop: int = 1 << 23) -> tuple[np.ndarr
     return nnzr, int(nnzr.sum())
 
 
+def exact_sampled_nnz(a: CSR, b: CSR, rows: np.ndarray) -> int:
+    """z* — exact NNZ of the sampled result rows (Algorithm 2 lines 7-31);
+    a row sampled twice counts twice."""
+    owner, col = expand_products(a, b, rows)
+    keys = owner * np.int64(b.ncols) + col
+    return int(np.unique(keys).size)
+
+
 def sample_rows(m: int, seed: int, fraction: float = SAMPLE_FRACTION,
                 cap: int = SAMPLE_CAP) -> np.ndarray:
     """Sampled row ids, with replacement as in the paper: rid = M·rand."""
@@ -92,3 +111,90 @@ def sample_rows(m: int, seed: int, fraction: float = SAMPLE_FRACTION,
     rng = np.random.default_rng(seed)
     rand = rng.random(sample_num)  # the paper's `rand` array
     return (m * rand).astype(np.int64).clip(0, m - 1)
+
+
+@dataclasses.dataclass
+class Prediction:
+    nnz_total: float          # predicted NNZ(C)  (Z1* or Z2*)
+    structure: np.ndarray     # predicted nnz per output row
+    compression_ratio: float  # predicted CR of the task
+    sampled_flop: int         # f*
+    sampled_nnz: int          # z*
+    sample_num: int
+    total_flop: int           # F (always exact, Algorithm 1)
+
+
+def reference_predict(a: CSR, b: CSR, seed: int = 0,
+                      rows: Optional[np.ndarray] = None) -> Prediction:
+    """Reference design (paper eq. 2): Z1* = z*/p, structure = flopr / (F/Z1*)."""
+    floprc, total_flop = flop_per_row(a, b)
+    if rows is None:
+        rows = sample_rows(a.nrows, seed)
+    z_star = exact_sampled_nnz(a, b, rows)
+    f_star = int(floprc[rows].sum())
+    p = rows.size / a.nrows
+    z1 = z_star / p
+    cr = total_flop / max(z1, 1.0)
+    return Prediction(z1, floprc / cr, cr, f_star, z_star, rows.size,
+                      total_flop)
+
+
+def proposed_predict(a: CSR, b: CSR, seed: int = 0,
+                     rows: Optional[np.ndarray] = None) -> Prediction:
+    """THE PAPER'S METHOD (eq. 4 / Algorithm 2 line 32).
+
+    r* = f*/z*;  Z2* = F / r* = total_flop / sample_flop * sample_nnz;
+    predicted structure = floprC / r*.
+    """
+    floprc, total_flop = flop_per_row(a, b)
+    if rows is None:
+        rows = sample_rows(a.nrows, seed)
+    z_star = exact_sampled_nnz(a, b, rows)
+    f_star = int(floprc[rows].sum())
+    r_star = f_star / max(z_star, 1)
+    z2 = total_flop / r_star
+    return Prediction(z2, floprc / r_star, r_star, f_star, z_star, rows.size,
+                      total_flop)
+
+
+# --------------------------------------------------------------------------- #
+# k-min hash estimator (Bar-Yossef / Amossen / Pham) — the original existing
+# method's counting scheme, vectorized.
+# --------------------------------------------------------------------------- #
+_MERSENNE = (1 << 61) - 1
+
+
+def _hash01(keys: np.ndarray, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed ^ 0x5EED)
+    aa = int(rng.integers(1, _MERSENNE))
+    bb = int(rng.integers(0, _MERSENNE))
+    hv = (keys.astype(np.uint64) * np.uint64(aa) + np.uint64(bb)) % np.uint64(
+        _MERSENNE)
+    return hv.astype(np.float64) / float(_MERSENNE)
+
+
+def minhash_predict(a: CSR, b: CSR, seed: int = 0, k: int = 64,
+                    rows: Optional[np.ndarray] = None) -> Prediction:
+    """Existing method's estimator on the sampled product stream.
+
+    Applies h:[m,n]→[0,1] to every intermediate product of the sampled rows,
+    keeps the k-th smallest *distinct* hashed value v, and predicts
+    NNZ(C') = k/v (paper Section III), then NNZ(C) = NNZ(C')/p.
+    """
+    floprc, total_flop = flop_per_row(a, b)
+    if rows is None:
+        rows = sample_rows(a.nrows, seed)
+    owner, col = expand_products(a, b, rows)
+    keys = owner * np.int64(b.ncols) + col
+    hv = np.unique(_hash01(keys, seed))  # distinct hashed values, sorted
+    if hv.size <= k:  # fewer distinct than k → count is exact
+        z_star = float(hv.size)
+    else:
+        v = hv[k - 1]
+        z_star = k / v if v > 0 else float(hv.size)
+    f_star = int(floprc[rows].sum())
+    p = rows.size / a.nrows
+    z_pred = z_star / p
+    cr = total_flop / max(z_pred, 1.0)
+    return Prediction(z_pred, floprc / cr, cr, f_star, int(z_star), rows.size,
+                      total_flop)

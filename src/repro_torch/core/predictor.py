@@ -9,11 +9,13 @@ distinct ones, and sum over the sample:
 
 The same counts drive the reference design  Z1* = z*/p  (paper eq. 2).
 
-Each degree bucket counts distinct columns on its planned accumulator route:
-ESC sorts, SPA and BIN set bits in a bitmask.  With ``use_kernel`` the
-per-bucket counting runs in the port's hand-written CUDA kernels
-(``repro_torch.kernels``) on a CUDA tensor; without it — and always on a CPU
-tensor — the plain tensor-op versions below run.  Integer
+The global-pad predictors (the paper's Algorithm 2 as stated: one pad at
+the global degree bounds) count with ESC's sort.  The binned ones count each
+degree bucket on its planned accumulator route: ESC sorts, SPA and BIN set
+bits in a bitmask.  With ``use_kernel`` the counting and Algorithm 1 run in
+the port's hand-written CUDA kernels (``repro_torch.kernels``) on a CUDA
+tensor; without it — and always on a CPU tensor — the plain tensor-op
+versions below run.  Integer
 counts are int32 and the eq. 4 chain is float32 in the JAX package's order
 of operations, so both packages predict the same numbers.
 """
@@ -29,6 +31,10 @@ from .binning import ROUTE_BIN, ROUTE_SPA, BinningPlan, ceil_pow2
 from .csr import COL_SENTINEL, CSRDevice, expand_products, row_chunks
 from .flop import flop_per_row
 
+SAMPLE_FRACTION = 0.003
+SAMPLE_CAP = 300
+
+
 class PredictionDev(NamedTuple):
     nnz_total: torch.Tensor        # predicted NNZ(C)
     structure: torch.Tensor        # predicted nnz per output row (float32, (M,))
@@ -36,6 +42,23 @@ class PredictionDev(NamedTuple):
     sampled_flop: torch.Tensor
     sampled_nnz: torch.Tensor
     total_flop: torch.Tensor
+
+
+def static_sample_num(m: int, fraction: float = SAMPLE_FRACTION,
+                      cap: int = SAMPLE_CAP) -> int:
+    """Paper Algorithm 2 line 1, resolved from the row count."""
+    return max(1, min(int(fraction * m), cap))
+
+
+def draw_sample_rows(generator: torch.Generator, m: int,
+                     sample_num: int) -> torch.Tensor:
+    """rid = M * rand[r] (with replacement, as in the paper): int32 row ids
+    on ``generator``'s device.  The float32 ``M·rand`` is cut to an int and
+    clipped to ``[0, M-1]`` as in the JAX package, whose ``jax.random``
+    stream this generator does not reproduce."""
+    rand = torch.rand(sample_num, generator=generator,
+                      device=generator.device, dtype=torch.float32)
+    return torch.clamp((m * rand).to(torch.int32), 0, m - 1)
 
 
 def _host_rows(rows) -> np.ndarray:
@@ -116,21 +139,44 @@ def _eq2(floprc: torch.Tensor, total_flop: torch.Tensor, z_star: torch.Tensor,
                          z_star, total_flop)
 
 
+def _global_counts(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
+                   max_deg_a: int, max_deg_b: int, use_kernel: bool):
+    """(floprC, F, z*, f*) at the global degree bounds.  With
+    ``use_kernel`` floprC runs through the all-rows FLOP kernel at
+    ``max_deg_a`` (exact, since it bounds A's rows) and (z*, f*) through
+    the unfused symbolic kernel, its workspace sized by the sampled rows'
+    FLOP."""
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        floprc = kops.flop_per_row(a, b, max_deg_a=max_deg_a)
+        total_flop = floprc.sum(dtype=torch.int32)
+        z_star, f_star = kops.sampled_symbolic(
+            a, b, rows, max_deg_a, max_deg_b, row_flop=floprc[rows.long()])
+    else:
+        floprc, total_flop = flop_per_row(a, b)
+        z_star, f_star = sampled_counts(a, b, rows, max_deg_a, max_deg_b)
+    return floprc, total_flop, z_star, f_star
+
+
 def proposed_predict(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
-                     max_deg_a: int, max_deg_b: int) -> PredictionDev:
-    """THE PAPER'S METHOD (eq. 4) at global degree bounds (plain version;
-    the JAX package's kernel variant of this call is not ported yet)."""
-    floprc, total_flop = flop_per_row(a, b)
-    z_star, f_star = sampled_counts(a, b, rows, max_deg_a, max_deg_b)
-    return _eq4(floprc, total_flop, z_star, f_star)
+                     max_deg_a: int, max_deg_b: int,
+                     use_kernel: bool = False) -> PredictionDev:
+    """THE PAPER'S METHOD (eq. 4) at global degree bounds: ``rows`` from
+    :func:`draw_sample_rows` (or given), ``max_deg_a``/``max_deg_b`` the
+    largest row degrees of A and B.  With ``use_kernel`` Algorithm 1 and
+    the sampled symbolic pass run in their CUDA kernels on a CUDA tensor
+    (their plain versions on a CPU tensor); the numbers are the same."""
+    return _eq4(*_global_counts(a, b, rows, max_deg_a, max_deg_b,
+                                use_kernel))
 
 
 def reference_predict(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
-                      max_deg_a: int, max_deg_b: int) -> PredictionDev:
-    """Reference design (eq. 2): Z1* = z*/p."""
-    floprc, total_flop = flop_per_row(a, b)
-    z_star, f_star = sampled_counts(a, b, rows, max_deg_a, max_deg_b)
-    return _eq2(floprc, total_flop, z_star, f_star, rows.shape[0] / a.nrows)
+                      max_deg_a: int, max_deg_b: int,
+                      use_kernel: bool = False) -> PredictionDev:
+    """Reference design (eq. 2): Z1* = z*/p, on the counts of
+    :func:`proposed_predict` (``use_kernel`` as there)."""
+    return _eq2(*_global_counts(a, b, rows, max_deg_a, max_deg_b,
+                                use_kernel), rows.shape[0] / a.nrows)
 
 
 # --------------------------------------------------------------------------- #

@@ -250,6 +250,24 @@ def spgemm_rows_bin(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
             c, v, row_capacity, tile_n, n_tiles))
 
 
+def spgemm(a: CSRDevice, b: CSRDevice, *, row_capacity: int,
+           max_deg_a: int, max_deg_b: int,
+           use_kernel: bool = False) -> SpGEMMOut:
+    """C = A·B numeric phase with predicted-capacity output buffers, all
+    rows at the global degree bounds on the ESC route (the paper's flow,
+    and the quickstart's).  With ``use_kernel`` it runs through the ESC
+    numeric kernel (``kernels.ops.spgemm_numeric``) on a CUDA tensor, its
+    plain version on a CPU tensor."""
+    rows = torch.arange(a.nrows, dtype=torch.int32, device=a.rpt.device)
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        return SpGEMMOut(*kops.spgemm_numeric(
+            a, b, rows, max_deg_a=max_deg_a, max_deg_b=max_deg_b,
+            row_capacity=row_capacity))
+    return spgemm_rows(a, b, rows, row_capacity=row_capacity,
+                       max_deg_a=max_deg_a, max_deg_b=max_deg_b)
+
+
 def routed_spgemm_rows(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                        row_capacity: int, deg_a: int, deg_b: int,
                        block_rows: int = 256, route: str = "esc",

@@ -104,13 +104,15 @@ def load(name: str):
     return _LIBS[name]
 
 
-def launcher(name: str, signature: str):
-    """``<name>_launch`` of ``lib<name>.so`` with its C signature declared:
-    one letter per argument, ``p`` a pointer (device pointers and the
-    stream), ``i`` an int, ``q`` a long long.  Returns an int error code."""
+def launcher(name: str, signature: str, entry: str | None = None):
+    """``<entry>_launch`` of ``lib<name>.so`` (``entry`` defaults to
+    ``name``; a source may export a second entry point) with its C signature
+    declared: one letter per argument, ``p`` a pointer (device pointers and
+    the stream), ``i`` an int, ``q`` a long long.  Returns an int error
+    code."""
     import ctypes
     types = dict(p=ctypes.c_void_p, i=ctypes.c_int, q=ctypes.c_longlong)
-    fn = getattr(load(name), f"{name}_launch")
+    fn = getattr(load(name), f"{entry or name}_launch")
     fn.argtypes = [types[c] for c in signature]
     fn.restype = ctypes.c_int
     return fn
@@ -221,6 +223,35 @@ def block_workspace(name: str, device, ws_bytes: int, threads: int,
     if in_smem:
         return grid, threads, ws_bytes, scratch, slice_bytes, -1
     return grid, 1024, 0, scratch, slice_bytes, align16(pair_bytes)
+
+
+def sort_workspace(name: str, device, max_deg_a: int, lanes: int,
+                   n_rows: int):
+    """Launch shape of a one-block-per-row sort whose rows each hold at most
+    ``lanes`` keys of 4 bytes (a power of two): ``(smem_lanes, grid,
+    threads, smem_bytes, scratch, slice_bytes)``.
+
+    Unlike :func:`row_workspace`, which places every row's workspace in
+    shared memory or every row's in scratch, the choice is made per row:
+    shared memory holds the row's product prefix and ``smem_lanes`` keys —
+    ``lanes``, or the largest power of two that fits the opt-in limit — and
+    a row whose padded product count exceeds ``smem_lanes`` sorts in the
+    block's ``slice_bytes`` slice of ``scratch`` (``None`` when no row
+    needs it).  ``smem_lanes`` is -1 when not even the prefix fits; the
+    prefix then heads the slice and every row sorts in scratch."""
+    pre = align16(4 * (max_deg_a + 1))
+    room = max_smem(name, device) - STATIC_SMEM_RESERVE - pre
+    if 4 * lanes <= room:
+        return lanes, n_rows, row_threads(lanes), pre + 4 * lanes, None, 0
+    if room >= 4 * 32:
+        smem_lanes = 1 << ((room // 4).bit_length() - 1)
+        smem_bytes, slice_bytes = pre + 4 * smem_lanes, 4 * lanes
+    else:
+        smem_lanes, smem_bytes, slice_bytes = -1, 0, pre + 4 * lanes
+    grid = max(1, min(n_rows, SCRATCH_BYTES // slice_bytes))
+    scratch = torch.empty(grid * slice_bytes, dtype=torch.uint8,
+                          device=device)
+    return smem_lanes, grid, 1024, smem_bytes, scratch, slice_bytes
 
 
 def row_workspace(name: str, device, max_deg_a: int, f2: int,

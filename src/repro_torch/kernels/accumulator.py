@@ -1,12 +1,15 @@
 """The accumulator routes' kernels: SPA (dense accumulator) and BIN
 (propagation blocking), and the bitmask symbolic kernel they share.
 
-Three wrappers, each launching its hand-written CUDA kernel on CUDA tensors
+Four wrappers, each launching its hand-written CUDA kernel on CUDA tensors
 and running its plain tensor-op version on CPU tensors:
 
 * :func:`fused_flop_symbolic_bitmask` (``csrc/bitmask_symbolic.cu``) →
   ``(z*, f*, FLOP per sampled row)``; replaces
   ``src/repro/kernels/accumulator.py::fused_flop_symbolic_bitmask_pallas``;
+* :func:`bitmask_symbolic` (the second entry of the same source) →
+  ``(z*, f*)``, f* the sum of the referenced B rows' untruncated lengths;
+  replaces ``bitmask_symbolic_pallas``;
 * :func:`spa_numeric` (``csrc/spa_numeric.cu``) → ``(col, val, row_nnz,
   overflow)``; replaces ``spa_numeric_pallas`` with the XLA-side
   ``core.spgemm.compact_dense``;
@@ -68,7 +71,7 @@ def bitmask_distinct(cols: torch.Tensor, n_words: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Kernel 4: bitmask symbolic (SPA and BIN buckets)
+# Kernels 4 and 8: bitmask symbolic (SPA and BIN buckets; unfused)
 # --------------------------------------------------------------------------- #
 def _n_words(ncols_b: int, span: int) -> int:
     n = min(int(span), ncols_b) if span else ncols_b
@@ -110,27 +113,75 @@ def fused_flop_symbolic_bitmask(a: CSRDevice, b: CSRDevice,
     z_rows = torch.empty(s, dtype=torch.int32, device=dev)
     flop = torch.empty(s, dtype=torch.int32, device=dev)
     if s:
-        _check_rownnz(_SYM, rownnz_b, b)
-        n_words = _n_words(b.ncols, span)
-        ws_bytes = _build.align16(4 * (max_deg_a + 1)) + 4 * n_words
-        grid, threads, smem, scratch, slice_bytes, _ = _build.block_workspace(
-            _SYM, dev, ws_bytes,
-            _build.row_threads(ceil_pow2(max_deg_a * max_deg_b)), s)
-        fn = _build.launcher(_SYM, "pipppppiiiiipqiiippip")
-        rc = fn(_build.require(_SYM, rows, torch.int32, "rows"), s,
-                *_build.require_csr(_SYM, a, "a"),
-                *_build.require_csr(_SYM, b, "b"),
-                _build.require(_SYM, rownnz_b, torch.int32, "rownnz_b"),
-                a.nrows, rownnz_b.shape[0], int(max_deg_a), int(max_deg_b),
-                n_words, _ptr(scratch), slice_bytes, grid, threads, smem,
-                z_rows.data_ptr(), flop.data_ptr(), dev.index or 0,
-                _build.stream_of(dev))
-        _build.check(_SYM, rc)
+        _bitmask_launch(None, a, b, rows, max_deg_a, max_deg_b, span,
+                        rownnz_b, dev, z_rows, flop)
         fused_flop_symbolic_bitmask.launches += 1
     return (z_rows.sum(dtype=torch.int32), flop.sum(dtype=torch.int32), flop)
 
 
+def bitmask_symbolic_plain(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
+                           *, max_deg_a: int, max_deg_b: int, span: int = 0,
+                           rownnz_b: torch.Tensor | None = None):
+    """Plain tensor-op version: gather and bitmask-count (z*), and sum the
+    referenced B rows' untruncated lengths (f*, Algorithm 1 over the
+    rows)."""
+    z, f, _ = fused_flop_symbolic_bitmask_plain(
+        a, b, rows, max_deg_a=max_deg_a, max_deg_b=max_deg_b, span=span,
+        rownnz_b=rownnz_b)
+    return z, f
+
+
+def bitmask_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
+                     max_deg_a: int, max_deg_b: int, span: int = 0,
+                     rownnz_b: torch.Tensor | None = None):
+    """(z* int32, f* int32) for ``rows`` by bitmask popcount: z* equals the
+    ESC count bit for bit while ``span`` covers the rows' extent, and f*
+    sums the referenced B rows' untruncated lengths — unlike
+    :func:`repro_torch.kernels.spgemm_symbolic.sampled_symbolic`, whose f*
+    counts the products gathered at ``max_deg_b``, as in the JAX
+    package."""
+    if rownnz_b is None:
+        rownnz_b = torch.diff(b.rpt)
+    dev = _build.kernel_device(_SYM, a.rpt, a.col, b.rpt, b.col, rownnz_b,
+                               rows)
+    if dev is None:
+        return bitmask_symbolic_plain(a, b, rows, max_deg_a=max_deg_a,
+                                      max_deg_b=max_deg_b, span=span,
+                                      rownnz_b=rownnz_b)
+    s = rows.shape[0]
+    z_rows = torch.empty(s, dtype=torch.int32, device=dev)
+    f_total = torch.zeros(1, dtype=torch.int32, device=dev)
+    if s:
+        _bitmask_launch("bitmask_symbolic_unfused", a, b, rows, max_deg_a,
+                        max_deg_b, span, rownnz_b, dev, z_rows, f_total)
+        bitmask_symbolic.launches += 1
+    return z_rows.sum(dtype=torch.int32), f_total[0]
+
+
+def _bitmask_launch(entry, a, b, rows, max_deg_a, max_deg_b, span,
+                    rownnz_b, dev, z_rows, flop_out) -> None:
+    """Launch an entry of ``csrc/bitmask_symbolic.cu`` over ``rows``."""
+    _check_rownnz(_SYM, rownnz_b, b)
+    s = rows.shape[0]
+    n_words = _n_words(b.ncols, span)
+    ws_bytes = _build.align16(4 * (max_deg_a + 1)) + 4 * n_words
+    grid, threads, smem, scratch, slice_bytes, _ = _build.block_workspace(
+        _SYM, dev, ws_bytes,
+        _build.row_threads(ceil_pow2(max_deg_a * max_deg_b)), s)
+    fn = _build.launcher(_SYM, "pipppppiiiiipqiiippip", entry=entry)
+    rc = fn(_build.require(_SYM, rows, torch.int32, "rows"), s,
+            *_build.require_csr(_SYM, a, "a"),
+            *_build.require_csr(_SYM, b, "b"),
+            _build.require(_SYM, rownnz_b, torch.int32, "rownnz_b"),
+            a.nrows, rownnz_b.shape[0], int(max_deg_a), int(max_deg_b),
+            n_words, _ptr(scratch), slice_bytes, grid, threads, smem,
+            z_rows.data_ptr(), flop_out.data_ptr(), dev.index or 0,
+            _build.stream_of(dev))
+    _build.check(_SYM, rc)
+
+
 fused_flop_symbolic_bitmask.launches = 0
+bitmask_symbolic.launches = 0
 
 
 # --------------------------------------------------------------------------- #

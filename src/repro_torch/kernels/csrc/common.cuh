@@ -137,6 +137,29 @@ __device__ inline int repro_product_entry(int p, int deg, const int* prefix,
   return b_rpt[a_col[start + lo]] + (p - prefix[lo]);
 }
 
+// Gather the n products of a row whose prefix repro_row_prefix built into
+// keys[0, n) (and the value products into vals when VALS), and pad keys to
+// the next power of two with the sentinel.  Ends with a barrier.
+template <bool VALS>
+__device__ void repro_gather_products(
+    int n, int deg, const int* prefix, int start,
+    const int* __restrict__ a_col, const float* __restrict__ a_val,
+    const int* __restrict__ b_rpt, const int* __restrict__ b_col,
+    const float* __restrict__ b_val, int* keys, float* vals) {
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    int j;
+    const int e = repro_product_entry(p, deg, prefix, start, a_col, b_rpt, &j);
+    keys[p] = b_col[e];
+    if (VALS) vals[p] = __fmul_rn(a_val[start + j], b_val[e]);
+  }
+  const int n2 = repro_next_pow2(max(n, 1));
+  for (int p = n + threadIdx.x; p < n2; p += blockDim.x) {
+    keys[p] = REPRO_SENTINEL;
+    if (VALS) vals[p] = 0.0f;
+  }
+  __syncthreads();
+}
+
 // Gather row r's intermediate products into keys[0, n) (and the value
 // products into vals when VALS), pad keys to the next power of two with the
 // sentinel, and return n.  *flop as repro_row_prefix.  Ends with a barrier.
@@ -151,18 +174,8 @@ __device__ int repro_gather_row(
   const int n = repro_row_prefix(r, a_rpt, a_col, rownnz_b, m, k_rows,
                                  max_deg_a, max_deg_b, prefix, &start, &deg,
                                  flop);
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    int j;
-    const int e = repro_product_entry(p, deg, prefix, start, a_col, b_rpt, &j);
-    keys[p] = b_col[e];
-    if (VALS) vals[p] = __fmul_rn(a_val[start + j], b_val[e]);
-  }
-  const int n2 = repro_next_pow2(max(n, 1));
-  for (int p = n + threadIdx.x; p < n2; p += blockDim.x) {
-    keys[p] = REPRO_SENTINEL;
-    if (VALS) vals[p] = 0.0f;
-  }
-  __syncthreads();
+  repro_gather_products<VALS>(n, deg, prefix, start, a_col, a_val, b_rpt,
+                              b_col, b_val, keys, vals);
   return n;
 }
 

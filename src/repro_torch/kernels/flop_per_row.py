@@ -1,19 +1,27 @@
-"""Algorithm 1 for one degree bucket: FLOP per listed output row.
+"""Algorithm 1: FLOP per output row, for one degree bucket's row list or
+for all M rows.
 
-``flop_rows`` launches the hand-written CUDA kernel ``csrc/flop_rows.cu`` on
-CUDA tensors and runs :func:`flop_rows_plain` on CPU tensors.
+Two wrappers, each launching an entry of the hand-written CUDA source
+``csrc/flop_rows.cu`` on CUDA tensors and running its plain version on CPU
+tensors:
 
-Replaces ``src/repro/kernels/flop_per_row.py::flop_rows_pallas``
-(``_rows_kernel``).  On the H100 the kernel is bound by bytes: 12 bytes read
-per A entry (column id, B row length) and per row (two row pointers, the
-row id), 4 written per row.  Narrow buckets run one thread per row, wide
-ones one warp per row, so a warp's reads of A's column ids are contiguous.
+* :func:`flop_rows` (plain :func:`flop_rows_plain`) over a row-id list;
+  replaces ``src/repro/kernels/flop_per_row.py::flop_rows_pallas``
+  (``_rows_kernel``);
+* :func:`flop_per_row` (plain :func:`flop_per_row_plain`) over all M rows;
+  replaces ``flop_per_row_pallas`` (``_kernel``).
+
+Both read at most ``max_deg_a`` entries of each A row, as the TPU kernels
+do.  On the H100 they are bound by bytes: 8 bytes read per A entry (column
+id, B row length) and 8 or 12 per row (two row pointers, the row id of a
+list), 4 written per row.  Narrow rows run one thread per row, wide ones
+one warp per row, so a warp's reads of A's column ids are contiguous.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.csr import CSRDevice
+from repro_torch.core.csr import CSRDevice, row_chunks
 from . import _build
 
 _LIB = "flop_rows"
@@ -56,3 +64,40 @@ def flop_rows(a: CSRDevice, rownnz_b: torch.Tensor, rows: torch.Tensor, *,
 
 
 flop_rows.launches = 0
+
+
+def flop_per_row_plain(a: CSRDevice, rownnz_b: torch.Tensor, *,
+                       max_deg_a: int) -> torch.Tensor:
+    """Plain tensor-op version: :func:`flop_rows_plain` over every row of A,
+    in chunks that keep the ``(rows, max_deg_a)`` gather bounded."""
+    dev = a.rpt.device
+    parts = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    for lo, hi in row_chunks(a.nrows, max_deg_a):
+        rows = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        parts.append(flop_rows_plain(a, rownnz_b, rows, max_deg_a=max_deg_a))
+    return torch.cat(parts)
+
+
+def flop_per_row(a: CSRDevice, rownnz_b: torch.Tensor, *,
+                 max_deg_a: int) -> torch.Tensor:
+    """floprC for all M rows of A (int32 (M,)), reading at most
+    ``max_deg_a`` entries per row: exact when ``max_deg_a`` bounds A's
+    row degrees, an undercount of wider rows otherwise (as in the JAX
+    package)."""
+    dev = _build.kernel_device(_LIB, a.rpt, a.col, rownnz_b)
+    if dev is None:
+        return flop_per_row_plain(a, rownnz_b, max_deg_a=max_deg_a)
+    out = torch.empty(a.nrows, dtype=torch.int32, device=dev)
+    if a.nrows == 0:
+        return out
+    fn = _build.launcher(_LIB, "pppiiipip", entry="flop_per_row")
+    rc = fn(*_build.require_csr(_LIB, a, "a"),
+            _build.require(_LIB, rownnz_b, torch.int32, "rownnz_b"),
+            a.nrows, rownnz_b.shape[0], int(max_deg_a), out.data_ptr(),
+            dev.index or 0, _build.stream_of(dev))
+    _build.check(_LIB, rc)
+    flop_per_row.launches += 1
+    return out
+
+
+flop_per_row.launches = 0

@@ -1,10 +1,14 @@
-"""Route-checked entry points of the port's kernels.
+"""Public entry points of the port's kernels.
 
-Mirrors ``repro.kernels.ops``: the callers in ``core`` reach every kernel
-through here, and each bucket's accumulator route (ESC, SPA or BIN, static
-plan metadata) picks its kernel.  Each wrapper launches its hand-written
-CUDA kernel on CUDA tensors and runs its plain tensor-op version on CPU
-tensors.
+Mirrors ``repro.kernels.ops`` (all of it but ``flash_attention``), under its
+names and argument order: the callers in ``core`` reach every kernel
+through here, and in the routed entry points each bucket's accumulator
+route (ESC, SPA or BIN, static plan metadata) picks its kernel.  Each
+wrapper launches its hand-written CUDA kernel on CUDA tensors and runs its
+plain tensor-op version on CPU tensors.  The TPU grid knobs of the JAX
+entry points (``block_rows``, ``block_samples``) size Pallas blocks and mean
+nothing to kernels that give each row its own thread block or warp, so
+they are dropped.
 """
 from __future__ import annotations
 
@@ -29,10 +33,48 @@ def check_route(route: str) -> None:
         raise PlanMismatchError(f"unknown kernel route {route!r}")
 
 
+def flop_per_row(a: CSRDevice, b: CSRDevice, *,
+                 max_deg_a: int = 128) -> torch.Tensor:
+    """floprC for all M rows, reading at most ``max_deg_a`` entries per A
+    row (the JAX package's default of 128 included: wider rows are
+    undercounted there and here alike)."""
+    return _flop_k.flop_per_row(a, torch.diff(b.rpt), max_deg_a=max_deg_a)
+
+
 def flop_rows(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
               max_deg_a: int) -> torch.Tensor:
     """floprC for the listed rows only (the binned pipeline's FLOP phase)."""
     return _flop_k.flop_rows(a, torch.diff(b.rpt), rows, max_deg_a=max_deg_a)
+
+
+def sampled_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
+                     max_deg_a: int, max_deg_b: int, *, rownnz_b=None,
+                     row_flop=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(z*, f*) for the proposed predictor at global bounds, f* the
+    gathered products.  ``row_flop`` (the sampled rows' FLOP, optional)
+    sizes the kernel's workspace."""
+    return _sym_k.sampled_symbolic(a, b, rows, max_deg_a=max_deg_a,
+                                   max_deg_b=max_deg_b, rownnz_b=rownnz_b,
+                                   row_flop=row_flop)
+
+
+def fused_flop_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
+                        max_deg_a: int, max_deg_b: int, *, rownnz_b=None):
+    """(z*, f*, FLOP per sampled row) in one ESC kernel, unrouted."""
+    return _sym_k.fused_flop_symbolic(a, b, rows, max_deg_a=max_deg_a,
+                                      max_deg_b=max_deg_b, rownnz_b=rownnz_b)
+
+
+def bitmask_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
+                     max_deg_a: int, max_deg_b: int, *, span: int = 0,
+                     rownnz_b=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(z*, f*) by bitmask popcount (the SPA symbolic route), z* bit-equal
+    to :func:`sampled_symbolic`'s while ``span`` covers the extent, f* the
+    referenced B rows' untruncated lengths.  ``span`` bounds the rows'
+    product-column extent (0 → B's column space)."""
+    return _acc_k.bitmask_symbolic(a, b, rows, max_deg_a=max_deg_a,
+                                   max_deg_b=max_deg_b, span=span,
+                                   rownnz_b=rownnz_b)
 
 
 def fused_flop_symbolic_routed(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
@@ -52,28 +94,68 @@ def fused_flop_symbolic_routed(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
                                       max_deg_b=max_deg_b, rownnz_b=rownnz_b)
 
 
+def spgemm_numeric(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
+                   max_deg_a: int, max_deg_b: int, row_capacity: int,
+                   rownnz_b=None):
+    """ESC numeric phase with fused compaction → (col, val, row_nnz,
+    overflow)."""
+    return _num_k.spgemm_numeric(a, b, rows, max_deg_a=max_deg_a,
+                                 max_deg_b=max_deg_b,
+                                 row_capacity=row_capacity, rownnz_b=rownnz_b)
+
+
+def _tiling(tiler, b: CSRDevice, tile_n: int, n_tiles: int, span: int):
+    """The SPA/BIN tile layout: with ``tile_n <= 0`` derived from ``span``
+    (0 → B's column space) as the JAX package derives it, and with
+    ``n_tiles <= 0`` tiles covering B's column space."""
+    if tile_n <= 0:
+        tile_n, n_tiles = tiler(min(span, b.ncols) if span else b.ncols,
+                                DEFAULT_LANE_BUDGET)
+    if n_tiles <= 0:
+        n_tiles = -(-b.ncols // tile_n)
+    return tile_n, n_tiles
+
+
+def spgemm_numeric_spa(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
+                       max_deg_a: int, max_deg_b: int, row_capacity: int,
+                       tile_n: int, n_tiles: int = 0, span: int = 0,
+                       rownnz_b=None):
+    """Dense-SPA numeric phase with fused compaction — the output contract
+    of :func:`spgemm_numeric` (col/row_nnz/overflow identical, values to
+    float tolerance).  ``n_tiles·tile_n`` must bound every row's
+    product-column extent."""
+    tile_n, n_tiles = _tiling(spa_tile, b, tile_n, n_tiles, span)
+    return _acc_k.spa_numeric(a, b, rows, max_deg_a=max_deg_a,
+                              max_deg_b=max_deg_b, row_capacity=row_capacity,
+                              tile_n=tile_n, n_tiles=n_tiles,
+                              rownnz_b=rownnz_b)
+
+
+def spgemm_numeric_bin(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
+                       max_deg_a: int, max_deg_b: int, row_capacity: int,
+                       tile_n: int, n_tiles: int = 0, span: int = 0,
+                       rownnz_b=None):
+    """Propagation-blocking numeric phase with fused compaction — the
+    output contract of :func:`spgemm_numeric`."""
+    tile_n, n_tiles = _tiling(bin_tile, b, tile_n, n_tiles, span)
+    return _acc_k.bin_numeric(a, b, rows, max_deg_a=max_deg_a,
+                              max_deg_b=max_deg_b, row_capacity=row_capacity,
+                              tile_n=tile_n, n_tiles=n_tiles,
+                              rownnz_b=rownnz_b)
+
+
 def spgemm_numeric_routed(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                           max_deg_a: int, max_deg_b: int, row_capacity: int,
                           route: str = ROUTE_ESC, tile_n: int = 0,
                           n_tiles: int = 0, span: int = 0, rownnz_b=None):
     """Route-dispatched numeric phase with fused compaction — the
     per-bucket kernel entry point → (col, val, row_nnz, overflow).  SPA and
-    BIN take the planner's tiling; with ``tile_n <= 0`` it is derived from
-    ``span`` (0 → B's column space) as the JAX package derives it, and with
-    ``n_tiles <= 0`` the tiles cover B's column space."""
+    BIN take the planner's tiling, or derive it (:func:`_tiling`)."""
     check_route(route)
+    kw = dict(max_deg_a=max_deg_a, max_deg_b=max_deg_b,
+              row_capacity=row_capacity, rownnz_b=rownnz_b)
     if route == ROUTE_ESC:
-        return _num_k.spgemm_numeric(a, b, rows, max_deg_a=max_deg_a,
-                                     max_deg_b=max_deg_b,
-                                     row_capacity=row_capacity,
-                                     rownnz_b=rownnz_b)
-    if tile_n <= 0:
-        tiling = spa_tile if route == ROUTE_SPA else bin_tile
-        tile_n, n_tiles = tiling(min(span, b.ncols) if span else b.ncols,
-                                 DEFAULT_LANE_BUDGET)
-    if n_tiles <= 0:
-        n_tiles = -(-b.ncols // tile_n)
-    kernel = _acc_k.spa_numeric if route == ROUTE_SPA else _acc_k.bin_numeric
-    return kernel(a, b, rows, max_deg_a=max_deg_a, max_deg_b=max_deg_b,
-                  row_capacity=row_capacity, tile_n=tile_n, n_tiles=n_tiles,
-                  rownnz_b=rownnz_b)
+        return spgemm_numeric(a, b, rows, **kw)
+    numeric = spgemm_numeric_spa if route == ROUTE_SPA else spgemm_numeric_bin
+    return numeric(a, b, rows, tile_n=tile_n, n_tiles=n_tiles, span=span,
+                   **kw)

@@ -10,6 +10,33 @@ from repro_torch.core import spgemm as spgemm_mod
 from repro_torch.core.csr import CSRDevice
 
 
+def flop_per_row_ref(a_rpt, a_col, rownnz_b):
+    """Oracle for kernels.flop_per_row.flop_per_row: Algorithm 1 over every
+    row of A (``core.flop``), from A's index arrays and B's row lengths."""
+    m = a_rpt.shape[0] - 1
+    k = rownnz_b.shape[0]
+    a = CSRDevice(rpt=a_rpt, col=a_col,
+                  val=torch.zeros(a_col.shape[0], dtype=torch.float32,
+                                  device=a_col.device), shape=(m, k))
+    b_rpt = torch.cat([rownnz_b.new_zeros(1),
+                       torch.cumsum(rownnz_b, 0, dtype=torch.int32)])
+    b = CSRDevice(rpt=b_rpt, col=rownnz_b.new_zeros(1),
+                  val=torch.zeros(1, dtype=torch.float32,
+                                  device=rownnz_b.device), shape=(k, 1))
+    floprc, _ = flop_mod.flop_per_row(a, b)
+    return floprc
+
+
+def sampled_symbolic_ref(a: CSRDevice, b: CSRDevice, rows, max_deg_a,
+                         max_deg_b):
+    """Oracle for kernels.spgemm_symbolic.sampled_symbolic: (z*, f*), f*
+    the gathered products."""
+    cols, valid = pred_mod.gather_sampled_products(a, b, rows, max_deg_a,
+                                                   max_deg_b)
+    z = pred_mod.count_distinct_sorted(cols).sum(dtype=torch.int32)
+    return z, valid.sum(dtype=torch.int32)
+
+
 def flop_rows_ref(a: CSRDevice, b: CSRDevice, rows):
     """Oracle for kernels.flop_per_row.flop_rows: whole-matrix FLOP,
     gathered at ``rows``."""

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import binning, csr, plan
+from repro_torch.core import binning, csr, plan, predictor, spgemm
+from repro_torch.core import flop as flop_mod
 from repro_torch.kernels import accumulator as acc_k
 from repro_torch.kernels import flop_per_row as flop_k
 from repro_torch.kernels import spgemm_numeric as num_k
@@ -165,3 +166,106 @@ def test_launch_counters_count_kernel_launches_only(card):
     num_k.spgemm_numeric(ad, ad, rows, max_deg_a=16, max_deg_b=16,
                          row_capacity=32)
     assert num_k.spgemm_numeric.launches == before + 1
+
+
+def _global_pad_checks(ad, bd, rows, da, db):
+    """Kernels 7 and 8 against their plain versions on ``rows``, with and
+    without the workspace hint, and kernel 7's z* against the fused ESC
+    kernel's on the same rows (f* too when B's rows are read whole)."""
+    rnb = torch.diff(bd.rpt)
+    kw = dict(a=ad, b=bd, rows=rows, max_deg_a=da, max_deg_b=db)
+    want = sym_k.sampled_symbolic_plain(**kw)
+    hint = flop_k.flop_rows(ad, rnb, rows, max_deg_a=da)
+    for row_flop in (None, hint):
+        got = sym_k.sampled_symbolic(**kw, row_flop=row_flop)
+        assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+    esc = sym_k.fused_flop_symbolic(**kw)
+    assert int(esc[0]) == int(want[0])
+    if db >= int(rnb.max()):
+        assert int(esc[1]) == int(want[1])
+    bits = acc_k.bitmask_symbolic(**kw)
+    plain = acc_k.bitmask_symbolic_plain(**kw)
+    assert (int(bits[0]), int(bits[1])) == (int(plain[0]), int(plain[1]))
+    assert int(bits[0]) == int(want[0]) and int(bits[1]) == int(hint.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunc", [False, True])
+def test_global_pad_kernels_match_plain_versions(card, trunc):
+    """Kernels 7 and 8 at global bounds over 300 sampled rows and the
+    eight widest rows of a power-law square: the hub rows (over 32,768
+    products) sort in global scratch while the rest sort in shared memory;
+    with ``trunc`` B's rows are read to fewer entries than its widest
+    has."""
+    m = sprand.power_law(3000, 3000, 40, 1.2, seed=5)
+    ad = csr.to_device(m, device=card)
+    da = int(m.row_nnz.max())
+    sample = np.concatenate([
+        np.random.default_rng(4).integers(0, m.nrows, 300),
+        np.argsort(m.row_nnz)[-8:]]).astype(np.int32)
+    rows = torch.from_numpy(sample).to(card)
+    _global_pad_checks(ad, ad, rows, da, da // 2 if trunc else da)
+
+
+@pytest.mark.cuda
+def test_sampled_symbolic_with_its_prefix_in_scratch(card):
+    """A row of 60,000 entries: its product prefix alone outgrows shared
+    memory, so prefix and keys both live in the block's scratch slice."""
+    a = sprand.erdos_renyi(8, 100_000, 3, seed=41)
+    dense = np.sort(np.random.default_rng(42).choice(100_000, 60_000,
+                                                     replace=False))
+    rpt = np.concatenate([[0, dense.size], dense.size + a.rpt[1:]])
+    a = type(a)(rpt=rpt.astype(a.rpt.dtype),
+                col=np.concatenate([dense, a.col]).astype(a.col.dtype),
+                val=np.ones(dense.size + a.nnz, dtype=np.float32),
+                shape=(9, 100_000))
+    b = sprand.erdos_renyi(100_000, 5_000, 2, seed=43)
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    rows = torch.arange(9, dtype=torch.int32, device=card)
+    _global_pad_checks(ad, bd, rows, int(a.row_nnz.max()),
+                       int(b.row_nnz.max()))
+
+
+@pytest.mark.cuda
+def test_flop_per_row_kernel_matches_plain_version(card):
+    """Thread-per-row (max_deg_a ≤ 16) and warp-per-row variants, and the
+    JAX entry point's default of 128 on rows wider than that."""
+    m = sprand.power_law(20_000, 20_000, 8, 1.3, seed=7)
+    ad = csr.to_device(m, device=card)
+    rnb = torch.diff(ad.rpt)
+    for max_deg_a in (8, 16, 128, int(m.row_nnz.max())):
+        got = flop_k.flop_per_row(ad, rnb, max_deg_a=max_deg_a)
+        assert torch.equal(got, flop_k.flop_per_row_plain(
+            ad, rnb, max_deg_a=max_deg_a))
+    floprc, _ = flop_mod.flop_per_row(ad, ad)
+    assert torch.equal(got, floprc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["power_law", "banded"])
+def test_global_pad_predictor_equals_the_binned_one(card, family):
+    m = (sprand.power_law(5000, 5000, 6, 1.5, seed=9) if family == "power_law"
+         else sprand.banded(5000, 5000, 24, 30, seed=9))
+    ad = csr.to_device(m, device=card)
+    da = int(m.row_nnz.max())
+    rows = torch.from_numpy(np.random.default_rng(2).integers(
+        0, m.nrows, 300).astype(np.int32)).to(card)
+    before = (sym_k.sampled_symbolic.launches, flop_k.flop_per_row.launches)
+    g = predictor.proposed_predict(ad, ad, rows, da, da, use_kernel=True)
+    assert (sym_k.sampled_symbolic.launches, flop_k.flop_per_row.launches) \
+        == (before[0] + 1, before[1] + 1)
+    b = predictor.proposed_predict_binned(
+        ad, ad, rows, binning.build_plan(m, m), use_kernel=True)
+    for what in g._fields:
+        assert torch.equal(getattr(g, what), getattr(b, what)), what
+
+
+@pytest.mark.cuda
+def test_global_spgemm_kernel_matches_plain_version(card):
+    m = _valued(sprand.rmat(3000, 3000, 24_000, seed=17), 18)
+    ad = csr.to_device(m, device=card)
+    da = int(m.row_nnz.max())
+    for cap in (16, 256):
+        kw = dict(row_capacity=cap, max_deg_a=da, max_deg_b=da)
+        _assert_numeric_equal(spgemm.spgemm(ad, ad, use_kernel=True, **kw),
+                              spgemm.spgemm(ad, ad, **kw))

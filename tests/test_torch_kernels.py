@@ -1,4 +1,4 @@
-"""The port's six kernels against the JAX package's Pallas kernels (run in
+"""The port's nine kernels against the JAX package's Pallas kernels (run in
 interpret mode, as tests/test_kernels.py runs them) and against its jnp
 twins, on tiny inputs.  On the CPU each wrapper runs its plain version;
 the CUDA kernels themselves are held against those plain versions on a card
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.core import csr as jcsr
+from repro.core import flop as jflop
 from repro.core import spgemm as jspgemm
 from repro.kernels import accumulator as jacc_k
 from repro.kernels import ops as jops
@@ -218,7 +219,7 @@ def test_accumulator_numeric_matches_pallas_and_jnp(route, row_capacity):
 
 
 @pytest.mark.parametrize("route", ["spa", "bin", "nope"])
-def test_ops_refuse_unported_and_unknown_routes(route):
+def test_ops_run_every_route_and_refuse_unknown_ones(route):
     """Every planned route now runs through ``ops`` and gives what the JAX
     package's routed ops give (their tiling derived from the span when the
     caller passes none); only an unknown route is refused."""
@@ -274,3 +275,183 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel():
         with pytest.raises(RuntimeError):
             numeric(ma, mb, rows, max_deg_a=4, max_deg_b=4, row_capacity=8,
                     tile_n=128, n_tiles=1)
+
+
+# --------------------------------------------------------------------------- #
+# Kernels 7-9: the global-pad symbolic pair and Algorithm 1 over all rows
+# --------------------------------------------------------------------------- #
+def _symbolic_operands():
+    """The shapes of tests/test_kernels.py's and tests/test_accumulator.py's
+    symbolic sweeps: a banded A, an Erdős–Rényi B."""
+    a = jrand.banded(200, 200, 8, 12, seed=3)
+    b = jrand.erdos_renyi(200, 160, 5, seed=4)
+    return _pair(a, b)
+
+
+# (samples, Pallas block) as in those sweeps; "trunc" reads B's rows to
+# fewer entries than its widest has, so the two f* conventions part
+_SYMBOLIC_CASES = [(8, 8, False), (37, 8, False), (5, 16, False),
+                   (37, 8, True)]
+
+
+@pytest.mark.parametrize("samples,block,trunc", _SYMBOLIC_CASES)
+def test_sampled_symbolic_matches_pallas_and_jnp(samples, block, trunc):
+    ja, jb, ta, tb = _symbolic_operands()
+    rows = np.random.default_rng(samples).integers(
+        0, ja.nrows, samples).astype(np.int32)
+    da = int(np.diff(np.asarray(ja.rpt)).max())
+    db = int(np.diff(np.asarray(jb.rpt)).max()) - (3 if trunc else 0)
+    zp, fp = jops.sampled_symbolic(ja, jb, jnp.asarray(rows), da, db,
+                                   block_samples=block)
+    zr, fr = jref.sampled_symbolic_ref(ja, jb, jnp.asarray(rows), da, db)
+    trows = torch.from_numpy(rows)
+    z, f = tops.sampled_symbolic(ta, tb, trows, da, db)
+    assert z.dtype == torch.int32 and f.dtype == torch.int32
+    assert (int(z), int(f)) == (int(zp), int(fp)) == (int(zr), int(fr))
+    zt, ft = tref.sampled_symbolic_ref(ta, tb, trows, da, db)
+    assert (int(zt), int(ft)) == (int(z), int(f))
+    # the workspace hint changes nothing on the plain path
+    flop = tflop_k.flop_rows(ta, torch.diff(tb.rpt), trows, max_deg_a=da)
+    zh, fh = tops.sampled_symbolic(ta, tb, trows, da, db, row_flop=flop)
+    assert (int(zh), int(fh)) == (int(z), int(f))
+    if trunc:       # f* counts the gathered products, below the FLOP
+        assert int(f) < int(flop.sum())
+
+
+@pytest.mark.parametrize("span", [0, 64])
+@pytest.mark.parametrize("samples,block,trunc", _SYMBOLIC_CASES)
+def test_bitmask_symbolic_matches_pallas(samples, block, trunc, span):
+    ja, jb, ta, tb = _symbolic_operands()
+    rows = np.random.default_rng(samples).integers(
+        0, ja.nrows, samples).astype(np.int32)
+    da = int(np.diff(np.asarray(ja.rpt)).max())
+    db = int(np.diff(np.asarray(jb.rpt)).max()) - (3 if trunc else 0)
+    zp, fp = jops.bitmask_symbolic(ja, jb, jnp.asarray(rows), da, db,
+                                   block_samples=block, span=span)
+    trows = torch.from_numpy(rows)
+    z, f = tops.bitmask_symbolic(ta, tb, trows, da, db, span=span)
+    assert z.dtype == torch.int32 and f.dtype == torch.int32
+    assert (int(z), int(f)) == (int(zp), int(fp))
+    # f* is Algorithm 1 over the rows; z* is the ESC count while the span
+    # covers the rows' extent
+    flop = tflop_k.flop_rows(ta, torch.diff(tb.rpt), trows, max_deg_a=da)
+    assert int(f) == int(flop.sum())
+    if span == 0:
+        ze, _ = tops.sampled_symbolic(ta, tb, trows, da, db)
+        assert int(z) == int(ze)
+
+
+def test_sampled_and_bitmask_f_star_conventions_differ():
+    """Below B's widest row the unfused ESC kernel's f* counts gathered
+    products and the bitmask kernel's sums untruncated B-row lengths —
+    each as its own Pallas kernel does."""
+    ja, jb, ta, tb = _symbolic_operands()
+    rows = np.arange(0, 200, 5, dtype=np.int32)
+    da = int(np.diff(np.asarray(ja.rpt)).max())
+    db = int(np.diff(np.asarray(jb.rpt)).max()) - 3
+    j7 = jops.sampled_symbolic(ja, jb, jnp.asarray(rows), da, db)
+    j8 = jops.bitmask_symbolic(ja, jb, jnp.asarray(rows), da, db)
+    t7 = tops.sampled_symbolic(ta, tb, torch.from_numpy(rows), da, db)
+    t8 = tops.bitmask_symbolic(ta, tb, torch.from_numpy(rows), da, db)
+    assert int(t7[0]) == int(t8[0]) == int(j7[0]) == int(j8[0])
+    assert int(t7[1]) == int(j7[1]) < int(t8[1]) == int(j8[1])
+    p7 = tsym_k.sampled_symbolic_plain(ta, tb, torch.from_numpy(rows),
+                                       max_deg_a=da, max_deg_b=db)
+    p8 = tacc_k.bitmask_symbolic_plain(ta, tb, torch.from_numpy(rows),
+                                       max_deg_a=da, max_deg_b=db)
+    assert [int(x) for x in p7] == [int(x) for x in t7]
+    assert [int(x) for x in p8] == [int(x) for x in t8]
+
+
+@pytest.mark.parametrize("m,n,da,db", [
+    (100, 100, 4, 4), (257, 180, 7, 3), (64, 512, 12, 9)])
+def test_flop_per_row_matches_ref_and_jnp(m, n, da, db):
+    """The shapes of tests/test_kernels.py::test_flop_kernel_sweep.  The
+    Pallas kernel itself fails on the installed JAX (pl.load is gone), so
+    the port is held to its oracles: kernels/ref.py and core/flop.py."""
+    a = jrand.erdos_renyi(m, n, da, seed=m)
+    b = jrand.erdos_renyi(n, m, db, seed=n)
+    ja, jb, ta, tb = _pair(a, b)
+    mda = int(a.row_nnz.max())
+    got = tops.flop_per_row(ta, tb, max_deg_a=mda)
+    assert got.dtype == torch.int32 and got.shape == (m,)
+    want = jref.flop_per_row_ref(ja.rpt, ja.col, jnp.diff(jb.rpt))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jflop.flop_per_row(ja, jb)[0]))
+    np.testing.assert_array_equal(
+        tref.flop_per_row_ref(ta.rpt, ta.col, torch.diff(tb.rpt)).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("max_deg_a", [2, 128])
+def test_flop_per_row_truncates_as_jax_does(max_deg_a):
+    """Rows wider than ``max_deg_a`` are read to ``max_deg_a`` entries (the
+    JAX entry point's default of 128 included): an undercount, equal to a
+    numpy sum over each row's first entries."""
+    a = jrand.power_law(150, 120, 6, 1.4, seed=111)
+    b = jrand.erdos_renyi(120, 90, 4, seed=112)
+    _, _, ta, tb = _pair(a, b)
+    deg = np.diff(a.rpt)
+    assert deg.max() > 2
+    got = (tops.flop_per_row(ta, tb) if max_deg_a == 128 else
+           tops.flop_per_row(ta, tb, max_deg_a=max_deg_a))
+    want = np.array([b.row_nnz[a.col[a.rpt[i]:a.rpt[i] + min(d, max_deg_a)]]
+                     .sum() for i, d in enumerate(deg)])
+    np.testing.assert_array_equal(got.numpy(), want)
+    if deg.max() > max_deg_a:
+        full = tops.flop_per_row(ta, tb, max_deg_a=int(deg.max()))
+        assert int(got.sum()) < int(full.sum())
+
+
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+def test_unrouted_numeric_ops_match_jax(route):
+    """``ops.spgemm_numeric``, ``spgemm_numeric_spa`` and
+    ``spgemm_numeric_bin`` (the tiling derived from the span, as JAX
+    derives it) against the JAX package's entry points."""
+    a = _banded(60, 60, 4, 8, seed=121)
+    ja, jb, ta, tb = _pair(a, a)
+    rows = np.arange(20, dtype=np.int32)
+    kw = dict(max_deg_a=4, max_deg_b=4, row_capacity=8)
+    if route == "esc":
+        got = tops.spgemm_numeric(ta, tb, torch.from_numpy(rows), **kw)
+        want = jops.spgemm_numeric(ja, jb, jnp.asarray(rows), **kw)
+    else:
+        tfn, jfn = ((tops.spgemm_numeric_spa, jops.spgemm_numeric_spa)
+                    if route == "spa" else
+                    (tops.spgemm_numeric_bin, jops.spgemm_numeric_bin))
+        got = tfn(ta, tb, torch.from_numpy(rows), tile_n=0, span=32, **kw)
+        want = jfn(ja, jb, jnp.asarray(rows), tile_n=0, span=32, **kw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[3]) == int(want[3])
+    _assert_vals_close(got[1].numpy(), want[1])
+
+
+def test_unrouted_fused_symbolic_op_matches_jax():
+    a, b = _operands(131)
+    ja, jb, ta, tb = _pair(a, b)
+    rows = np.random.default_rng(5).integers(0, a.nrows, 21).astype(np.int32)
+    da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+    z, f, fl = tops.fused_flop_symbolic(ta, tb, torch.from_numpy(rows), da,
+                                        db)
+    zj, fj, flj = jops.fused_flop_symbolic(ja, jb, jnp.asarray(rows), da, db)
+    assert (int(z), int(f)) == (int(zj), int(fj))
+    np.testing.assert_array_equal(fl.numpy(), np.asarray(flj))
+
+
+def test_global_pad_wrappers_raise_off_the_cpu_without_a_kernel():
+    """Kernels 7-9 get no plain fallback either: a tensor neither on the
+    CPU nor on a CUDA card makes them raise."""
+    a, b = _operands(141)
+    _, _, ta, tb = _pair(a, b)
+    meta = lambda d: type(d)(rpt=d.rpt.to("meta"), col=d.col.to("meta"),
+                             val=d.val.to("meta"), shape=d.shape)
+    ma, mb = meta(ta), meta(tb)
+    rows = torch.arange(4, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError):
+        tflop_k.flop_per_row(ma, torch.diff(mb.rpt), max_deg_a=4)
+    with pytest.raises(RuntimeError):
+        tsym_k.sampled_symbolic(ma, mb, rows, max_deg_a=4, max_deg_b=4)
+    with pytest.raises(RuntimeError):
+        tacc_k.bitmask_symbolic(ma, mb, rows, max_deg_a=4, max_deg_b=4)

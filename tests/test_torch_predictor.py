@@ -179,12 +179,70 @@ def test_allocation_plans_match_jax(family, pow2):
         (ja.row_capacity, ja.total_capacity)
 
 
-def test_spa_buckets_are_refused():
-    """SPA buckets, once refused, predict what the JAX package predicts,
-    plain and through the kernel wrappers."""
+def test_spa_buckets_predict_what_jax_predicts():
+    """SPA buckets predict what the JAX package predicts, plain and through
+    the kernel wrappers."""
     jd, td, jplan, tplan, rows = _case(_MINI["mini_band"], route="spa")
     jp = jpred.proposed_predict_binned(jd, jd, jnp.asarray(rows), jplan)
     for use_kernel in (False, True):
         tp = tpred.proposed_predict_binned(td, td, torch.from_numpy(rows),
                                            tplan, use_kernel=use_kernel)
         _assert_pred_matches(tp, jp)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("family", ["mini_er", "mini_band"])
+def test_global_pad_predictors_match_jax_pallas_kernel(family, use_kernel):
+    """The paper's predictor at global bounds against JAX's
+    ``proposed_predict(use_kernel=True)``, whose sampled symbolic pass runs
+    in its Pallas kernel (interpret mode); the reference design against
+    JAX's ``reference_predict``.  On the CPU the port's kernel path runs
+    the plain versions of the FLOP and symbolic kernels."""
+    jm = _MINI[family]
+    jd, td, _, _, rows = _case(jm)
+    da = int(jm.row_nnz.max())
+    jrows, trows = jnp.asarray(rows), torch.from_numpy(rows)
+    jp = jpred.proposed_predict(jd, jd, jrows, da, da, use_kernel=True)
+    tp = tpred.proposed_predict(td, td, trows, da, da, use_kernel=use_kernel)
+    _assert_pred_matches(tp, jp)
+    _assert_pred_matches(
+        tpred.reference_predict(td, td, trows, da, da, use_kernel=use_kernel),
+        jpred.reference_predict(jd, jd, jrows, da, da))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_global_pad_equals_binned_predictor(family, use_kernel):
+    """One pad at the global bounds and one pad per degree bucket count the
+    same integers, so the port's two predictors agree bit for bit — the
+    float eq. 4 chain included (the JAX package's jitted global one may
+    round 1 ulp apart, fault R2)."""
+    jm = _MINI[family]
+    _, td, _, tplan, rows = _case(jm)
+    da = int(jm.row_nnz.max())
+    trows = torch.from_numpy(rows)
+    g = tpred.proposed_predict(td, td, trows, da, da, use_kernel=use_kernel)
+    b = tpred.proposed_predict_binned(td, td, trows, tplan,
+                                      use_kernel=use_kernel)
+    for what in g._fields:
+        assert torch.equal(getattr(g, what), getattr(b, what)), what
+
+
+@pytest.mark.parametrize("m", [1, 150, 4000, 333_334, 10**7])
+def test_static_sample_num_matches_jax(m):
+    assert tpred.static_sample_num(m) == jpred.static_sample_num(m)
+    assert (tpred.SAMPLE_FRACTION, tpred.SAMPLE_CAP) == \
+        (jpred.SAMPLE_FRACTION, jpred.SAMPLE_CAP)
+
+
+def test_draw_sample_rows_is_seeded_int32_in_range():
+    """The same generator seed draws the same rows (not JAX's: the streams
+    differ), int32 in [0, M)."""
+    draw = lambda seed: tpred.draw_sample_rows(
+        torch.Generator().manual_seed(seed), 1000, 300)
+    rows = draw(0)
+    assert rows.dtype == torch.int32 and rows.shape == (300,)
+    assert int(rows.min()) >= 0 and int(rows.max()) <= 999
+    assert torch.equal(rows, draw(0)) and not torch.equal(rows, draw(1))
+    assert int(tpred.draw_sample_rows(torch.Generator().manual_seed(0), 1,
+                                      5).max()) == 0

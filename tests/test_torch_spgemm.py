@@ -194,3 +194,28 @@ def test_routed_spgemm_rows_refuses_unported_routes():
             _assert_out_matches(got, want)
 
 
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("capacity", ["predicted", "below_widest_row"])
+@pytest.mark.parametrize("family", ["mini_er", "mini_band"])
+def test_global_spgemm_matches_jax(family, capacity, use_kernel):
+    """All rows at the global degree bounds on ESC (the quickstart's
+    numeric phase), against JAX's ``spgemm``; a capacity below the widest
+    row overflows identically."""
+    jm = _MINI[family]
+    jd, td = _pair(jm)
+    da = int(jm.row_nnz.max())
+    rows = np.random.default_rng(2).integers(0, jm.nrows, 30).astype(np.int32)
+    jp = jpred.proposed_predict(jd, jd, jnp.asarray(rows), da, da)
+    flopr = np.asarray(jflop.flop_per_row(jd, jd)[0])
+    cap = jpred.AllocationPlan.from_prediction(
+        np.asarray(jp.structure), flopr, safety=1.5).row_capacity
+    widest = int(spgemm_dense_oracle(jm, jm).astype(bool).sum(1).max())
+    if capacity == "below_widest_row":
+        cap = widest // 2
+    kw = dict(row_capacity=cap, max_deg_a=da, max_deg_b=da)
+    want = jspgemm.spgemm(jd, jd, **kw)
+    got = tspgemm.spgemm(td, td, use_kernel=use_kernel, **kw)
+    _assert_out_matches(got, want)
+    assert (int(got.overflow) > 0) == (cap < widest)
