@@ -27,10 +27,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (f) the paper's Section VI accuracy experiment,
        ``experiment.run_subset()``, 75 cases with their sampled counts on
        the card, held to the committed baseline's pinned limits;
+   (g) blocked GQA flash attention, ``ops.flash_attention``, at
+       qwen2.5-32b's and phi3-mini's attention widths over 4096 tokens,
+       causal (top-left) and not, in bfloat16 and float32;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
-   structure; (c)'s plan, ``col``, ``row_nnz`` and ``overflow`` against
+   structure; (g)'s outputs against the plain attention on the card;
+   (c)'s plan, ``col``, ``row_nnz`` and ``overflow`` against
    (b)'s exactly (routes change no bucket, prediction or capacity); (d)'s
    counts and predicted nnz against (a)'s bit for bit; (e)'s ``row_nnz``
    against the exact structure and its output against the plain
@@ -58,6 +62,7 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32 off the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16/fp16 tensor cores, dense
 VAL_RTOL = 1e-5                  # run sums are taken in another order
 VAL_ATOL_REL = 1e-6              # × the row's largest |value|
 TIMED_RUNS = 5
@@ -156,6 +161,19 @@ def numeric_ops(floprc, rows) -> int:
     return 2 * int(floprc[rows].sum())
 
 
+def attention_work(q, k, causal) -> tuple[int, int]:
+    """(operations, bytes) of one attention call: a multiply and an add per
+    head-dim element in each of its two products, for every (query, visible
+    key) pair of each head (top-left causal mask: query i sees keys j <= i);
+    q, k and v read and the output written once."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    n = min(sq, sk)
+    pairs = n * (n + 1) // 2 + (sq - n) * sk if causal else sq * sk
+    return 4 * b * hq * d * pairs, (2 * q.numel() + 2 * k.numel()) * \
+        q.element_size()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -169,6 +187,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import accumulator as acc_k
+    from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import flop_per_row as flop_k
     from repro_torch.kernels import spgemm_numeric as num_k
     from repro_torch.kernels import spgemm_symbolic as sym_k
@@ -199,12 +218,13 @@ def main() -> int:
     kernels = (flop_k.flop_rows, sym_k.fused_flop_symbolic,
                num_k.spgemm_numeric, acc_k.fused_flop_symbolic_bitmask,
                acc_k.spa_numeric, acc_k.bin_numeric, sym_k.sampled_symbolic,
-               acc_k.bitmask_symbolic, flop_k.flop_per_row)
+               acc_k.bitmask_symbolic, flop_k.flop_per_row,
+               fa_k.flash_attention)
     names = [k.__name__ for k in kernels]
     launches = {path: dict.fromkeys(names, 0)
                 for path in ("predict", "plan_esc", "plan_auto",
                              "global_predict", "global_bitmask",
-                             "global_spgemm", "experiment")}
+                             "global_spgemm", "experiment", "attention")}
 
     def drive(path, fn):
         """One call of a main path, every launch count set to 0 just before
@@ -570,6 +590,59 @@ def main() -> int:
               baseline={k: baseline["aggregate"][k] for k in keys},
               pinned=pin))
 
+    # ---- (g) blocked GQA flash attention at two model configs' attention
+    # widths, from src/repro/configs: qwen2_5_32b.py (d_model 5120, 40
+    # heads, 8 kv heads: D 128, groups of 5) and phi3_mini.py (d_model
+    # 3072, 32 heads and kv heads: D 96), over launch/specs.py's train_4k
+    # sequence of 4096 tokens, its batch of 256 cut to 4, 2 and 1; G4
+    # attends 1024 queries over 4096 keys (top-left causal mask).  Inputs
+    # are standard normal from a seed, made on the card.
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 in fp32
+    attn = {}           # case -> (max abs error against plain, kernel ms)
+    for case, shape_q, shape_kv, dtype, causal in (
+            ("G1", (4, 40, 4096, 128), (4, 8, 4096, 128), torch.bfloat16,
+             True),
+            ("G2", (1, 40, 4096, 128), (1, 8, 4096, 128), torch.float32,
+             True),
+            ("G3", (2, 32, 4096, 96), (2, 32, 4096, 96), torch.bfloat16,
+             True),
+            ("G4", (1, 40, 1024, 128), (1, 8, 4096, 128), torch.bfloat16,
+             True),
+            ("G4_full", (1, 40, 1024, 128), (1, 8, 4096, 128),
+             torch.bfloat16, False)):
+        gen = torch.Generator(device=dev).manual_seed(len(attn))
+        q, k, v = (torch.randn(s_, generator=gen, device=dev).to(dtype)
+                   for s_ in (shape_q, shape_kv, shape_kv))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, counts = drive("attention", lambda: kops.flash_attention(
+            q, k, v, causal=causal))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        want = fa_k.flash_attention_plain(q, k, v, causal=causal)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        err = float((out.float() - want.float()).abs().max())
+        if (counts["flash_attention"] != 1 or out.shape != q.shape
+                or out.dtype != dtype or not bool(out.isfinite().all())
+                or (dtype == torch.float32 and err > tol)
+                or not torch.allclose(out.float(), want.float(), rtol=tol,
+                                      atol=tol)):
+            fail(f"attention {case}: kernel != plain (max abs {err}) or "
+                 f"not launched once ({counts['flash_attention']})")
+        ms = cuda_ms(torch, lambda: fa_k.flash_attention(q, k, v,
+                                                         causal=causal))
+        attn[case] = (err, ms)
+        if case == "G1":    # beside its plain version and SDPA below
+            g1 = (q, k, v, want)
+        ops, nbytes = attention_work(q, k, causal)
+        emit(dict(phase="attention", case=case, q=list(shape_q),
+                  kv=list(shape_kv), dtype=str(dtype).split(".")[-1],
+                  causal=causal, max_abs_err=err, tolerance=tol,
+                  seconds=secs, kernel_ms=ms, operations=ops, bytes=nbytes,
+                  tflop_per_s=ops / ms * 1e-9, launches=counts))
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+
     emit(dict(phase="main_path_launches", **launches))
     # plan_spgemm takes floprC from the host, so the per-bucket FLOP kernel
     # runs on path (a) only
@@ -578,7 +651,8 @@ def main() -> int:
                         ("global_predict", names[6:9:2]),
                         ("global_bitmask", names[7:8]),
                         ("global_spgemm", names[2:3]),
-                        ("experiment", names[6:9:2])):
+                        ("experiment", names[6:9:2]),
+                        ("attention", names[9:10])):
         for k in kinds:
             if launches[path][k] <= 0:
                 fail(f"kernel {k} was not launched on main path {path}")
@@ -788,20 +862,25 @@ def main() -> int:
                                     lambda: torch.sparse.mm(a_sp, a_sp))
         return library[name]
 
-    def library_flop_ms(name):
-        """Yardstick only: Algorithm 1 as one cuSPARSE product of A's
-        pattern (values 1.0) by B's row lengths as float32, exact below
-        2^24."""
+    def library_flop_ms(name, rows):
+        """Yardstick only: Algorithm 1 for ``rows`` as one cuSPARSE product
+        of those A rows' pattern (values 1.0) by B's row lengths as float32,
+        exact below 2^24.  The rows' pattern is built before the timed
+        call."""
         m = dict(mats)[name]
+        deg = np.diff(m.rpt)[rows]
+        rpt = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+        idx = np.repeat(m.rpt[rows] - rpt[:-1], deg) + np.arange(rpt[-1])
         pattern = torch.sparse_csr_tensor(
-            torch.from_numpy(m.rpt).to(dev),
-            torch.from_numpy(m.col.astype(np.int64)).to(dev),
-            torch.ones(m.nnz, dtype=torch.float32, device=dev), size=m.shape)
+            torch.from_numpy(rpt).to(dev),
+            torch.from_numpy(m.col[idx].astype(np.int64)).to(dev),
+            torch.ones(int(rpt[-1]), dtype=torch.float32, device=dev),
+            size=(rows.size, m.ncols))
         lengths = torch.from_numpy(np.diff(m.rpt).astype(np.float32)).to(
             dev)[:, None]
         got = torch.sparse.mm(pattern, lengths)[:, 0]
         if not np.array_equal(got.cpu().numpy(),
-                              oracle.flop_per_row(m, m)[0]):
+                              oracle.flop_per_row(m, m)[0][rows]):
             fail(f"library FLOP {name}: != host oracle")
         return cuda_ms(torch, lambda: torch.sparse.mm(pattern, lengths))
 
@@ -826,9 +905,11 @@ def main() -> int:
         lib_ms = None
         if kernel == "flop_rows":
             nbytes = sum(bytes_flop_rows(np, m, c[1], c[2]) for c in cs)
+            lib_ms = library_flop_ms(name,
+                                     np.concatenate([c[1] for c in cs]))
         elif kernel == "flop_per_row":
             nbytes = sum(bytes_flop_all(np, m, c[2]) for c in cs)
-            lib_ms = library_flop_ms(name)
+            lib_ms = library_flop_ms(name, np.arange(m.nrows))
         elif "symbolic" in kernel:
             nbytes = sum(bytes_symbolic(np, m, c[1], c[2], c[3]) for c in cs)
         else:
@@ -909,6 +990,36 @@ def main() -> int:
                                ops / FP32_FLOP_PER_S) * 1e3))
         del ad, pa, p
         torch.cuda.empty_cache()
+    # flash attention on G1 beside its plain version and SDPA, the
+    # yardstick (its is_causal is top-left aligned too), held to the plain
+    # version first
+    q, k, v, want = g1
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+
+    if not torch.allclose(sdpa().float(), want.float(), rtol=1e-2,
+                          atol=1e-2):
+        fail("attention G1: scaled_dot_product_attention != plain")
+    ops, nbytes = attention_work(q, k, True)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_FLOP_PER_S * 1e3
+    err, ms = attn["G1"]
+    timings["flash_attention", "G1"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:82",
+        launches=sum(launches[p]["flash_attention"] for p in launches),
+        max_abs_err=err, ms=ms,
+        plain_ms=cuda_ms(torch, lambda: fa_k.flash_attention_plain(
+            q, k, v, causal=True)),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=cuda_ms(torch, sdpa), timed_on="G1", calls=1,
+        bytes=nbytes, operations=ops, tflop_per_s=ops / ms * 1e-9)
+    emit(dict(phase="kernel_time", **timings["flash_attention", "G1"]))
+    del q, k, v, want, g1
     report = [timings["flop_rows", "pl_100k_d4"],
               timings["fused_flop_symbolic", "pl_100k_d4"],
               timings["spgemm_numeric", "cant_like"],
@@ -917,7 +1028,8 @@ def main() -> int:
               timings["bin_numeric", "rmat_80k"],
               timings["sampled_symbolic", "rmat_80k"],
               timings["bitmask_symbolic", "rmat_80k"],
-              timings["flop_per_row", "cant_like"]]
+              timings["flop_per_row", "cant_like"],
+              timings["flash_attention", "G1"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in report]}),

@@ -1,9 +1,9 @@
 """Carry state across from the JAX package, as plain numpy arrays.
 
 A parity test runs ``repro`` and ``repro_torch`` on the very same operands,
-bucket plan and sample rows.  These helpers build the port's objects from
-numpy arrays — what ``np.asarray`` gives for a JAX array or a JAX-side
-dataclass field — so the port never sees a JAX object.
+bucket plan and sample rows, or attention inputs.  These helpers build the
+port's objects from numpy arrays — what ``np.asarray`` gives for a JAX
+array or a JAX-side dataclass field — so the port never sees a JAX object.
 """
 from __future__ import annotations
 
@@ -50,3 +50,12 @@ def binning_plan_from_numpy(buckets, *, global_deg_a: int | None = None,
         global_deg_b=int(global_deg_b if global_deg_b is not None
                          else max((b.deg_b for b in bks), default=1)),
         row_bucket=row_bucket)
+
+
+def dense_from_numpy(x, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A tensor of ``dtype`` from a float32 numpy array (attention's q, k,
+    v), cast on the torch side: float32 → bfloat16/float16 rounds to
+    nearest even, as ``jnp.asarray(x).astype(dtype)`` does, so both packages
+    get the same inputs (numpy has no bfloat16)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(resolve_device(device)).to(dtype)

@@ -110,11 +110,17 @@ def launcher(name: str, signature: str, entry: str | None = None):
     declared: one letter per argument, ``p`` a pointer (device pointers and
     the stream), ``i`` an int, ``q`` a long long.  Returns an int error
     code."""
+    return function(name, f"{entry or name}_launch", signature)
+
+
+def function(name: str, symbol: str, signature: str, restype: str = "i"):
+    """``symbol`` of ``lib<name>.so`` with its C signature declared in the
+    letters of :func:`launcher`, returning ``restype`` (one such letter)."""
     import ctypes
     types = dict(p=ctypes.c_void_p, i=ctypes.c_int, q=ctypes.c_longlong)
-    fn = getattr(load(name), f"{entry or name}_launch")
+    fn = getattr(load(name), symbol)
     fn.argtypes = [types[c] for c in signature]
-    fn.restype = ctypes.c_int
+    fn.restype = types[restype]
     return fn
 
 
@@ -149,6 +155,21 @@ def require(name: str, t, dtype, what: str) -> int:
         raise RuntimeError(f"{name}: {what} must be a contiguous 1-D {dtype} "
                            f"tensor, got {t.dtype} shape {tuple(t.shape)}")
     return t.data_ptr()
+
+
+# dtype codes of the kernels that take floating tensors of any width
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def require_float(name: str, t, dtype, what: str) -> tuple[int, int]:
+    """Check a floating tensor handed to a kernel (``dtype``, one of
+    :data:`FLOAT_CODES`, contiguous, any shape) and return its device
+    pointer and dtype code."""
+    if dtype not in FLOAT_CODES or t.dtype != dtype or not t.is_contiguous():
+        raise RuntimeError(f"{name}: {what} must be a contiguous {dtype} "
+                           f"tensor of float32, bfloat16 or float16, got "
+                           f"{t.dtype} shape {tuple(t.shape)}")
+    return t.data_ptr(), FLOAT_CODES[dtype]
 
 
 def require_csr(name: str, m, what: str, values: bool = False) -> list:

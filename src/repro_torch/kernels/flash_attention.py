@@ -1,0 +1,126 @@
+"""Blocked GQA flash attention, forward only.
+
+:func:`flash_attention` launches the hand-written CUDA kernel
+``csrc/flash_attention.cu`` on CUDA tensors and runs its plain tensor-op
+version :func:`flash_attention_plain` on CPU tensors; it replaces
+``src/repro/kernels/flash_attention.py::_flash_single`` (``_flash_kernel``)
+behind that module's public ``flash_attention``.  Query head ``h`` reads kv
+head ``h // (Hq // Hkv)``, as JAX's ``reshape(b, hkv, group, sq, d)`` maps
+them.  The products, the softmax and its state are float32 whatever the
+input dtype; the output has q's dtype.
+
+The causal mask is top-left aligned: query ``i`` sees keys ``j <= i`` for
+any ``Sq`` and ``Sk``, as the TPU kernel's ``qpos >= kpos`` does.  The JAX
+package's own oracle, ``repro.kernels.ref.attention_ref``, aligns it
+bottom-right (``tril(k=sk - sq)``), so the two agree only where ``Sq ==
+Sk`` (ROADMAP fault R6).  The port copies each: this module follows the
+kernel, ``kernels/ref.py::attention_ref`` the oracle.
+
+JAX's kernel has no VJP, so there is no backward here either: the wrapper
+is not an ``autograd.Function`` and its output carries no gradient.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_LIB = "flash_attention"
+NEG_INF = -1e30
+# query rows per score block of the plain version: a (B, Hq, 512, Sk) fp32
+# block at a time, not the whole (B, Hq, Sq, Sk)
+PLAIN_CHUNK = 512
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """Plain tensor-op version: float32 scores scaled by ``1/sqrt(D)`` after
+    the product, the top-left causal mask, float32 softmax,
+    :data:`PLAIN_CHUNK` query rows at a time; the output in q's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / d ** 0.5
+    qg = q.float().reshape(b, hkv, group, sq, d)
+    kt = k.float().transpose(-1, -2)                     # (B, Hkv, D, Sk)
+    vf = v.float()
+    kpos = torch.arange(sk, device=q.device)
+    out = torch.empty(b, hkv, group, sq, d, dtype=q.dtype, device=q.device)
+    for lo in range(0, sq, PLAIN_CHUNK):
+        hi = min(sq, lo + PLAIN_CHUNK)
+        qc = qg[:, :, :, lo:hi].reshape(b, hkv, group * (hi - lo), d)
+        s = (torch.matmul(qc, kt) * scale).view(b, hkv, group, hi - lo, sk)
+        if causal:
+            qpos = torch.arange(lo, hi, device=q.device)
+            s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+        p = torch.softmax(s, dim=-1).view(b, hkv, group * (hi - lo), sk)
+        out[:, :, :, lo:hi] = torch.matmul(p, vf).view(
+            b, hkv, group, hi - lo, d).to(q.dtype)
+    return out.view(b, hq, sq, d)
+
+
+def _check_inputs(q, k, v, block_q: int, block_k: int) -> None:
+    """The JAX entry point's preconditions, as errors: ``ValueError`` on
+    shapes (``Hq % Hkv``, ``Sq % block_q``, ``Sk % block_k``), ``TypeError``
+    on a dtype other than float32, bfloat16 and float16, or on q, k and v of
+    different dtypes."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: q (B, Hq, Sq, D) and k, v "
+                         f"(B, Hkv, Sk, D) expected, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: q heads {hq} are not a multiple "
+                         f"of kv heads {hkv}")
+    if block_q <= 0 or block_k <= 0 or sq % block_q or sk % block_k:
+        raise ValueError(f"flash_attention: Sq {sq} and Sk {sk} must be "
+                         f"multiples of block_q {block_q} and block_k "
+                         f"{block_k}")
+    if q.dtype not in _build.FLOAT_CODES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k and v must share one dtype "
+                        f"of float32, bfloat16 or float16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Attention of q ``(B, Hq, Sq, D)`` over k, v ``(B, Hkv, Sk, D)`` →
+    ``(B, Hq, Sq, D)`` in q's dtype.  ``block_q`` and ``block_k`` are the
+    TPU kernel's tiles: they must divide ``Sq`` and ``Sk``, as there, and
+    change nothing else; the CUDA kernel picks its own tiles.  Forward
+    only."""
+    _check_inputs(q, k, v, block_q, block_k)
+    dev = _build.kernel_device(_LIB, q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if dev is None:
+        return flash_attention_plain(q, k, v, causal=causal)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    need = _build.function(_LIB, "flash_attention_smem_bytes", "i", "q")(d)
+    if need < 0 or need + _build.STATIC_SMEM_RESERVE > _build.max_smem(
+            _LIB, dev):
+        raise ValueError(f"flash_attention: head dim {d} does not fit the "
+                         f"kernel's shared-memory tiles on {dev} (at most "
+                         "256)")
+    if max(b, hq) > 65535:
+        raise ValueError(f"flash_attention: batch {b} and q heads {hq} must "
+                         "each be at most 65535 (grid dimensions)")
+    qp, code = _build.require_float(_LIB, q, q.dtype, "q")
+    fn = _build.launcher(_LIB, "ppppiiiiiiiiip")
+    rc = fn(qp, _build.require_float(_LIB, k, q.dtype, "k")[0],
+            _build.require_float(_LIB, v, q.dtype, "v")[0], out.data_ptr(),
+            code, b, hq, hkv, sq, sk, d, int(bool(causal)), dev.index or 0,
+            _build.stream_of(dev))
+    _build.check(_LIB, rc)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,14 +1,16 @@
 """Public entry points of the port's kernels.
 
-Mirrors ``repro.kernels.ops`` (all of it but ``flash_attention``), under its
-names and argument order: the callers in ``core`` reach every kernel
-through here, and in the routed entry points each bucket's accumulator
-route (ESC, SPA or BIN, static plan metadata) picks its kernel.  Each
+Mirrors ``repro.kernels.ops``, all of it, under its names and argument
+order: the callers in ``core`` reach every SpGEMM kernel through here, and
+in the routed entry points each bucket's accumulator route (ESC, SPA or
+BIN, static plan metadata) picks its kernel; :func:`flash_attention` has no
+caller in the port, as its JAX twin has none in the JAX package.  Each
 wrapper launches its hand-written CUDA kernel on CUDA tensors and runs its
-plain tensor-op version on CPU tensors.  The TPU grid knobs of the JAX
+plain tensor-op version on CPU tensors.  The TPU grid knobs of the SpGEMM
 entry points (``block_rows``, ``block_samples``) size Pallas blocks and mean
 nothing to kernels that give each row its own thread block or warp, so
-they are dropped.
+they are dropped; flash attention keeps ``block_q`` and ``block_k`` for
+JAX's divisibility checks.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.core.binning import (DEFAULT_LANE_BUDGET, ROUTE_BIN,
 from repro_torch.core.csr import CSRDevice
 from repro_torch.core.errors import PlanMismatchError
 from . import accumulator as _acc_k
+from . import flash_attention as _fa_k
 from . import flop_per_row as _flop_k
 from . import spgemm_numeric as _num_k
 from . import spgemm_symbolic as _sym_k
@@ -159,3 +162,13 @@ def spgemm_numeric_routed(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
     numeric = spgemm_numeric_spa if route == ROUTE_SPA else spgemm_numeric_bin
     return numeric(a, b, rows, tile_n=tile_n, n_tiles=n_tiles, span=span,
                    **kw)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Blocked GQA attention, q ``(B, Hq, Sq, D)``, k and v ``(B, Hkv, Sk,
+    D)``, with the TPU kernel's top-left causal mask (``kernels/
+    flash_attention.py``)."""
+    return _fa_k.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                 block_k=block_k)

@@ -93,3 +93,22 @@ def bin_numeric_ref(a: CSRDevice, b: CSRDevice, rows, max_deg_a, max_deg_b,
                                                max_deg_b)
     return spgemm_mod._bin_accumulate_block(cols, vals, row_capacity, tile_n,
                                             n_tiles)
+
+
+def attention_ref(q, k, v, *, causal: bool = True):
+    """Oracle for kernels.flash_attention, a copy of the JAX package's:
+    dense softmax attention in float32, output in q's dtype.  Its causal
+    mask is bottom-right aligned (``tril(k=sk - sq)``) where the kernel's is
+    top-left, so they agree only at ``Sq == Sk`` (ROADMAP fault R6)."""
+    b, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    kf = torch.repeat_interleave(k, group, dim=1).float()
+    vf = torch.repeat_interleave(v, group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / (d ** 0.5)
+    if causal:
+        sk = k.shape[2]
+        mask = torch.tril(torch.ones(sq, sk, dtype=torch.bool,
+                                     device=q.device), diagonal=sk - sq)
+        s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

@@ -1,0 +1,153 @@
+"""The port's flash attention against the JAX package's Pallas kernel (run in
+interpret mode, as tests/test_kernels.py runs it) and its oracle, on small
+inputs.  On the CPU the wrapper runs its plain version; the CUDA kernel is
+held against that plain version on a card by tests/test_torch_cuda.py and
+``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import convert
+from repro_torch.kernels import flash_attention as tfa_k
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(1)
+
+# (sq, sk, D, causal, Hq, Hkv): JAX's own sweep, the two sq != sk causal
+# cases where the kernel and its oracle part (R6), phi3-mini's head dim 96,
+# qwen2.5-32b's SMOKE head geometry (64 / 4 heads, 2 kv heads) and a
+# non-causal group of three
+CASES = [(128, 128, 64, True, 4, 2), (128, 256, 64, False, 4, 2),
+         (256, 256, 32, True, 4, 2),
+         (64, 128, 32, True, 4, 2), (128, 64, 32, True, 4, 2),
+         (128, 128, 96, True, 4, 4), (128, 128, 16, True, 4, 2),
+         (128, 128, 64, False, 6, 2)]
+R6_CASES = [c for c in CASES if c[3] and c[0] != c[1]]
+BLOCK = 64
+# fp32: the same sums in another order; bf16: one rounding of the output
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _inputs(sq, sk, d, hq, hkv, dtype, seed=0):
+    """The same q, k, v on both sides: float32 numpy arrays, cast to
+    ``dtype`` by each package (both round to nearest even)."""
+    rng = np.random.default_rng(seed + sq + 3 * sk + 7 * d + hq)
+    arrs = [rng.standard_normal((1, h, s, d)).astype(np.float32)
+            for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+    jx = [jnp.asarray(x).astype(getattr(jnp, dtype)) for x in arrs]
+    tx = [convert.dense_from_numpy(x, getattr(torch, dtype), "cpu")
+          for x in arrs]
+    return jx, tx
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,d,causal,hq,hkv", CASES)
+def test_flash_attention_matches_the_pallas_kernel(sq, sk, d, causal, hq,
+                                                   hkv, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(sq, sk, d, hq, hkv, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=BLOCK,
+                                block_k=BLOCK)
+    got = tops.flash_attention(tq, tk, tv, causal=causal, block_q=BLOCK,
+                               block_k=BLOCK)
+    assert got.dtype == tq.dtype and got.shape == (1, hq, sq, d)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,hq,hkv", CASES)
+def test_attention_ref_matches_the_jax_oracle(sq, sk, d, causal, hq, hkv):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(sq, sk, d, hq, hkv, "float32")
+    np.testing.assert_allclose(
+        _f32(tref.attention_ref(tq, tk, tv, causal=causal)),
+        _f32(jref.attention_ref(jq, jk, jv, causal=causal)),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,hq,hkv", R6_CASES)
+def test_kernel_and_oracle_masks_part_where_sq_differs_from_sk(sq, sk, d,
+                                                               causal, hq,
+                                                               hkv):
+    """R6: the kernel's causal mask is top-left, its oracle's bottom-right,
+    in both packages alike."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(sq, sk, d, hq, hkv, "float32")
+    kw = dict(causal=True, block_q=BLOCK, block_k=BLOCK)
+    t_gap = np.abs(_f32(tops.flash_attention(tq, tk, tv, **kw))
+                   - _f32(tref.attention_ref(tq, tk, tv))).max()
+    j_gap = np.abs(_f32(jops.flash_attention(jq, jk, jv, **kw))
+                   - _f32(jref.attention_ref(jq, jk, jv))).max()
+    assert t_gap > 0.1 and j_gap > 0.1
+
+
+def test_bf16_inputs_are_the_same_on_both_sides():
+    x = np.random.default_rng(3).standard_normal(4096).astype(np.float32)
+    x[:4] = [1.00390625, 1.01171875, -3.0078125, 65504.5]   # ties and more
+    got = convert.dense_from_numpy(x, torch.bfloat16, "cpu")
+    want = jnp.asarray(x).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(got.float().numpy(), _f32(want))
+
+
+def test_plain_version_chunks_query_rows_without_changing_the_result(
+        monkeypatch):
+    """Query chunks that do not divide Sq, causal and not, with a group of
+    two: the chunked mask rows and the head mapping stay aligned."""
+    _, (q, k, v) = _inputs(192, 256, 32, 4, 2, "float32", seed=9)
+    for causal in (True, False):
+        whole = tfa_k.flash_attention_plain(q, k, v, causal=causal)
+        monkeypatch.setattr(tfa_k, "PLAIN_CHUNK", 40)
+        parts = tfa_k.flash_attention_plain(q, k, v, causal=causal)
+        monkeypatch.undo()
+        torch.testing.assert_close(parts, whole, rtol=1e-6, atol=1e-6)
+
+
+def test_gqa_maps_each_kv_head_to_a_contiguous_group_of_q_heads():
+    """q head h reads kv head h // group (JAX's reshape), not h % Hkv."""
+    _, (q, k, v) = _inputs(64, 64, 16, 6, 2, "float32", seed=5)
+    got = tops.flash_attention(q, k, v, causal=False, block_q=64,
+                               block_k=64)
+    for h in range(6):
+        g = slice(h // 3, h // 3 + 1)
+        one = tfa_k.flash_attention_plain(q[:, h:h + 1], k[:, g], v[:, g],
+                                          causal=False)
+        torch.testing.assert_close(got[:, h:h + 1], one, rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("what", ["heads", "block_q", "block_k"])
+def test_flash_attention_refuses_what_jax_asserts(what):
+    hq, sq, sk = (3 if what == "heads" else 4,
+                  96 if what == "block_q" else 128,
+                  96 if what == "block_k" else 128)
+    q = torch.zeros(1, hq, sq, 16)
+    k = torch.zeros(1, 2, sk, 16)
+    with pytest.raises(ValueError, match="flash_attention"):
+        tops.flash_attention(q, k, k, block_q=64, block_k=64)
+
+
+def test_flash_attention_refuses_other_dtypes_and_mixed_devices():
+    q = torch.zeros(1, 4, 64, 16)
+    k = torch.zeros(1, 2, 64, 16)
+    kw = dict(block_q=64, block_k=64)
+    with pytest.raises(TypeError):
+        tops.flash_attention(q.int(), k.int(), k.int(), **kw)
+    with pytest.raises(TypeError):
+        tops.flash_attention(q, k.half(), k, **kw)
+    with pytest.raises(RuntimeError, match="one CUDA device"):
+        tops.flash_attention(q, k.to("meta"), k, **kw)
+
+
+def test_plain_runs_on_the_cpu_without_counting_a_launch():
+    before = tfa_k.flash_attention.launches
+    _, (q, k, v) = _inputs(64, 64, 16, 4, 2, "bfloat16")
+    out = tops.flash_attention(q, k, v, block_q=64, block_k=64)
+    assert out.dtype == torch.bfloat16 and not out.requires_grad
+    assert tfa_k.flash_attention.launches == before

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.core import binning, csr, plan, predictor, spgemm
 from repro_torch.core import flop as flop_mod
 from repro_torch.kernels import accumulator as acc_k
+from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import flop_per_row as flop_k
 from repro_torch.kernels import spgemm_numeric as num_k
 from repro_torch.kernels import spgemm_symbolic as sym_k
@@ -269,3 +271,59 @@ def test_global_spgemm_kernel_matches_plain_version(card):
         kw = dict(row_capacity=cap, max_deg_a=da, max_deg_b=da)
         _assert_numeric_equal(spgemm.spgemm(ad, ad, use_kernel=True, **kw),
                               spgemm.spgemm(ad, ad, **kw))
+
+
+# (sq, sk, D, causal, Hq, Hkv): the CPU tests' cases
+# (tests/test_torch_attention.py), a 1024-token case at qwen2.5-32b's
+# attention width (40 heads, 8 kv heads, D 128), phi3-mini's (32 heads,
+# D 96), and ragged tiles (Sq, Sk off the kernel's 64-row tiles, D 48)
+ATTN_CASES = [(128, 128, 64, True, 4, 2), (128, 256, 64, False, 4, 2),
+              (256, 256, 32, True, 4, 2),
+              (64, 128, 32, True, 4, 2), (128, 64, 32, True, 4, 2),
+              (128, 128, 96, True, 4, 4), (128, 128, 16, True, 4, 2),
+              (128, 128, 64, False, 6, 2),
+              (1024, 1024, 128, True, 40, 8), (1024, 1024, 96, True, 32, 32),
+              (96, 160, 48, True, 4, 2)]
+# fp32: the same sums in another order; bf16/f16: one rounding of the output
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+
+
+def _attn_inputs(card, shape_q, shape_kv, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [convert.dense_from_numpy(
+        rng.standard_normal(s).astype(np.float32), dtype, card)
+        for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq,sk,d,causal,hq,hkv", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain_version(card, sq, sk, d, causal,
+                                                      hq, hkv, dtype):
+    q, k, v = _attn_inputs(card, (2, hq, sq, d), (2, hkv, sk, d), dtype,
+                           sq + sk + d)
+    before = fa_k.flash_attention.launches
+    got = fa_k.flash_attention(q, k, v, causal=causal, block_q=32,
+                               block_k=32)
+    assert fa_k.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa_k.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_takes_strided_inputs_and_refuses_wide_heads(
+        card):
+    q, k, v = _attn_inputs(card, (1, 4, 64, 128), (1, 2, 64, 128),
+                           torch.bfloat16, 1)
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)   # not contiguous
+    torch.testing.assert_close(fa_k.flash_attention(qs, k, v, block_q=64,
+                                                    block_k=64),
+                               fa_k.flash_attention(q, k, v, block_q=64,
+                                                    block_k=64),
+                               rtol=0, atol=0)
+    wide = torch.zeros(1, 2, 64, 320, device=card)
+    with pytest.raises(ValueError, match="head dim 320"):
+        fa_k.flash_attention(wide, wide, wide, block_q=64, block_k=64)
