@@ -42,7 +42,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    dense oracle;
 3. holds each kernel against its plain version at the path's shapes (the
    bitmask symbolic kernels also against the ESC ones on the same sampled
-   rows) and times both, with CUDA events, beside the bound.
+   rows) and times both, with CUDA events, beside the bound and a PyTorch
+   yardstick (the BIN kernel's: ``torch.sparse.mm`` of its rows of A);
+4. launches each numeric kernel twice on every bucket and holds ``val``
+   bit for bit: the ESC and BIN kernels add in a fixed order, the SPA
+   kernel's atomics only report.
 
 It prints one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last
@@ -804,16 +808,50 @@ def main() -> int:
         p = plan.plan_spgemm(m, m, use_kernel=False, safety=SAFETY,
                              device=dev)
         ad = p.to_device(m, "a")
-        for bk, cap in zip(p.binning.buckets, p.alloc.bucket_capacities):
+        rnb = torch.diff(ad.rpt)    # once an execute, as the executor does
+        for bk, cap, bound in zip(p.binning.buckets,
+                                  p.alloc.bucket_capacities,
+                                  p.flop_bounds()):
             kw = dict(a=ad, b=ad, rows=torch.from_numpy(bk.rows).to(dev),
                       max_deg_a=bk.deg_a, max_deg_b=bk.deg_b,
-                      row_capacity=cap)
-            call = (kw, bk.rows, bk.deg_a, bk.deg_b, cap)
+                      row_capacity=cap, rownnz_b=rnb)
+            # ESC and BIN size their workspaces by the plan's FLOP bound,
+            # as the main path passes it
+            call = (dict(kw, max_row_flop=bound), bk.rows, bk.deg_a,
+                    bk.deg_b, cap)
             calls.setdefault(("spgemm_numeric", name), []).append(call)
-            if bk.route != binning.ROUTE_ESC:
-                calls.setdefault((f"{bk.route}_numeric", name), []).append(
+            if bk.route == binning.ROUTE_SPA:
+                calls.setdefault(("spa_numeric", name), []).append(
                     (dict(kw, tile_n=bk.tile_n, n_tiles=bk.n_tiles),
                      *call[1:]))
+            elif bk.route == binning.ROUTE_BIN:
+                calls.setdefault(("bin_numeric", name), []).append(
+                    (dict(call[0], tile_n=bk.tile_n, n_tiles=bk.n_tiles),
+                     *call[1:]))
+
+    # ---- determinism: each numeric kernel twice on every bucket, val
+    # compared bit for bit; ESC and BIN add in a fixed order and fail on a
+    # difference, SPA adds with float atomics and only reports
+    same = {k: [0, 0] for k in ("spgemm_numeric", "spa_numeric",
+                                "bin_numeric")}
+    for (kernel, name), cs in calls.items():
+        if kernel not in same:
+            continue
+        fn = dict(spgemm_numeric=num_k.spgemm_numeric,
+                  spa_numeric=acc_k.spa_numeric,
+                  bin_numeric=acc_k.bin_numeric)[kernel]
+        for c in cs:
+            first, second = fn(**c[0]), fn(**c[0])
+            equal = (torch.equal(first[0], second[0]) and torch.equal(
+                first[1].view(torch.int32), second[1].view(torch.int32)))
+            if not equal and kernel != "spa_numeric":
+                fail(f"determinism {kernel} {name}: val differs between two "
+                     f"launches on a bucket of width {c[2]}x{c[3]}")
+            same[kernel][0] += 1
+            same[kernel][1] += int(equal)
+            del first, second
+    emit(dict(phase="determinism", **{
+        k: dict(buckets=n, bitwise_equal=eq) for k, (n, eq) in same.items()}))
 
     kernel_of = {"flop_rows": (flop_k.flop_rows, flop_k.flop_rows_plain,
                                None, "flop_rows.cu", "flop_per_row.py:80"),
@@ -884,6 +922,28 @@ def main() -> int:
             fail(f"library FLOP {name}: != host oracle")
         return cuda_ms(torch, lambda: torch.sparse.mm(pattern, lengths))
 
+    def library_rows_ms(name, rows):
+        """Yardstick only: one cuSPARSE product of those rows of A (its
+        pattern and values, built before the timed call) by B, checked
+        against the rows' exact nnz."""
+        m = dict(mats)[name]
+        deg = np.diff(m.rpt)[rows]
+        rpt = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+        idx = np.repeat(m.rpt[rows] - rpt[:-1], deg) + np.arange(rpt[-1])
+        a_rows = torch.sparse_csr_tensor(
+            torch.from_numpy(rpt).to(dev),
+            torch.from_numpy(m.col[idx].astype(np.int64)).to(dev),
+            torch.from_numpy(m.val[idx]).to(dev), size=(rows.size, m.ncols))
+        b_sp = torch.sparse_csr_tensor(
+            torch.from_numpy(m.rpt).to(dev),
+            torch.from_numpy(m.col.astype(np.int64)).to(dev),
+            torch.from_numpy(m.val).to(dev), size=m.shape)
+        got = torch.sparse.mm(a_rows, b_sp)
+        if not np.array_equal(torch.diff(got.crow_indices()).cpu().numpy(),
+                              b_row_nnz[name][rows]):
+            fail(f"library rows {name}: row nnz != the ESC run's")
+        return cuda_ms(torch, lambda: torch.sparse.mm(a_rows, b_sp))
+
     def entry(kernel, name):
         fn, plain_fn, esc_fn, source, replaces = kernel_of[kernel]
         cs = calls[kernel, name]
@@ -891,7 +951,9 @@ def main() -> int:
         ms = cuda_ms(torch, lambda: [fn(**c[0]) for c in cs])
         # the workspace hint is the kernel's own: the plain versions and
         # the fused ESC kernel take none
-        plain_kw = [{k: v for k, v in c[0].items() if k != "row_flop"}
+        plain_kw = [{k: v for k, v in c[0].items()
+                     if k not in ("row_flop", "max_row_flop") and not (
+                         k == "rownnz_b" and kernel.endswith("numeric"))}
                     for c in cs]
         plain_ms = cuda_ms(torch, lambda: [plain_fn(**kw) for kw in plain_kw])
         esc_ms = None
@@ -900,6 +962,9 @@ def main() -> int:
             esc_kw = [{k: v for k, v in c[0].items()
                        if k not in ("span", "tile_n", "n_tiles", "row_flop")}
                       for c in cs]
+            if esc_fn is num_k.spgemm_numeric:
+                for kw, c in zip(esc_kw, cs):
+                    kw["max_row_flop"] = int(floprc[name][c[1]].max())
             esc_ms = cuda_ms(torch, lambda: [esc_fn(**kw) for kw in esc_kw])
         ops = 0
         lib_ms = None
@@ -915,6 +980,9 @@ def main() -> int:
         else:
             nbytes = sum(bytes_numeric(np, m, *c[1:]) for c in cs)
             ops = sum(numeric_ops(floprc[name], c[1]) for c in cs)
+            if kernel == "bin_numeric":
+                lib_ms = library_rows_ms(name,
+                                         np.concatenate([c[1] for c in cs]))
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_FLOP_PER_S * 1e3
         numeric = kernel.endswith("numeric")
@@ -927,7 +995,8 @@ def main() -> int:
                     ms=ms, plain_ms=plain_ms,
                     bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                    library_ms=library_ms(name) if numeric else lib_ms,
+                    library_ms=(lib_ms if lib_ms is not None or not numeric
+                                else library_ms(name)),
                     esc_ms=esc_ms, timed_on=name, calls=len(cs),
                     bytes=nbytes, operations=ops)
 

@@ -114,6 +114,7 @@ class SpgemmPlan:
     validation: dict = dataclasses.field(
         default_factory=lambda: dict(operands_validated=0))
     _device_args: tuple | None = dataclasses.field(default=None, repr=False)
+    _flop_bounds: tuple | None = dataclasses.field(default=None, repr=False)
     # ((host_a, host_b), (ad, bd)) from planning — execute() on the planned
     # operands reuses the prediction pass's upload instead of a second copy
     _planned_pair: tuple | None = dataclasses.field(default=None, repr=False)
@@ -126,6 +127,17 @@ class SpgemmPlan:
                 torch.from_numpy(bk.rows).to(self.device)
                 for bk in self.binning.buckets)
         return self._device_args
+
+    def flop_bounds(self) -> tuple:
+        """Each bucket's largest row FLOP (``flopr``), the bound the numeric
+        kernels size their workspaces by.  It travels with every call,
+        beside :meth:`device_args`, and never enters :attr:`key`: a cached
+        executor serves same-keyed plans whose rows carry other FLOP."""
+        if self._flop_bounds is None:
+            self._flop_bounds = tuple(
+                int(self.flopr[bk.rows].max()) if bk.n_rows else 0
+                for bk in self.binning.buckets)
+        return self._flop_bounds
 
     @property
     def key(self) -> tuple:
@@ -275,12 +287,14 @@ def _bucket_meta(bucket: binning_mod.RowBucket, cap: int) -> tuple:
 
 
 def _run_bucket(ad: CSRDevice, bd: CSRDevice, rows: torch.Tensor, meta: tuple,
-                use_kernel: bool) -> SpGEMMOut:
+                use_kernel: bool, max_row_flop: int,
+                rownnz_b: torch.Tensor) -> SpGEMMOut:
     deg_a, deg_b, block_rows, route, tile_n, n_tiles, span, cap = meta
     return routed_spgemm_rows(
         ad, bd, rows, row_capacity=cap, deg_a=deg_a, deg_b=deg_b,
         block_rows=block_rows, route=route, tile_n=tile_n, n_tiles=n_tiles,
-        span=span, use_kernel=use_kernel)
+        span=span, use_kernel=use_kernel, max_row_flop=max_row_flop,
+        rownnz_b=rownnz_b)
 
 
 def _build_local_executor(metas: tuple, nrows: int, cap_out: int,
@@ -288,12 +302,16 @@ def _build_local_executor(metas: tuple, nrows: int, cap_out: int,
     """Single-device executor: per-bucket routed passes written in place
     into one ``(nrows, cap_out)`` output — the
     :func:`repro_torch.core.spgemm.spgemm_binned` dataflow, with the row
-    tables passed in so one executor serves every same-keyed plan."""
+    tables and the buckets' FLOP bounds passed in so one executor serves
+    every same-keyed plan."""
 
-    def run(ad, bd, *tables):
+    def run(ad, bd, tables, flop_bounds):
+        rownnz_b = torch.diff(bd.rpt)
         return assemble(nrows, cap_out, (
-            (rows, _run_bucket(ad, bd, rows, meta, use_kernel))
-            for meta, rows in zip(metas, tables)), ad.device)
+            (rows, _run_bucket(ad, bd, rows, meta, use_kernel, bound,
+                               rownnz_b))
+            for meta, rows, bound in zip(metas, tables, flop_bounds)),
+            ad.device)
 
     return run
 
@@ -339,7 +357,7 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None
         plan.key, lambda: _build_local_executor(
             metas, plan.shape_a[0], plan.alloc.row_capacity,
             plan.use_kernel))
-    return run(ad, bd, *plan.device_args())
+    return run(ad, bd, plan.device_args(), plan.flop_bounds())
 
 
 def reassemble(plan: SpgemmPlan, out: SpGEMMOut, ncols: int | None = None, *,
@@ -362,8 +380,11 @@ def reassemble(plan: SpgemmPlan, out: SpGEMMOut, ncols: int | None = None, *,
             "higher safety factor or pass on_overflow='ignore'",
             observed=overflow)
     keep = out.col != COL_SENTINEL          # compacted on the device
-    counts = keep.sum(dim=1).cpu().numpy()
-    return CSR.from_coo(np.repeat(np.arange(nrows, dtype=np.int64), counts),
-                        out.col[keep].cpu().numpy().astype(np.int64),
-                        out.val[keep].cpu().numpy().astype(np.float32),
-                        (nrows, ncols), dedup=False, validate=False)
+    rpt = np.zeros(nrows + 1, dtype=np.int64)
+    np.cumsum(keep.sum(dim=1).cpu().numpy(), out=rpt[1:])
+    # every route writes a row's columns ascending into its first slots, so
+    # the kept entries, read row by row, are already in CSR order: the row
+    # pointers are the counts' running sum and nothing is sorted
+    return CSR(rpt=rpt, col=out.col[keep].cpu().numpy().astype(np.int32),
+               val=out.val[keep].cpu().numpy().astype(np.float32),
+               shape=(nrows, ncols))

@@ -30,6 +30,7 @@ import torch
 
 from .binning import ROUTE_BIN, ROUTE_SPA, ceil_pow2
 from .csr import COL_SENTINEL, CSRDevice, expand_products, row_chunks
+from .flop import flop_per_row
 
 
 class SpGEMMOut(NamedTuple):
@@ -257,13 +258,15 @@ def spgemm(a: CSRDevice, b: CSRDevice, *, row_capacity: int,
     rows at the global degree bounds on the ESC route (the paper's flow,
     and the quickstart's).  With ``use_kernel`` it runs through the ESC
     numeric kernel (``kernels.ops.spgemm_numeric``) on a CUDA tensor, its
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor; the kernel's workspaces are sized by the
+    largest row's FLOP, computed on the device and read back once."""
     rows = torch.arange(a.nrows, dtype=torch.int32, device=a.rpt.device)
     if use_kernel:
         from repro_torch.kernels import ops as kops
+        max_flop = (int(flop_per_row(a, b)[0].max()) if a.nrows else 0)
         return SpGEMMOut(*kops.spgemm_numeric(
             a, b, rows, max_deg_a=max_deg_a, max_deg_b=max_deg_b,
-            row_capacity=row_capacity))
+            row_capacity=row_capacity, max_row_flop=max_flop))
     return spgemm_rows(a, b, rows, row_capacity=row_capacity,
                        max_deg_a=max_deg_a, max_deg_b=max_deg_b)
 
@@ -272,12 +275,17 @@ def routed_spgemm_rows(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                        row_capacity: int, deg_a: int, deg_b: int,
                        block_rows: int = 256, route: str = "esc",
                        tile_n: int = 0, n_tiles: int = 0, span: int = 0,
-                       use_kernel: bool = False) -> SpGEMMOut:
+                       use_kernel: bool = False,
+                       max_row_flop: int | None = None,
+                       rownnz_b: torch.Tensor | None = None) -> SpGEMMOut:
     """One bucket's numeric phase on its planned accumulator route — the
     per-bucket dispatch shared by :func:`spgemm_binned` and the plan
     executor.  ``block_rows`` is the JAX package's row-block height; the
-    port's kernels give each row its own thread block and its plain
-    versions chunk by lanes, so it changes nothing here.  As in the JAX
+    port's kernels size their work by each row's products and its plain
+    versions chunk by lanes, so it changes nothing here.  ``max_row_flop``
+    (a bound on the rows' products, per call) sizes the kernels'
+    workspaces; the plain versions need none.  ``rownnz_b`` (B's row
+    lengths) saves each kernel call from recomputing them.  As in the JAX
     package, a BIN bucket without a bin layout (``tile_n == 0``) runs ESC on
     the plain path."""
     from repro_torch.kernels import ops as kops
@@ -285,7 +293,8 @@ def routed_spgemm_rows(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
         return SpGEMMOut(*kops.spgemm_numeric_routed(
             a, b, rows, max_deg_a=deg_a, max_deg_b=deg_b,
             row_capacity=row_capacity, route=route, tile_n=tile_n,
-            n_tiles=n_tiles, span=span))
+            n_tiles=n_tiles, span=span, max_row_flop=max_row_flop,
+            rownnz_b=rownnz_b))
     kops.check_route(route)
     if route == ROUTE_SPA:
         return spgemm_rows_spa(a, b, rows, row_capacity=row_capacity,

@@ -10,12 +10,14 @@ first launched on a CUDA tensor.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -113,15 +115,22 @@ def launcher(name: str, signature: str, entry: str | None = None):
     return function(name, f"{entry or name}_launch", signature)
 
 
+_FUNCS: dict = {}
+
+
 def function(name: str, symbol: str, signature: str, restype: str = "i"):
     """``symbol`` of ``lib<name>.so`` with its C signature declared in the
-    letters of :func:`launcher`, returning ``restype`` (one such letter)."""
-    import ctypes
-    types = dict(p=ctypes.c_void_p, i=ctypes.c_int, q=ctypes.c_longlong)
-    fn = getattr(load(name), symbol)
-    fn.argtypes = [types[c] for c in signature]
-    fn.restype = types[restype]
-    return fn
+    letters of :func:`launcher`, returning ``restype`` (one such letter);
+    declared once, then served from a cache."""
+    key = (name, symbol, signature, restype)
+    if key not in _FUNCS:
+        import ctypes
+        types = dict(p=ctypes.c_void_p, i=ctypes.c_int, q=ctypes.c_longlong)
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [types[c] for c in signature]
+        fn.restype = types[restype]
+        _FUNCS[key] = fn
+    return _FUNCS[key]
 
 
 def check(name: str, rc: int) -> None:
@@ -139,13 +148,14 @@ def kernel_device(name: str, *tensors) -> torch.device | None:
     """``None`` when every tensor lies on the CPU (the wrapper then runs its
     plain version), else the one CUDA device they all lie on.  Anything
     else — mixed devices, another device type — raises."""
-    devs = {t.device for t in tensors}
-    if devs == {torch.device("cpu")}:
+    if all(t.is_cpu for t in tensors):
         return None
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+    if not all(t.is_cuda for t in tensors) or len(
+            {t.get_device() for t in tensors}) != 1:
         raise RuntimeError(f"{name}: tensors must all lie on the CPU or all "
-                           f"on one CUDA device, got {sorted(map(str, devs))}")
-    return next(iter(devs))
+                           f"on one CUDA device, got "
+                           f"{sorted({str(t.device) for t in tensors})}")
+    return tensors[0].device
 
 
 def require(name: str, t, dtype, what: str) -> int:
@@ -186,6 +196,12 @@ def require_csr(name: str, m, what: str, values: bool = False) -> list:
 
 
 def stream_of(device) -> int:
+    """The raw handle of ``device``'s current stream, where kernels launch.
+    torch's raw getter skips building a Stream object, which is most of
+    this call's host time."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index or 0)
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -204,9 +220,8 @@ def max_smem(name: str, device) -> int:
     return _SMEM[key]
 
 
-# Global scratch the row kernels may take: for rows whose workspace does not
-# fit shared memory (power-law hub buckets), and for the BIN kernel's
-# scattered pairs.  One slice per resident block.
+# Global scratch the row kernels may take, for rows whose workspace does not
+# fit shared memory (power-law hub rows): one slice per resident block.
 SCRATCH_BYTES = 1 << 30
 STATIC_SMEM_RESERVE = 1024   # the kernels' own static shared memory
 
@@ -221,69 +236,179 @@ def row_threads(lanes: int) -> int:
     return min(512, max(32, lanes // 2))
 
 
-def block_workspace(name: str, device, ws_bytes: int, threads: int,
-                    n_rows: int, pair_bytes: int = 0):
-    """Launch shape of a one-block-per-row kernel: ``(grid, threads,
-    smem_bytes, scratch, slice_bytes, ws_off)``.
-
-    Each resident block gets a ``slice_bytes`` slice of the global
-    ``scratch`` tensor (``None`` when no block needs one), holding first
-    ``pair_bytes`` of the kernel's own global buffers, then the row's
-    ``ws_bytes`` workspace when that does not fit the card's opt-in shared
-    memory: ``ws_off`` is then its offset in the slice, else -1 and the
-    workspace is ``smem_bytes`` of dynamic shared memory.  Blocks loop over
-    the rows when the grid is cut to keep scratch within
-    :data:`SCRATCH_BYTES`; a workspace in scratch runs 1024 threads."""
-    in_smem = ws_bytes + STATIC_SMEM_RESERVE <= max_smem(name, device)
-    slice_bytes = align16(pair_bytes) + (0 if in_smem else align16(ws_bytes))
-    if slice_bytes == 0:
-        return n_rows, threads, ws_bytes, None, 0, -1
+def scratch_slices(device, slice_bytes: int, n_rows: int):
+    """``(grid, scratch)``: one ``slice_bytes`` slice of a global scratch
+    tensor for each of ``grid`` blocks, the grid cut so that scratch stays
+    within :data:`SCRATCH_BYTES` (blocks then loop over the rows)."""
     grid = max(1, min(n_rows, SCRATCH_BYTES // slice_bytes))
-    scratch = torch.empty(grid * slice_bytes, dtype=torch.uint8,
-                          device=device)
-    if in_smem:
-        return grid, threads, ws_bytes, scratch, slice_bytes, -1
-    return grid, 1024, 0, scratch, slice_bytes, align16(pair_bytes)
+    return grid, torch.empty(grid * slice_bytes, dtype=torch.uint8,
+                             device=device)
+
+
+def block_workspace(name: str, device, ws_bytes: int, threads: int,
+                    n_rows: int):
+    """Launch shape of a one-block-per-row kernel whose every row takes the
+    same ``ws_bytes`` workspace: ``(grid, threads, smem_bytes, scratch,
+    slice_bytes)``.
+
+    The workspace is ``smem_bytes`` of dynamic shared memory when it fits
+    the card's opt-in limit (``scratch`` is then ``None``), else each
+    resident block's ``slice_bytes`` slice of the global ``scratch`` tensor,
+    with 1024 threads; blocks loop over the rows when the grid is cut to
+    keep scratch within :data:`SCRATCH_BYTES`."""
+    if ws_bytes + STATIC_SMEM_RESERVE <= max_smem(name, device):
+        return n_rows, threads, ws_bytes, None, 0
+    slice_bytes = align16(ws_bytes)
+    grid, scratch = scratch_slices(device, slice_bytes, n_rows)
+    return grid, 1024, 0, scratch, slice_bytes
+
+
+def split_workspace(smem_limit: int, fixed_bytes: int, item_bytes: int,
+                    items: int, pow2: bool = False) -> tuple[int, int, int]:
+    """Where a row's workspace goes when rows differ in size: a fixed part
+    of ``fixed_bytes`` (the row's product prefix and tables) and up to
+    ``items`` items of ``item_bytes`` each (the largest row's sort keys or
+    pairs), on a card with ``smem_limit`` bytes of opt-in shared memory a
+    block.  Returns ``(smem_items, smem_bytes, slice_bytes)``.
+
+    Shared memory (``smem_bytes``) holds the fixed part and ``smem_items``
+    items: all ``items`` when they fit, else as many as fit (the largest
+    power of two of them with ``pow2``).  A row with more items than
+    ``smem_items`` works in a global scratch slice of ``slice_bytes``
+    holding its items (0: every row fits).  When not even the fixed part
+    and 32 items fit, ``smem_items`` is -1, shared memory holds nothing
+    and the fixed part heads the slice.  So a row goes to scratch when its
+    own items do not fit beside the fixed part, whatever the others
+    hold."""
+    room = smem_limit - STATIC_SMEM_RESERVE - fixed_bytes
+    if item_bytes * items <= room:
+        return items, fixed_bytes + item_bytes * items, 0
+    if room >= item_bytes * 32:
+        fit = room // item_bytes
+        if pow2:
+            fit = 1 << (fit.bit_length() - 1)
+        return fit, fixed_bytes + item_bytes * fit, item_bytes * items
+    return -1, 0, fixed_bytes + item_bytes * items
 
 
 def sort_workspace(name: str, device, max_deg_a: int, lanes: int,
                    n_rows: int):
     """Launch shape of a one-block-per-row sort whose rows each hold at most
     ``lanes`` keys of 4 bytes (a power of two): ``(smem_lanes, grid,
-    threads, smem_bytes, scratch, slice_bytes)``.
-
-    Unlike :func:`row_workspace`, which places every row's workspace in
-    shared memory or every row's in scratch, the choice is made per row:
-    shared memory holds the row's product prefix and ``smem_lanes`` keys —
-    ``lanes``, or the largest power of two that fits the opt-in limit — and
-    a row whose padded product count exceeds ``smem_lanes`` sorts in the
-    block's ``slice_bytes`` slice of ``scratch`` (``None`` when no row
-    needs it).  ``smem_lanes`` is -1 when not even the prefix fits; the
-    prefix then heads the slice and every row sorts in scratch."""
-    pre = align16(4 * (max_deg_a + 1))
-    room = max_smem(name, device) - STATIC_SMEM_RESERVE - pre
-    if 4 * lanes <= room:
-        return lanes, n_rows, row_threads(lanes), pre + 4 * lanes, None, 0
-    if room >= 4 * 32:
-        smem_lanes = 1 << ((room // 4).bit_length() - 1)
-        smem_bytes, slice_bytes = pre + 4 * smem_lanes, 4 * lanes
-    else:
-        smem_lanes, smem_bytes, slice_bytes = -1, 0, pre + 4 * lanes
-    grid = max(1, min(n_rows, SCRATCH_BYTES // slice_bytes))
-    scratch = torch.empty(grid * slice_bytes, dtype=torch.uint8,
-                          device=device)
+    threads, smem_bytes, scratch, slice_bytes)`` with the row's product
+    prefix as the fixed part of :func:`split_workspace` and the keys in
+    powers of two: a row whose padded product count exceeds ``smem_lanes``
+    sorts in the block's ``slice_bytes`` slice of ``scratch`` (``None`` when
+    no row needs it)."""
+    smem_lanes, smem_bytes, slice_bytes = split_workspace(
+        max_smem(name, device), align16(4 * (max_deg_a + 1)), 4, lanes,
+        pow2=True)
+    if not slice_bytes:
+        return lanes, n_rows, row_threads(lanes), smem_bytes, None, 0
+    grid, scratch = scratch_slices(device, slice_bytes, n_rows)
     return smem_lanes, grid, 1024, smem_bytes, scratch, slice_bytes
 
 
-def row_workspace(name: str, device, max_deg_a: int, f2: int,
-                  lane_bytes: int, n_rows: int):
-    """Launch shape of a one-block-per-row ESC kernel: ``(ws_bytes, grid,
-    threads, smem_bytes, scratch)``.  A row's workspace (``csrc/common.cuh``)
-    is A's row prefix (``max_deg_a + 1`` ints, 16-byte aligned) and ``f2``
-    lanes of ``lane_bytes`` each, in shared memory when it fits (``scratch``
-    is then ``None``), else in a global scratch tensor of ``grid`` slices
-    (:func:`block_workspace`)."""
-    ws_bytes = align16(4 * (max_deg_a + 1)) + lane_bytes * f2
-    grid, threads, smem, scratch, _, _ = block_workspace(
-        name, device, ws_bytes, row_threads(f2), n_rows)
-    return ws_bytes, grid, threads, smem, scratch
+class RowLaunch(NamedTuple):
+    """One launch of a kernel whose blocks own a row each."""
+
+    threads: int        # threads of a block
+    tile_n: int         # columns of each warp's dense tile
+    bins: int           # column ranges (bins) a row is partitioned into
+    smem_pairs: int     # a row's pairs that shared memory holds (-1: none)
+    smem_bytes: int     # dynamic shared memory of a block
+
+
+class NumericShape(NamedTuple):
+    """Launch shape of a numeric kernel whose workspaces follow a bound on
+    the launched rows' products (:func:`esc_numeric_shape`,
+    :func:`bin_numeric_shape`)."""
+
+    launches: tuple     # RowLaunch per block launch, shortest rows first
+    slice_bytes: int    # each block's scratch slice (0: no row needs one)
+    slice_pairs: int    # pairs a slice holds
+    warp_pairs: int = 0   # ESC: products a row's lane group sorts alone
+    mid_pairs: int = 0    # ESC: rows past it go to the second launch
+    group: int = 32       # ESC: lanes a short row takes (4 to 32)
+
+
+# csrc/esc_numeric.cu's ESC_WARP_MAX
+ESC_WARP_MAX = 1024
+# Rows up to MID_PAIRS products run blocks of the first launch shape,
+# longer rows (when the call's bound has them) the second: (threads, tile
+# columns, column ranges) — for ESC, 256-thread blocks with 64 KB of pairs
+# in shared memory (three an SM), then 1,024 threads for a hub row
+MID_PAIRS = 8192
+ESC_LAUNCHES = ((256, 512, 256), (1024, 256, 512))
+
+
+def _ceil_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _row_tables(max_deg_a: int, warps: int, bins: int) -> int:
+    """Bytes of a block row's tables: its product prefix, its A entries'
+    B-row starts and values, the bins' starts and each warp's bin counts."""
+    return (3 * align16(4 * (max_deg_a + 1)) + align16(4 * (bins + 1))
+            + align16(4 * warps * bins))
+
+
+def _tiles(warps: int, tile_n: int) -> int:
+    """Bytes of the warps' dense tiles: floats and presence words."""
+    return 4 * warps * (tile_n + tile_n // 32)
+
+
+@functools.lru_cache(maxsize=256)
+def esc_numeric_shape(smem_limit: int, max_deg_a: int,
+                      bound: int) -> NumericShape:
+    """Kernel 3's launch shape for rows of at most ``bound`` products each
+    (4-byte column, 4-byte value), on a card with ``smem_limit`` bytes of
+    opt-in shared memory a block.  Rows of up to ``warp_pairs`` products
+    run a group of lanes each (``group``: two products a lane, 4 to 32
+    lanes, so short rows share a warp); the rest a block: 256 threads for rows of up to
+    :data:`MID_PAIRS` products, and, when ``bound`` passes that, a second
+    launch of 1,024 threads for the longer rows (:data:`ESC_LAUNCHES`).  A
+    block keeps its warps' dense tiles in shared memory, and places its
+    tables (:func:`_row_tables`) and a row's pairs by
+    :func:`split_workspace` in what remains: a row's pairs go to a scratch
+    slice only when they do not fit beside the tables."""
+    bound = max(0, int(bound))
+    launches, tables, slice_bytes = (), 0, 0
+    for (threads, tile_n, bins), pairs in zip(
+            ESC_LAUNCHES, (min(bound, MID_PAIRS), bound)):
+        if launches and bound <= MID_PAIRS:
+            break
+        tiles = _tiles(threads // 32, tile_n)
+        t = _row_tables(max_deg_a, threads // 32, bins)
+        smem_pairs, ws, slice_t = split_workspace(smem_limit - tiles, t, 8,
+                                                  pairs)
+        launches += (RowLaunch(threads, tile_n, bins, smem_pairs,
+                               tiles + ws),)
+        tables, slice_bytes = max(tables, t), max(slice_bytes, slice_t)
+    # a slice holds the tables too, for a launch whose tables are not in
+    # shared memory
+    warp_pairs = max(1, min(ESC_WARP_MAX, bound))
+    return NumericShape(launches,
+                        align16(tables + 8 * bound) if slice_bytes else 0,
+                        bound if slice_bytes else 0, warp_pairs, MID_PAIRS,
+                        min(32, max(4, _ceil_pow2(warp_pairs) // 2)))
+
+
+@functools.lru_cache(maxsize=256)
+def bin_numeric_shape(smem_limit: int, max_deg_a: int, bound: int,
+                      tile_n: int, n_bins: int) -> NumericShape:
+    """Kernel 6's launch shape for rows of at most ``bound`` products each:
+    a block of 256 threads a row, 1,024 when ``bound`` passes
+    :data:`MID_PAIRS`; the warps' dense tiles always in shared memory; the
+    tables
+    (:func:`_row_tables` over ``n_bins`` bins) and the row's binned pairs
+    (8 bytes each) placed by :func:`split_workspace` in what remains."""
+    bound = max(0, int(bound))
+    threads = 256 if bound <= MID_PAIRS else 1024
+    tiles = _tiles(threads // 32, tile_n)
+    tables = _row_tables(max_deg_a, threads // 32, n_bins)
+    smem_pairs, ws_bytes, slice_bytes = split_workspace(
+        smem_limit - tiles, tables, 8, bound)
+    return NumericShape((RowLaunch(threads, tile_n, n_bins, smem_pairs,
+                                   tiles + ws_bytes),),
+                        align16(slice_bytes), bound if slice_bytes else 0)

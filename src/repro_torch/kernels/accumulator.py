@@ -21,9 +21,11 @@ smallest one (:func:`extent_relative`), so the bitmask words and the dense
 tiles cover the row's column extent, not B's column space: the lever that
 makes SPA cheap on banded and FEM structure.  z* and f* equal the ESC
 kernel's bit for bit, and ``col``, ``row_nnz`` and ``overflow`` equal ESC's;
-``val`` agrees to float tolerance, and the numeric kernels add with
-shared-memory float atomics, so it may differ in its last bits from run to
-run.  On the H100 all three are bound by bytes (see each source).
+``val`` agrees to float tolerance.  The BIN kernel adds each column's
+products in a fixed order, so its ``val`` is bitwise the same from run to
+run; the SPA kernel adds with shared-memory float atomics, so its ``val``
+may differ in its last bits between runs.  On the H100 all three are bound
+by bytes (see each source).
 """
 from __future__ import annotations
 
@@ -165,7 +167,7 @@ def _bitmask_launch(entry, a, b, rows, max_deg_a, max_deg_b, span,
     s = rows.shape[0]
     n_words = _n_words(b.ncols, span)
     ws_bytes = _build.align16(4 * (max_deg_a + 1)) + 4 * n_words
-    grid, threads, smem, scratch, slice_bytes, _ = _build.block_workspace(
+    grid, threads, smem, scratch, slice_bytes = _build.block_workspace(
         _SYM, dev, ws_bytes,
         _build.row_threads(ceil_pow2(max_deg_a * max_deg_b)), s)
     fn = _build.launcher(_SYM, "pipppppiiiiipqiiippip", entry=entry)
@@ -230,13 +232,16 @@ def spa_numeric(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
 def bin_numeric(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                 max_deg_a: int, max_deg_b: int, row_capacity: int,
                 tile_n: int, n_tiles: int,
-                rownnz_b: torch.Tensor | None = None):
+                rownnz_b: torch.Tensor | None = None,
+                max_row_flop: int | None = None):
     """As :func:`spa_numeric`, by propagation blocking: each row's products
-    are gathered once and scattered into ``n_tiles`` bins of ``tile_n``
-    columns, and each bin is reduced densely."""
+    are gathered once and scattered, stably, into ``n_tiles`` bins of
+    ``tile_n`` columns, and the bins are reduced densely, in parallel.
+    ``max_row_flop`` bounds each row's products and sizes the pair buffer,
+    as in :func:`repro_torch.kernels.spgemm_numeric.spgemm_numeric`."""
     return _numeric(_BIN, bin_numeric, bin_numeric_plain, a, b, rows,
                     max_deg_a, max_deg_b, row_capacity, tile_n, n_tiles,
-                    rownnz_b)
+                    rownnz_b, max_row_flop)
 
 
 spa_numeric.launches = 0
@@ -244,7 +249,7 @@ bin_numeric.launches = 0
 
 
 def _numeric(lib, wrapper, plain, a, b, rows, max_deg_a, max_deg_b,
-             row_capacity, tile_n, n_tiles, rownnz_b):
+             row_capacity, tile_n, n_tiles, rownnz_b, max_row_flop=None):
     if rownnz_b is None:
         rownnz_b = torch.diff(b.rpt)
     dev = _build.kernel_device(lib, a.rpt, a.col, a.val, b.rpt, b.col,
@@ -257,6 +262,10 @@ def _numeric(lib, wrapper, plain, a, b, rows, max_deg_a, max_deg_b,
     if tile_n < 128 or tile_n & (tile_n - 1) or n_tiles < 1:
         raise RuntimeError(f"{lib}: tiles must be a power of two of at least "
                            f"128 lanes, got {n_tiles} of {tile_n}")
+    if lib == _BIN and tile_n > 1024:
+        # a warp compacts its bin's tile 32 lanes at a time, a word a lane
+        raise RuntimeError(f"{lib}: bins are at most 1024 columns wide, got "
+                           f"{tile_n}")
     r = rows.shape[0]
     cap = int(row_capacity)
     col = torch.empty((r, cap), dtype=torch.int32, device=dev)
@@ -270,34 +279,49 @@ def _numeric(lib, wrapper, plain, a, b, rows, max_deg_a, max_deg_b,
                 _build.require(lib, rownnz_b, torch.int32, "rownnz_b"),
                 a.nrows, rownnz_b.shape[0], int(max_deg_a), int(max_deg_b),
                 tile_n, n_tiles, cap)
-        # workspace: the row's product prefix, [BIN: the bin cursors,] one
-        # tile of floats and its presence words
-        ws_bytes = (_build.align16(4 * (max_deg_a + 1)) + 4 * tile_n
-                    + tile_n // 8)
-        threads = _build.row_threads(ceil_pow2(max_deg_a * max_deg_b))
         if lib == _SPA:
-            grid, threads, smem, scratch, slice_bytes, _ = \
-                _build.block_workspace(lib, dev, ws_bytes, threads, r)
+            # workspace: the row's product prefix, one tile of floats and
+            # its presence words
+            ws_bytes = (_build.align16(4 * (max_deg_a + 1)) + 4 * tile_n
+                        + tile_n // 8)
+            grid, threads, smem, scratch, slice_bytes = \
+                _build.block_workspace(
+                    lib, dev, ws_bytes,
+                    _build.row_threads(ceil_pow2(max_deg_a * max_deg_b)), r)
             fn = _build.launcher(lib, "pipppppppiiiiiiipqiiipppip")
             rc = fn(*args, _ptr(scratch), slice_bytes, grid, threads, smem,
                     col.data_ptr(), val.data_ptr(), row_nnz.data_ptr(),
                     dev.index or 0, _build.stream_of(dev))
         else:
-            ws_bytes += _build.align16(4 * n_tiles)
-            # the scattered (column within the bin, value) pairs: one int
-            # and one float array of the row's product bound each
-            pair_stride = _build.align16(4 * max_deg_a * max_deg_b) // 4
-            grid, threads, smem, scratch, slice_bytes, ws_off = \
-                _build.block_workspace(lib, dev, ws_bytes, threads, r,
-                                       pair_bytes=8 * pair_stride)
-            fn = _build.launcher(lib, "pipppppppiiiiiiipqqqiiipppip")
-            rc = fn(*args, _ptr(scratch), slice_bytes, pair_stride, ws_off,
-                    grid, threads, smem, col.data_ptr(), val.data_ptr(),
-                    row_nnz.data_ptr(), dev.index or 0,
+            static = int(max_deg_a) * int(max_deg_b)
+            bound = static if max_row_flop is None else min(
+                static, int(max_row_flop))
+            shape = _build.bin_numeric_shape(_build.max_smem(lib, dev),
+                                             int(max_deg_a), bound, tile_n,
+                                             n_tiles)
+            (launch,) = shape.launches
+            grid, scratch = r, None
+            if shape.slice_bytes:
+                grid, scratch = _build.scratch_slices(dev, shape.slice_bytes,
+                                                      r)
+            # the spill lock and the entries dropped for capacity, then
+            # (for rows past the bound) one spill slice of the degree
+            # bounds' pairs, taken under the lock
+            ctl = torch.empty(4 + (2 * static if bound < static else 0),
+                              dtype=torch.int32, device=dev)
+            fn = _build.launcher(lib, "pipppppppiiiiiiiipqqppiiipppip")
+            rc = fn(*args, launch.smem_pairs, _ptr(scratch),
+                    shape.slice_bytes, shape.slice_pairs,
+                    ctl[4:].data_ptr() if bound < static else None,
+                    ctl.data_ptr(), grid, launch.threads, launch.smem_bytes,
+                    col.data_ptr(),
+                    val.data_ptr(), row_nnz.data_ptr(), dev.index or 0,
                     _build.stream_of(dev))
+            overflow = ctl[1]
         _build.check(lib, rc)
         wrapper.launches += 1
-    overflow = torch.clamp(row_nnz - cap, min=0).sum(dtype=torch.int32)
+    if lib == _SPA or not r:
+        overflow = torch.clamp(row_nnz - cap, min=0).sum(dtype=torch.int32)
     return col, val, row_nnz, overflow
 
 

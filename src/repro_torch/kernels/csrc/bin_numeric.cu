@@ -1,5 +1,5 @@
 // BIN (propagation blocking) numeric phase for one bucket's rows,
-// compaction fused in: the same outputs as the SPA kernel (ascending
+// compaction fused in: the same outputs as the ESC kernel (ascending
 // distinct columns and their value sums in the row's row_capacity slots,
 // and the row's true nnz).
 //
@@ -9,33 +9,41 @@
 // (R, n_tiles*tile_n) window and reduces each bin densely, and the XLA-side
 // src/repro/core/spgemm.py::compact_dense over that window.
 //
-// Design: one thread block per output row, and propagation blocking proper,
-// because a power-law hub row's window (131,072 lanes, 512 KB of floats on
-// the R-MAT 80k product) fits no shared memory.  Per row:
-//   1. count the products per bin into shared counters (bin = relative
-//      column / tile_n, relative to the row's smallest product column lo);
-//   2. exclusive-scan the counters into bin offsets;
-//   3. scatter the (column within the bin, a_ik*b_kj) pairs in bin order
-//      into the block's slice of a global scratch buffer (8 bytes a product);
-//   4. for each non-empty bin, in column order, reduce its pairs into a
-//      tile_n float tile and its presence words in shared memory
-//      (atomicAdd / atomicOr);
-//   5. compact the tile with a block scan into the row's next slots
-//      (column lo + bin*tile_n + lane), the true nnz running on past the
-//      capacity.
-// Bins are compacted in column order, so the retained entries are the row's
-// first row_capacity columns in ascending order, as ESC keeps them.
-// Products past the window are dropped, as in the TPU kernel.
-//
-// Shared-memory float atomics add a bin's products in an order that changes
-// from run to run, so val may differ in its last bits between runs (col,
-// row_nnz and overflow do not).
-//
 // Bound on the H100: bytes.  The necessary traffic is A's and B's entries
 // that the rows reference (8 bytes per product gathered) and the output
-// slots; the scatter's pairs (8 bytes a product, written once and read
-// once) are traffic the TPU kernel kept in VMEM and this one keeps in its
-// scratch slice, mostly in the 50 MB L2.
+// slots.  What the first port lost to it: a pair buffer in global scratch
+// sized by the bucket's degree bounds (which cut the hub bucket's grid to
+// ~160 blocks), bins reduced one after another by the whole block, each
+// non-empty bin paying a 256-lane tile clear, two barriers and a block scan
+// for the few products it held, and a scatter through free atomic cursors,
+// whose order (and so val's last bits) changed from run to run.
+//
+// Design: one block per row (blocks loop over the rows): 256 threads, or
+// 1,024 when the call's bound passes 8,192 products.
+//   1. The row's product prefix, its A entries' B-row starts and values (so
+//      a product's lookup reads shared memory only), its column extent
+//      [lo, hi] and the bins it reaches (bin = (column - lo) / tile_n; bins
+//      past n_tiles are dropped, as the TPU kernel drops products past its
+//      window).
+//   2. Stable scatter (repro_bin_partition): each warp counts its
+//      contiguous slice of the products per bin with __match_any_sync into
+//      its own histogram row, the rows scan into per-(bin, warp) cursors,
+//      and a second walk writes each pair at its cursor plus its rank in
+//      its warp: each bin holds its products in product order, whatever the
+//      timing.  The pairs sit in shared memory when the row's own fit there,
+//      else in the block's scratch slice (sized by the call's product
+//      bound), else in one spill slice taken under a lock.
+//   3. Bins in parallel (repro_warp_bin_dense): warp v reduces bins v,
+//      v + nw, ... in its own tile_n-lane tile, 32 pairs at a time in order
+//      (lanes with one column add their values in lane order, the first of
+//      them adds the sum to the tile), then compacts the tile, each lane a
+//      slice of it, into the bin's first pair slots, clearing it.
+//   4. A block scan over the bins' distinct counts gives each bin's first
+//      output slot; the warps copy their bins' columns out: the row's first
+//      row_capacity columns in ascending order, as ESC keeps them, and the
+//      true nnz runs on past the capacity.
+// The sums are thus taken in a fixed order, and val is bitwise the same
+// from run to run.
 #include "common.cuh"
 
 __global__ void __launch_bounds__(1024) bin_numeric_kernel(
@@ -44,119 +52,129 @@ __global__ void __launch_bounds__(1024) bin_numeric_kernel(
     const int* __restrict__ b_rpt, const int* __restrict__ b_col,
     const float* __restrict__ b_val, const int* __restrict__ rownnz_b, int m,
     int k_rows, int max_deg_a, int max_deg_b, int tile_n, int n_bins,
-    int row_capacity, char* scratch, long long slice_bytes,
-    long long pair_stride, long long ws_off, int* __restrict__ out_col,
+    int row_capacity, int smem_pairs, char* scratch, long long slice_bytes,
+    long long slice_pairs, char* spill, int* ctl, int* __restrict__ out_col,
     float* __restrict__ out_val, int* __restrict__ row_nnz) {
   extern __shared__ __align__(16) char smem[];
-  char* slice = scratch + blockIdx.x * slice_bytes;
-  int* pair_rel = reinterpret_cast<int*>(slice);
-  float* pair_val = reinterpret_cast<float*>(slice + 4 * pair_stride);
-  char* ws = ws_off >= 0 ? slice + ws_off : smem;
-  int* prefix = reinterpret_cast<int*>(ws);
-  const long long bins_off = repro_align16(4LL * (max_deg_a + 1));
-  int* bin_end = reinterpret_cast<int*>(ws + bins_off);
-  float* acc = reinterpret_cast<float*>(
-      ws + bins_off + repro_align16(4LL * n_bins));
-  unsigned* pres = reinterpret_cast<unsigned*>(acc + tile_n);
-  const int tile_words = tile_n >> 5;   // tile_n is a power of two >= 128
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int sh = __ffs(tile_n) - 1;          // tile_n: a power of two
+  const int tile_words = tile_n >> 5;
+  // shared memory: the warps' tiles, then the tables when they fit, then
+  // the pairs; else the tables head the block's scratch slice.  The tables:
+  // the row's product prefix, its A entries' B-row starts and values, the
+  // bins' starts and the warps' bin counts
+  float* tile = reinterpret_cast<float*>(smem) + w * (tile_n + tile_words);
+  unsigned* tile_pres = reinterpret_cast<unsigned*>(tile + tile_n);
+  const long long tiles_bytes = 4LL * nw * (tile_n + tile_words);
+  const long long pre = repro_align16(4LL * (max_deg_a + 1));
+  const long long starts_bytes = repro_align16(4LL * (n_bins + 1));
+  const long long tables_bytes =
+      3 * pre + starts_bytes + repro_align16(4LL * nw * n_bins);
+  char* slice = scratch ? scratch + blockIdx.x * slice_bytes : nullptr;
+  char* tables = smem_pairs >= 0 ? smem + tiles_bytes : slice;
+  int* prefix = reinterpret_cast<int*>(tables);
+  int* e0 = reinterpret_cast<int*>(tables + pre);
+  float* av = reinterpret_cast<float*>(tables + 2 * pre);
+  int* bin_start = reinterpret_cast<int*>(tables + 3 * pre);
+  int* hist = reinterpret_cast<int*>(tables + 3 * pre + starts_bytes);
+  for (int l = lane; l < tile_n; l += 32) tile[l] = 0.0f;
+  for (int l = lane; l < tile_words; l += 32) tile_pres[l] = 0u;
   for (int ri = blockIdx.x; ri < n_rows; ri += gridDim.x) {
+    // 1. the row's products, entries, extent and bins
     int start, deg, flop, lo, hi;
     const int n = repro_row_prefix(rows[ri], a_rpt, a_col, rownnz_b, m,
                                    k_rows, max_deg_a, max_deg_b, prefix,
                                    &start, &deg, &flop);
+    repro_row_entries(start, deg, a_col, a_val, b_rpt, k_rows, e0, av);
     repro_row_extent(start, deg, a_col, b_rpt, b_col, rownnz_b, k_rows,
                      max_deg_b, &lo, &hi);
-    // the bins the row's extent reaches; the others hold nothing
-    const int bins = n ? min(n_bins, (hi - lo) / tile_n + 1) : 0;
-    // 1. products per bin
-    for (int b = threadIdx.x; b < bins; b += blockDim.x) bin_end[b] = 0;
-    __syncthreads();
-    for (int p = threadIdx.x; p < n; p += blockDim.x) {
-      int j;
-      const int e = repro_product_entry(p, deg, prefix, start, a_col, b_rpt,
-                                        &j);
-      const int bin = (b_col[e] - lo) / tile_n;
-      if (bin < bins) atomicAdd(&bin_end[bin], 1);
+    const int bins = n ? min(n_bins, ((hi - lo) >> sh) + 1) : 0;
+    char* pairs;
+    long long cap_pairs;
+    const bool spilled = n > smem_pairs && !(slice && n <= slice_pairs);
+    if (n <= smem_pairs) {
+      pairs = smem + tiles_bytes + tables_bytes;
+      cap_pairs = smem_pairs;
+    } else if (!spilled) {
+      pairs = slice + (smem_pairs >= 0 ? 0 : tables_bytes);
+      cap_pairs = slice_pairs;
+    } else {
+      repro_lock(&ctl[0]);
+      pairs = spill;
+      cap_pairs = n;
+    }
+    int* pair_col = reinterpret_cast<int*>(pairs);
+    float* pair_val = reinterpret_cast<float*>(pairs + 4 * cap_pairs);
+    // 2. stable scatter of the pairs into the bins
+    repro_bin_partition(n, deg, prefix, e0, av, b_col, b_val, lo, sh, bins,
+                        hist, bin_start, pair_col, pair_val);
+    // 3. bins in parallel: each warp reduces its bins in its tile, leaving
+    //    each bin's distinct columns, ascending, in its first pair slots;
+    //    hist[b] gets the bin's count
+    for (int b = w; b < bins; b += nw) {
+      const int s0 = bin_start[b], c = bin_start[b + 1] - s0;
+      const int d = c ? repro_warp_bin_dense(pair_col, pair_val, s0, c,
+                                             lo + (b << sh), tile, tile_pres,
+                                             tile_words)
+                      : 0;
+      if (lane == 0) hist[b] = d;
     }
     __syncthreads();
-    // 2. bin offsets: each thread scans a contiguous chunk of the bins; the
-    //    counters become cursors at each bin's start
-    const int chunk = (bins + blockDim.x - 1) / blockDim.x;
-    const int b0 = min(bins, static_cast<int>(threadIdx.x) * chunk);
-    const int b1 = min(bins, b0 + chunk);
-    int local = 0;
-    for (int b = b0; b < b1; ++b) local += bin_end[b];
-    int total;
-    int run = repro_block_exclusive_scan(local, &total);
-    for (int b = b0; b < b1; ++b) {
-      const int c = bin_end[b];
-      bin_end[b] = run;
-      run += c;
-    }
-    __syncthreads();
-    // 3. scatter the pairs in bin order; each cursor ends at its bin's end
-    for (int p = threadIdx.x; p < n; p += blockDim.x) {
-      int j;
-      const int e = repro_product_entry(p, deg, prefix, start, a_col, b_rpt,
-                                        &j);
-      const int rel = b_col[e] - lo;
-      const int bin = rel / tile_n;
-      if (bin < bins) {
-        const int pos = atomicAdd(&bin_end[bin], 1);
-        pair_rel[pos] = rel - bin * tile_n;
-        pair_val[pos] = __fmul_rn(a_val[start + j], b_val[e]);
-      }
-    }
-    __syncthreads();
-    // 4.-5. reduce each non-empty bin densely and compact it
+    // 4. each bin's first output slot, then the copy-out
+    const int nnz = repro_block_offsets(hist, bins);
     int* col_row = out_col + static_cast<long long>(ri) * row_capacity;
     float* val_row = out_val + static_cast<long long>(ri) * row_capacity;
-    int nnz = 0;
-    for (int b = 0; b < bins; ++b) {
-      const int s = b ? bin_end[b - 1] : 0;
-      const int t = bin_end[b];
-      if (s == t) continue;                     // block-uniform
-      for (int l = threadIdx.x; l < tile_n; l += blockDim.x) acc[l] = 0.0f;
-      for (int w = threadIdx.x; w < tile_words; w += blockDim.x) pres[w] = 0u;
-      __syncthreads();
-      for (int i = s + threadIdx.x; i < t; i += blockDim.x) {
-        const int l = pair_rel[i];
-        atomicAdd(&acc[l], pair_val[i]);
-        atomicOr(&pres[l >> 5], 1u << (l & 31));
+    for (int b = w; b < bins; b += nw) {
+      const int o = hist[b], d = hist[b + 1] - o, s0 = bin_start[b];
+      for (int i = lane; i < d && o + i < row_capacity; i += 32) {
+        col_row[o + i] = pair_col[s0 + i];
+        val_row[o + i] = pair_val[s0 + i];
       }
-      __syncthreads();
-      nnz += repro_compact_tile(acc, pres, tile_words, nnz, row_capacity,
-                                lo + b * tile_n, col_row, val_row);
     }
     repro_fill_tail(nnz, row_capacity, col_row, val_row);
-    if (threadIdx.x == 0) row_nnz[ri] = nnz;
-    // keep the next row's prefix and pairs off this row's workspace
+    if (tid == 0) {
+      row_nnz[ri] = nnz;
+      if (nnz > row_capacity) atomicAdd(&ctl[1], nnz - row_capacity);
+    }
+    if (spilled) repro_unlock(&ctl[0]);
+    // keep the next row's tables and pairs off this row's
     __syncthreads();
   }
 }
 
+// ctl: two ints, zeroed here: the spill slice's lock and the entries
+// dropped for capacity.
 extern "C" int bin_numeric_launch(
     const void* rows, int n_rows, const void* a_rpt, const void* a_col,
     const void* a_val, const void* b_rpt, const void* b_col,
     const void* b_val, const void* rownnz_b, int m, int k_rows,
     int max_deg_a, int max_deg_b, int tile_n, int n_bins, int row_capacity,
-    void* scratch, long long slice_bytes, long long pair_stride,
-    long long ws_off, int grid, int threads, int smem_bytes, void* out_col,
-    void* out_val, void* row_nnz, int device, void* stream) {
+    int smem_pairs, void* scratch, long long slice_bytes,
+    long long slice_pairs, void* spill, void* ctl, int grid, int threads,
+    int smem_bytes, void* out_col, void* out_val, void* row_nnz,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(bin_numeric_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static int seen[64];
+  err = cudaMemsetAsync(ctl, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bin_numeric_kernel<<<grid, threads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
+  if (device < 0 || device >= 64 || smem_bytes > seen[device]) {
+    err = cudaFuncSetAttribute(bin_numeric_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device >= 0 && device < 64) seen[device] = smem_bytes;
+  }
+  bin_numeric_kernel<<<grid, threads, smem_bytes, s>>>(
       static_cast<const int*>(rows), n_rows, static_cast<const int*>(a_rpt),
       static_cast<const int*>(a_col), static_cast<const float*>(a_val),
       static_cast<const int*>(b_rpt), static_cast<const int*>(b_col),
       static_cast<const float*>(b_val), static_cast<const int*>(rownnz_b), m,
       k_rows, max_deg_a, max_deg_b, tile_n, n_bins, row_capacity,
-      static_cast<char*>(scratch), slice_bytes, pair_stride, ws_off,
+      smem_pairs, static_cast<char*>(scratch), slice_bytes, slice_pairs,
+      static_cast<char*>(spill), static_cast<int*>(ctl),
       static_cast<int*>(out_col), static_cast<float*>(out_val),
       static_cast<int*>(row_nnz));
   return static_cast<int>(cudaGetLastError());

@@ -99,12 +99,14 @@ def fused_flop_symbolic_routed(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
 
 def spgemm_numeric(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                    max_deg_a: int, max_deg_b: int, row_capacity: int,
-                   rownnz_b=None):
+                   rownnz_b=None, max_row_flop=None):
     """ESC numeric phase with fused compaction → (col, val, row_nnz,
-    overflow)."""
+    overflow); ``max_row_flop`` bounds each row's products and sizes the
+    kernel's workspaces."""
     return _num_k.spgemm_numeric(a, b, rows, max_deg_a=max_deg_a,
                                  max_deg_b=max_deg_b,
-                                 row_capacity=row_capacity, rownnz_b=rownnz_b)
+                                 row_capacity=row_capacity, rownnz_b=rownnz_b,
+                                 max_row_flop=max_row_flop)
 
 
 def _tiling(tiler, b: CSRDevice, tile_n: int, n_tiles: int, span: int):
@@ -137,31 +139,36 @@ def spgemm_numeric_spa(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
 def spgemm_numeric_bin(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                        max_deg_a: int, max_deg_b: int, row_capacity: int,
                        tile_n: int, n_tiles: int = 0, span: int = 0,
-                       rownnz_b=None):
+                       rownnz_b=None, max_row_flop=None):
     """Propagation-blocking numeric phase with fused compaction — the
     output contract of :func:`spgemm_numeric`."""
     tile_n, n_tiles = _tiling(bin_tile, b, tile_n, n_tiles, span)
     return _acc_k.bin_numeric(a, b, rows, max_deg_a=max_deg_a,
                               max_deg_b=max_deg_b, row_capacity=row_capacity,
                               tile_n=tile_n, n_tiles=n_tiles,
-                              rownnz_b=rownnz_b)
+                              rownnz_b=rownnz_b, max_row_flop=max_row_flop)
 
 
 def spgemm_numeric_routed(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                           max_deg_a: int, max_deg_b: int, row_capacity: int,
                           route: str = ROUTE_ESC, tile_n: int = 0,
-                          n_tiles: int = 0, span: int = 0, rownnz_b=None):
+                          n_tiles: int = 0, span: int = 0, rownnz_b=None,
+                          max_row_flop=None):
     """Route-dispatched numeric phase with fused compaction — the
     per-bucket kernel entry point → (col, val, row_nnz, overflow).  SPA and
-    BIN take the planner's tiling, or derive it (:func:`_tiling`)."""
+    BIN take the planner's tiling, or derive it (:func:`_tiling`).
+    ``max_row_flop`` (a bound on each row's products) sizes the ESC and BIN
+    kernels' workspaces; the SPA kernel's follow its tile."""
     check_route(route)
     kw = dict(max_deg_a=max_deg_a, max_deg_b=max_deg_b,
               row_capacity=row_capacity, rownnz_b=rownnz_b)
     if route == ROUTE_ESC:
-        return spgemm_numeric(a, b, rows, **kw)
-    numeric = spgemm_numeric_spa if route == ROUTE_SPA else spgemm_numeric_bin
-    return numeric(a, b, rows, tile_n=tile_n, n_tiles=n_tiles, span=span,
-                   **kw)
+        return spgemm_numeric(a, b, rows, max_row_flop=max_row_flop, **kw)
+    if route == ROUTE_SPA:
+        return spgemm_numeric_spa(a, b, rows, tile_n=tile_n, n_tiles=n_tiles,
+                                  span=span, **kw)
+    return spgemm_numeric_bin(a, b, rows, tile_n=tile_n, n_tiles=n_tiles,
+                              span=span, max_row_flop=max_row_flop, **kw)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -70,8 +70,10 @@ def fused_flop_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
             raise RuntimeError(f"{_LIB}: rownnz_b has {rownnz_b.shape[0]} "
                                f"entries for {b.nrows} rows of B")
         f2 = ceil_pow2(max_deg_a * max_deg_b)
-        ws, grid, threads, smem, scratch = _build.row_workspace(
-            _LIB, dev, max_deg_a, f2, 4, s)          # keys: 4 bytes a lane
+        # the row's product prefix, then f2 keys of 4 bytes
+        ws = _build.align16(4 * (max_deg_a + 1)) + 4 * f2
+        grid, threads, smem, scratch, _ = _build.block_workspace(
+            _LIB, dev, ws, _build.row_threads(f2), s)
         fn = _build.launcher(_LIB, "pipppppiiiipqiiippip")
         rc = fn(_build.require(_LIB, rows, i32, "rows"), s,
                 *_build.require_csr(_LIB, a, "a"),

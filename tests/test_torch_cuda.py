@@ -6,19 +6,23 @@ only the port is installed::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import binning, csr, plan, predictor, spgemm
+from repro_torch.core import binning, csr, oracle, plan, predictor, spgemm
 from repro_torch.core import flop as flop_mod
+from repro_torch.kernels import _build
 from repro_torch.kernels import accumulator as acc_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import flop_per_row as flop_k
 from repro_torch.kernels import spgemm_numeric as num_k
 from repro_torch.kernels import spgemm_symbolic as sym_k
 from repro_torch.sparse import random as sprand
+from repro_torch.sparse.formats import CSR
 
 torch.set_num_threads(1)
 
@@ -271,6 +275,121 @@ def test_global_spgemm_kernel_matches_plain_version(card):
         kw = dict(row_capacity=cap, max_deg_a=da, max_deg_b=da)
         _assert_numeric_equal(spgemm.spgemm(ad, ad, use_kernel=True, **kw),
                               spgemm.spgemm(ad, ad, **kw))
+
+
+# B row lengths of the class-edge operands: each A row's product count is a
+# sum of distinct B rows' lengths, at most 60 A entries a row
+_EDGE_LENGTHS = (4096,) * 16 + (1024,) * 8 + (256,) * 8 + (32,) * 8 + (1,) * 64
+_EDGE_DEG_A = 64
+
+
+def _class_edge_operands(smem_pairs):
+    """A and B whose A rows have 0, 1, 31, 32, 33, 1023, 1024, 1025, 8191,
+    8192 and 8193 products, and just as many and one more than each of
+    ``smem_pairs`` (the pairs a block's shared memory holds), plus a row
+    that lists one A entry twice.  B's rows have random sorted columns of
+    50,000, so output rows repeat columns across A entries."""
+    rng = np.random.default_rng(61)
+    ncols = 50_000
+    b_rows = [np.sort(rng.choice(ncols, n, replace=False))
+              for n in _EDGE_LENGTHS]
+    targets = [0, 1, 31, 32, 33, 1023, 1024, 1025, 8191, 8192, 8193]
+    targets += [n + d for n in smem_pairs for d in (0, 1)]
+    a_rows = []
+    for n in targets:
+        picked, used = [], set()
+        for k, length in enumerate(_EDGE_LENGTHS):
+            if length <= n and k not in used:
+                picked.append(k)
+                used.add(k)
+                n -= length
+        assert n == 0
+        a_rows.append(sorted(picked))
+    a_rows.append(sorted([0, 0, 20, 30, 41]))     # entry 0 twice
+    def csr(rows, shape):
+        rpt = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+        col = (np.concatenate(rows) if rows else np.zeros(0)).astype(np.int32)
+        return CSR(rpt=rpt.astype(np.int64), col=col,
+                   val=rng.standard_normal(col.size).astype(np.float32),
+                   shape=shape)
+    a = csr(a_rows, (len(a_rows), len(_EDGE_LENGTHS)))
+    b = csr(b_rows, (len(_EDGE_LENGTHS), ncols))
+    return a, b, targets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [16, 1 << 16])
+def test_numeric_kernels_at_their_class_edges(card, cap):
+    """Rows on both sides of every class edge of kernels 3 and 6 (a warp's
+    and a block's products, and each kernel's shared-memory limit), with room for
+    every column and with capacity overflow inside most rows, against the
+    plain versions: with the rows' true FLOP bound, without a bound, and
+    with a bound far too small (rows past it run in the spill slice)."""
+    limit = _build.max_smem("esc_numeric", card)
+    tile_n, n_tiles = binning.bin_tile(50_000, binning.DEFAULT_LANE_BUDGET)
+    big = 1 << 16
+    a, b, targets = _class_edge_operands((
+        _build.esc_numeric_shape(limit, _EDGE_DEG_A, big).launches[-1]
+        .smem_pairs,
+        _build.bin_numeric_shape(limit, _EDGE_DEG_A, big, tile_n, n_tiles)
+        .launches[0].smem_pairs))
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    rows = torch.arange(a.nrows, dtype=torch.int32, device=card)
+    kw = dict(a=ad, b=bd, rows=rows, max_deg_a=_EDGE_DEG_A,
+              max_deg_b=max(_EDGE_LENGTHS), row_capacity=cap)
+    want = num_k.spgemm_numeric_plain(**kw)
+    assert all(z <= n for z, n in zip(want[2].tolist(), targets))
+    want_bin = acc_k.bin_numeric_plain(**kw, tile_n=tile_n, n_tiles=n_tiles)
+    for bound in (max(targets), None, 200):
+        _assert_numeric_equal(num_k.spgemm_numeric(**kw, max_row_flop=bound),
+                              want)
+        _assert_numeric_equal(acc_k.bin_numeric(
+            **kw, tile_n=tile_n, n_tiles=n_tiles, max_row_flop=bound),
+            want_bin)
+
+
+@pytest.mark.cuda
+def test_same_keyed_plans_with_other_flop_share_one_executor(card):
+    """A second plan with the first's key but rows of less FLOP runs through
+    the first's cached executor: its kernels size by its own, too small,
+    bounds, and rows past them still come out right."""
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=71), 72)
+    sample = np.random.default_rng(7).integers(0, m.nrows, 200)
+    p1 = plan.plan_spgemm(m, m, route="auto", use_kernel=True,
+                          sample_rows=sample, device=card)
+    p2 = dataclasses.replace(p1, flopr=p1.flopr // 4, _device_args=None,
+                             _flop_bounds=None, _planned_pair=None)
+    assert p2.key == p1.key and p2.flop_bounds() != p1.flop_bounds()
+    want = plan.execute(plan.plan_spgemm(m, m, route="auto",
+                                         sample_rows=sample, device=card),
+                        m, m, cache=plan.PlanCache())
+    cache = plan.PlanCache()
+    for p in (p1, p2):
+        _assert_numeric_equal(plan.execute(p, m, m, cache=cache), want)
+    assert cache.stats()["traces"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "bin"])
+def test_numeric_val_is_bitwise_equal_across_launches(card, route):
+    """Kernels 3 and 6 add each row's products in a fixed order: two
+    launches on the same rows give the same val, bit for bit."""
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.2, seed=5), 6)
+    bp = binning.build_plan(m, m, route=route)
+    ad = csr.to_device(m, device=card)
+    floprc = oracle.flop_per_row(m, m)[0]
+    for bk in bp.buckets:
+        kw = dict(a=ad, b=ad, rows=torch.from_numpy(bk.rows).to(card),
+                  max_deg_a=bk.deg_a, max_deg_b=bk.deg_b, row_capacity=4096,
+                  max_row_flop=int(floprc[bk.rows].max()))
+        if route == "bin":
+            kernel = acc_k.bin_numeric
+            kw.update(tile_n=bk.tile_n, n_tiles=bk.n_tiles)
+        else:
+            kernel = num_k.spgemm_numeric
+        first, second = kernel(**kw), kernel(**kw)
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
 
 
 # (sq, sk, D, causal, Hq, Hkv): the CPU tests' cases
