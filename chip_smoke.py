@@ -11,7 +11,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 1. drives the main path through its entry points, with every kernel's
    launch count set to 0 just before each call and read just after:
    (a) the paper's predictor, ``predictor.proposed_predict_binned(...,
-       use_kernel=True)``, on five suite matrices squared;
+       use_kernel=True)``, on five suite matrices squared: one launch of
+       the FLOP kernel and one of the fused ESC symbolic kernel each;
    (b) ``plan.plan_spgemm(route="esc", use_kernel=True)`` → ``execute`` →
        ``reassemble`` on the same five and on two paper-scale analogues
        (SuiteSparse cant and webbase-1M sizes);
@@ -42,8 +43,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    dense oracle;
 3. holds each kernel against its plain version at the path's shapes (the
    bitmask symbolic kernels also against the ESC ones on the same sampled
-   rows) and times both, with CUDA events, beside the bound and a PyTorch
-   yardstick (the BIN kernel's: ``torch.sparse.mm`` of its rows of A);
+   rows; the one-launch FLOP and ESC symbolic entries also against the
+   per-bucket kernels and the host oracles) and times both, with CUDA
+   events, beside the bound and a PyTorch yardstick (the BIN kernel's:
+   ``torch.sparse.mm`` of its rows of A); kernels 1 and 2 as one launch
+   over a whole prediction, their per-bucket sequence beside it;
 4. launches each numeric kernel twice on every bucket and holds ``val``
    bit for bit: the ESC and BIN kernels add in a fixed order, the SPA
    kernel's atomics only report.
@@ -223,7 +227,8 @@ def main() -> int:
                num_k.spgemm_numeric, acc_k.fused_flop_symbolic_bitmask,
                acc_k.spa_numeric, acc_k.bin_numeric, sym_k.sampled_symbolic,
                acc_k.bitmask_symbolic, flop_k.flop_per_row,
-               fa_k.flash_attention)
+               fa_k.flash_attention, flop_k.flop_rows_buckets,
+               sym_k.fused_flop_symbolic_buckets)
     names = [k.__name__ for k in kernels]
     launches = {path: dict.fromkeys(names, 0)
                 for path in ("predict", "plan_esc", "plan_auto",
@@ -269,10 +274,16 @@ def main() -> int:
         rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        pred, _ = drive("predict", lambda: predictor.proposed_predict_binned(
-            ad, ad, rows_d, binplan, use_kernel=True))
+        pred, counts = drive("predict",
+                             lambda: predictor.proposed_predict_binned(
+                                 ad, ad, rows_d, binplan, use_kernel=True))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        # one launch of each kernel a prediction, none per bucket
+        if (counts["flop_rows_buckets"], counts["fused_flop_symbolic_buckets"],
+                counts["flop_rows"], counts["fused_flop_symbolic"]) \
+                != (1, 1, 0, 0):
+            fail(f"predict {name}: launches {counts}, not one of each")
         plain = predictor.proposed_predict_binned(ad, ad, rows_d, binplan,
                                                   use_kernel=False)
         for what in ("sampled_nnz", "sampled_flop", "total_flop"):
@@ -288,6 +299,10 @@ def main() -> int:
         if (not np.array_equal(floprc_plain.cpu().numpy(), floprc_host)
                 or int(pred.total_flop) != total_host):
             fail(f"predict {name}: floprC != host oracle")
+        if (int(pred.sampled_nnz), int(pred.sampled_flop)) != (
+                oracle.exact_sampled_nnz(m, m, rows),
+                int(floprc_host[rows].sum())):
+            fail(f"predict {name}: (z*, f*) != host oracle")
         nnzr_exact, nnz_exact = oracle.exact_structure(m, m)
         exact[name] = nnzr_exact
         emit(dict(phase="predict", matrix=name, rows=m.nrows, nnz=m.nnz,
@@ -296,7 +311,7 @@ def main() -> int:
                   total_flop=int(pred.total_flop),
                   predicted_nnz=float(pred.nnz_total), exact_nnz=nnz_exact,
                   rel_err=(float(pred.nnz_total) - nnz_exact) / nnz_exact,
-                  seconds=secs))
+                  equals_host_oracle=True, launches=counts, seconds=secs))
         binned[name] = pred
         del ad, plain
 
@@ -328,8 +343,14 @@ def main() -> int:
     auto_runs = {}      # matrix -> (rows per route, launch counts) of (c)
     b_row_nnz = {}      # matrix -> (b)'s row_nnz
     for name, m in mats:
-        # (b) every bucket on ESC
-        (p, out, c, secs), _ = drive("plan_esc", lambda: run_plan(m, "esc"))
+        # (b) every bucket on ESC: the prediction launches the fused ESC
+        # symbolic kernel once (the plan passes floprC from the host)
+        (p, out, c, secs), counts = drive("plan_esc",
+                                          lambda: run_plan(m, "esc"))
+        if (counts["fused_flop_symbolic_buckets"], counts["flop_rows_buckets"],
+                counts["fused_flop_symbolic"]) != (1, 0, 0):
+            fail(f"plan_execute {name}: launches {counts}, not one kernel-2 "
+                 "launch")
         # each bucket's block of the output against the plain numeric phase
         ad = p.to_device(m, "a")
         for bk, cap in zip(p.binning.buckets, p.alloc.bucket_capacities):
@@ -366,14 +387,17 @@ def main() -> int:
                   overflow=overflow, safety=SAFETY,
                   row_nnz_equals_plain=True,
                   row_nnz_equals_exact=(True if name in exact else None),
-                  **secs))
+                  launches=counts, **secs))
         del c
 
         # (c) the default route: same buckets, prediction and capacities,
         # so the same col, row_nnz and overflow as (b)
         (pa, outa, ca, secs), counts = drive("plan_auto",
                                              lambda: run_plan(m, "auto"))
-        auto_runs[name] = (pa.binning.route_rows(), counts)
+        esc_buckets = [i for i, bk in enumerate(pa.binning.buckets)
+                       if bk.route == binning.ROUTE_ESC]
+        auto_runs[name] = (pa.binning.route_rows(), counts, int(np.isin(
+            pa.binning.row_bucket[pa.sample_rows], esc_buckets).sum()))
         if (pa.alloc.bucket_capacities != p.alloc.bucket_capacities
                 or not np.array_equal(pa.structure, p.structure)
                 or pa.predicted_nnz != p.predicted_nnz
@@ -647,24 +671,47 @@ def main() -> int:
         del q, k, v, out, want
     torch.cuda.empty_cache()
 
-    emit(dict(phase="main_path_launches", **launches))
-    # plan_spgemm takes floprC from the host, so the per-bucket FLOP kernel
-    # runs on path (a) only
-    for path, kinds in (("predict", names[:2]), ("plan_esc", names[1:3]),
-                        ("plan_auto", names[3:6]),
-                        ("global_predict", names[6:9:2]),
-                        ("global_bitmask", names[7:8]),
-                        ("global_spgemm", names[2:3]),
-                        ("experiment", names[6:9:2]),
-                        ("attention", names[9:10])):
+    predictions = dict(predict=len(PREDICT_MATRICES), plan_esc=len(mats),
+                       plan_auto=len(mats))
+    emit(dict(phase="main_path_launches", predictions=predictions,
+              **launches))
+    # plan_spgemm takes floprC from the host, so the FLOP kernel (1) runs on
+    # path (a) only: once a prediction; the fused ESC symbolic kernel (2)
+    # once a prediction on (a) and (b), and never per bucket
+    one_each = (("predict", "flop_rows_buckets"),
+                ("predict", "fused_flop_symbolic_buckets"),
+                ("plan_esc", "fused_flop_symbolic_buckets"))
+    for path, k in one_each:
+        if launches[path][k] != predictions[path]:
+            fail(f"kernel {k} launched {launches[path][k]} times on main "
+                 f"path {path}, not once for each of {predictions[path]} "
+                 "predictions")
+    for path in ("predict", "plan_esc", "plan_auto"):
+        if (launches[path]["flop_rows"]
+                or launches[path]["fused_flop_symbolic"]):
+            fail(f"a per-bucket kernel-1 or kernel-2 launch on path {path}")
+    for path, kinds in (("plan_esc", ("spgemm_numeric",)),
+                        ("plan_auto", ("fused_flop_symbolic_bitmask",
+                                       "spa_numeric", "bin_numeric")),
+                        ("global_predict", ("sampled_symbolic",
+                                            "flop_per_row")),
+                        ("global_bitmask", ("bitmask_symbolic",)),
+                        ("global_spgemm", ("spgemm_numeric",)),
+                        ("experiment", ("sampled_symbolic", "flop_per_row")),
+                        ("attention", ("flash_attention",))):
         for k in kinds:
             if launches[path][k] <= 0:
                 fail(f"kernel {k} was not launched on main path {path}")
-    for name, (routes, counts) in auto_runs.items():
+    for name, (routes, counts, esc_samples) in auto_runs.items():
         for route, k in ((binning.ROUTE_SPA, "spa_numeric"),
                          (binning.ROUTE_BIN, "bin_numeric")):
             if routes[route] and counts[k] <= 0:
                 fail(f"plan_auto {name}: {route} buckets but no {k} launch")
+        # one kernel-2 launch when a sampled row lands in an ESC bucket, and
+        # no launch at all when none does
+        if counts["fused_flop_symbolic_buckets"] != int(esc_samples > 0):
+            fail(f"plan_auto {name}: {counts['fused_flop_symbolic_buckets']}"
+                 f" kernel-2 launches for {esc_samples} ESC samples")
 
     # ---- small products on every route against the dense oracle -------- #
     minis = suite.mini_suite(scale=200)
@@ -688,6 +735,8 @@ def main() -> int:
                    fused_flop_symbolic_bitmask=0, sampled_symbolic=0,
                    bitmask_symbolic=0, flop_per_row=0)
     calls = {}          # (kernel, matrix) -> [(kwargs, host rows, ...), ...]
+    one_launch = {}     # (kernel, matrix) -> (entry, kwargs, plain version)
+    esc_samples_of = {}  # matrix -> (kernel 2's sampled rows, host z*)
     for name, m in mats[:len(PREDICT_MATRICES)]:
         binplan = binning.build_plan(m, m, route="esc")
         rows = oracle.sample_rows(m.nrows, seed=0)
@@ -721,6 +770,58 @@ def main() -> int:
             sc.append((kw, sub, bk.deg_a, bk.deg_b))
         calls["flop_rows", name] = fc
         calls["fused_flop_symbolic", name] = sc
+        # kernels 1 and 2 as the predictor launches them, once over the
+        # whole prediction: against their plain versions, the per-bucket
+        # launches above and the host oracles
+        tabs = predictor.plan_tables(binplan, ad.rpt.device)
+        kw = dict(a=ad, rownnz_b=rnb, tables=tabs.flop)
+        got = flop_k.flop_rows_buckets(**kw)
+        want = flop_k.flop_rows_buckets_plain(**kw)
+        per_bucket = torch.cat([flop_k.flop_rows(**c[0]) for c in fc])[
+            torch.from_numpy(binplan.inverse_perm()).to(dev)]
+        if not (torch.equal(got, want) and torch.equal(got, per_bucket)
+                and np.array_equal(got.cpu().numpy(), floprc_host)):
+            fail(f"flop_rows_buckets {name}: kernel != plain/per-bucket/host")
+        int_err["flop_rows"] = max(int_err["flop_rows"],
+                                   int((got - want).abs().max()))
+        one_launch["flop_rows", name] = (flop_k.flop_rows_buckets, kw,
+                                         flop_k.flop_rows_buckets_plain)
+        table = predictor.esc_sample_table(binplan, tabs, rows,
+                                           floprc_host[rows], ad.rpt.device)
+        kw = dict(a=ad, b=ad, table=table, rownnz_b=rnb)
+        got = sym_k.fused_flop_symbolic_buckets(**kw)
+        want = sym_k.fused_flop_symbolic_buckets_plain(**kw)
+        host = (oracle.exact_sampled_nnz(m, m, rows),
+                int(floprc_host[rows].sum()))
+        per_bucket = [sym_k.fused_flop_symbolic(**c[0]) for c in sc]
+        err = max(abs(int(got[0]) - int(want[0])),
+                  abs(int(got[1]) - int(want[1])),
+                  int((got[2] - want[2]).abs().max()))
+        if (err or (int(got[0]), int(got[1])) != host
+                or (sum(int(x[0]) for x in per_bucket),
+                    sum(int(x[1]) for x in per_bucket)) != host
+                or not np.array_equal(got[2].cpu().numpy(),
+                                      floprc_host[rows])):
+            fail(f"fused_flop_symbolic_buckets {name}: kernel != plain/"
+                 "per-bucket/host oracle")
+        int_err["fused_flop_symbolic"] = max(
+            int_err["fused_flop_symbolic"], err)
+        one_launch["fused_flop_symbolic", name] = (
+            sym_k.fused_flop_symbolic_buckets, kw,
+            sym_k.fused_flop_symbolic_buckets_plain)
+        esc_samples_of[name] = (table.samples[0].cpu().numpy(), host[0])
+        # a FLOP below the rows' products (1 a row) sizes every workspace
+        # too small: each row then counts in the spill bitmask, exactly
+        low = predictor.esc_sample_table(binplan, tabs, rows,
+                                         np.ones(rows.size, np.int64),
+                                         ad.rpt.device)
+        got = sym_k.fused_flop_symbolic_buckets(a=ad, b=ad, table=low,
+                                                rownnz_b=rnb)
+        if ((int(got[0]), int(got[1])) != host
+                or not np.array_equal(got[2].cpu().numpy(),
+                                      floprc_host[rows])):
+            fail(f"fused_flop_symbolic_buckets {name}: rows past their "
+                 "bound != host oracle")
     floprc = {}
     for name, m in mats:
         floprc[name] = oracle.flop_per_row(m, m)[0]
@@ -948,14 +1049,26 @@ def main() -> int:
         fn, plain_fn, esc_fn, source, replaces = kernel_of[kernel]
         cs = calls[kernel, name]
         m = dict(mats)[name]
-        ms = cuda_ms(torch, lambda: [fn(**c[0]) for c in cs])
-        # the workspace hint is the kernel's own: the plain versions and
-        # the fused ESC kernel take none
-        plain_kw = [{k: v for k, v in c[0].items()
-                     if k not in ("row_flop", "max_row_flop") and not (
-                         k == "rownnz_b" and kernel.endswith("numeric"))}
-                    for c in cs]
-        plain_ms = cuda_ms(torch, lambda: [plain_fn(**kw) for kw in plain_kw])
+        extra = {}
+        if (kernel, name) in one_launch:
+            # one launch over the whole prediction, its tables already on
+            # the card, and the per-bucket launches beside it
+            fn1, kw1, plain1 = one_launch[kernel, name]
+            ms = cuda_ms(torch, lambda: fn1(**kw1))
+            plain_ms = cuda_ms(torch, lambda: plain1(**kw1))
+            extra = dict(entry=fn1.__name__, per_bucket_calls=len(cs),
+                         per_bucket_ms=cuda_ms(
+                             torch, lambda: [fn(**c[0]) for c in cs]))
+        else:
+            ms = cuda_ms(torch, lambda: [fn(**c[0]) for c in cs])
+            # the workspace hint is the kernel's own: the plain versions
+            # and the fused ESC kernel take none
+            plain_kw = [{k: v for k, v in c[0].items()
+                         if k not in ("row_flop", "max_row_flop") and not (
+                             k == "rownnz_b" and kernel.endswith("numeric"))}
+                        for c in cs]
+            plain_ms = cuda_ms(torch,
+                               lambda: [plain_fn(**kw) for kw in plain_kw])
         esc_ms = None
         if esc_fn is not None:
             # the ESC kernel on the same rows, at the same bounds
@@ -977,6 +1090,12 @@ def main() -> int:
             lib_ms = library_flop_ms(name, np.arange(m.nrows))
         elif "symbolic" in kernel:
             nbytes = sum(bytes_symbolic(np, m, c[1], c[2], c[3]) for c in cs)
+            if kernel == "fused_flop_symbolic":
+                # the sampled rows' product, whose row nnz sum to z*
+                esc_rows, z_host = esc_samples_of[name]
+                if int(b_row_nnz[name][esc_rows].sum()) != z_host:
+                    fail(f"library rows {name}: sum != host z*")
+                lib_ms = library_rows_ms(name, esc_rows)
         else:
             nbytes = sum(bytes_numeric(np, m, *c[1:]) for c in cs)
             ops = sum(numeric_ops(floprc[name], c[1]) for c in cs)
@@ -989,7 +1108,9 @@ def main() -> int:
         return dict(name=kernel, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=f"src/repro/kernels/{replaces}",
-                    launches=sum(launches[p][kernel] for p in launches),
+                    launches=sum(launches[p][kernel]
+                                 + launches[p].get(f"{kernel}_buckets", 0)
+                                 for p in launches),
                     max_abs_err=float(int_err.get(kernel,
                                                   num_err.get(kernel))),
                     ms=ms, plain_ms=plain_ms,
@@ -997,15 +1118,16 @@ def main() -> int:
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                     library_ms=(lib_ms if lib_ms is not None or not numeric
                                 else library_ms(name)),
-                    esc_ms=esc_ms, timed_on=name, calls=len(cs),
-                    bytes=nbytes, operations=ops)
+                    esc_ms=esc_ms, timed_on=name,
+                    calls=1 if extra else len(cs), bytes=nbytes,
+                    operations=ops, **extra)
 
     # every (kernel, matrix) timing gets its own line; the contract line
     # takes one matrix per kernel: the power-law predict input for the ESC
-    # predict kernels, the cant-sized FEM product for the ESC numeric, the
-    # fused bitmask symbolic, the SPA and the all-rows FLOP kernels, R-MAT's
-    # hub rows for BIN and R-MAT's sampled rows at global bounds for the
-    # unfused symbolic kernels
+    # predict kernels (one launch over the prediction), the cant-sized FEM
+    # product for the ESC numeric, the fused bitmask symbolic, the SPA and
+    # the all-rows FLOP kernels, R-MAT's hub rows for BIN and R-MAT's
+    # sampled rows at global bounds for the unfused symbolic kernels
     timings = {key: entry(*key) for key in calls}
     # the global pad's cost in the predictor: kernel 7 on R-MAT's sampled
     # rows beside the binned predictor's fused per-bucket calls on the same
@@ -1101,8 +1223,9 @@ def main() -> int:
               timings["flash_attention", "G1"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in report]}),
-          flush=True)
+    print(json.dumps({"kernels": [
+        {k: e[k] for k in keys + (("per_bucket_ms",) if "per_bucket_ms" in e
+                                  else ())} for e in report]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,20 +14,23 @@ the global degree bounds) count with ESC's sort.  The binned ones count each
 degree bucket on its planned accumulator route: ESC sorts, SPA and BIN set
 bits in a bitmask.  With ``use_kernel`` the counting and Algorithm 1 run in
 the port's hand-written CUDA kernels (``repro_torch.kernels``) on a CUDA
-tensor; without it — and always on a CPU tensor — the plain tensor-op
-versions below run.  Integer
+tensor — Algorithm 1 for all of a plan's rows in one launch, and the ESC
+buckets' sampled rows in one launch, from tables cached with the plan
+(:func:`plan_tables`); without it the plain tensor-op versions below run,
+and on a CPU tensor the kernel wrappers run theirs.  Integer
 counts are int32 and the eq. 4 chain is float32 in the JAX package's order
 of operations, so both packages predict the same numbers.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .binning import ROUTE_BIN, ROUTE_SPA, BinningPlan, ceil_pow2
+from .binning import ROUTE_BIN, ROUTE_ESC, ROUTE_SPA, BinningPlan, ceil_pow2
 from .csr import COL_SENTINEL, CSRDevice, expand_products, row_chunks
 from .flop import flop_per_row
 
@@ -182,52 +185,163 @@ def reference_predict(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Binned prediction (DESIGN.md §4): per-bucket buffers instead of global pad.
 # --------------------------------------------------------------------------- #
+class PlanTables(NamedTuple):
+    """A binned plan's tables for the one-launch kernels: Algorithm 1's on
+    the device, and each bucket's bounds and route on the host (where the
+    per-sample tables are built from them)."""
+
+    flop: "FlopTables"      # kernels.flop_per_row.FlopTables, on the device
+    deg_a: np.ndarray       # int32 (buckets,)
+    deg_b: np.ndarray       # int32 (buckets,)
+    esc: np.ndarray         # bool (buckets,): the bucket counts on ESC
+
+
+# id(plan) -> (weak reference to the plan, {device: PlanTables}).  A
+# BinningPlan holds arrays, so it cannot be hashed; its identity keys the
+# cache, and the weak reference both checks that identity and drops the
+# entry when the plan goes.
+_PLAN_TABLES: dict = {}
+
+
+def _drop_tables(key: int, ref) -> None:
+    if _PLAN_TABLES.get(key, (None,))[0] is ref:
+        del _PLAN_TABLES[key]
+
+
+def plan_tables(plan: BinningPlan, device) -> PlanTables:
+    """``plan``'s :class:`PlanTables` on ``device``, built and uploaded on
+    the first call for that plan and device (one copy), then reused for as
+    long as the plan lives."""
+    from repro_torch.kernels.flop_per_row import flop_tables
+    key = id(plan)
+    entry = _PLAN_TABLES.get(key)
+    if entry is None or entry[0]() is not plan:
+        entry = (weakref.ref(plan, lambda ref, key=key: _drop_tables(key,
+                                                                     ref)),
+                 {})
+        _PLAN_TABLES[key] = entry
+    dev = torch.device(device)
+    per_device = entry[1]
+    if dev not in per_device:
+        deg_a = np.array([bk.deg_a for bk in plan.buckets], dtype=np.int32)
+        per_device[dev] = PlanTables(
+            flop_tables(plan.row_bucket, deg_a, dev), deg_a,
+            np.array([bk.deg_b for bk in plan.buckets], dtype=np.int32),
+            np.array([bk.route == ROUTE_ESC for bk in plan.buckets],
+                     dtype=bool))
+    return per_device[dev]
+
+
+def _rows_and_flop(rows, floprc: torch.Tensor):
+    """Host copies of the sampled rows and of ``floprc`` at them: one
+    read-back when the rows already lie on ``floprc``'s device."""
+    if isinstance(rows, torch.Tensor) and rows.device == floprc.device:
+        both = torch.stack([rows.to(floprc.dtype),
+                            floprc.index_select(0, rows)]).cpu().numpy()
+        return both[0].astype(np.int64), both[1]
+    rows = np.asarray(_host_rows(rows), dtype=np.int64)
+    idx = torch.from_numpy(rows).to(floprc.device)
+    return rows, floprc.index_select(0, idx).cpu().numpy()
+
+
+def esc_sample_table(plan: BinningPlan, tables: PlanTables, rows,
+                     row_flop, device):
+    """The :class:`~repro_torch.kernels.spgemm_symbolic.SampleTable` of the
+    sampled ``rows`` (host ids, duplicates kept) that fall in ``plan``'s ESC
+    buckets, each at its bucket's bounds and sized by ``row_flop`` (floprC
+    at ``rows``), uploaded to ``device``; None when no sampled row falls in
+    an ESC bucket."""
+    from repro_torch.kernels.spgemm_symbolic import sample_table
+    rows = np.asarray(rows, dtype=np.int64)
+    bk = plan.row_bucket[rows]
+    sel = tables.esc[bk]
+    if not sel.any():
+        return None
+    return sample_table(rows[sel], tables.deg_a[bk[sel]],
+                        tables.deg_b[bk[sel]], np.asarray(row_flop)[sel],
+                        device)
+
+
 def binned_symbolic_counts(a: CSRDevice, b: CSRDevice, rows,
-                           plan: BinningPlan, use_kernel: bool = False
+                           plan: BinningPlan, use_kernel: bool = False,
+                           *, floprc: torch.Tensor | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Σ over buckets of the sampled (z*, f*), each bucket at its own degree
     bounds and on its planned accumulator route — exact ints, so the totals
     equal the global-pad / all-ESC totals bit for bit whatever the
-    routing."""
+    routing.
+
+    With ``use_kernel`` every sampled row of an ESC bucket goes to one
+    launch of the fused ESC kernel, each row at its own bucket's bounds and
+    its workspace sized by its FLOP (``floprc``, Algorithm 1's per-row FLOP
+    at the buckets' bounds or above, computed by :func:`_binned_floprc`
+    when not given); SPA and BIN buckets count by bitmask, one call each."""
     from repro_torch.kernels import ops as kops
     dev = a.rpt.device
-    z = torch.zeros((), dtype=torch.int32, device=dev)
-    f = torch.zeros((), dtype=torch.int32, device=dev)
     rownnz_b = torch.diff(b.rpt)         # hoisted out of the per-bucket calls
-    for bucket, sub in zip(plan.buckets, plan.subset(_host_rows(rows))):
+    for bucket in plan.buckets:
         kops.check_route(bucket.route)
-        if sub.size == 0:
-            continue            # no sampled rows landed in this bucket
-        sub_d = torch.from_numpy(sub).to(dev)
-        if use_kernel:
-            zb, fb, _ = kops.fused_flop_symbolic_routed(
-                a, b, sub_d, max_deg_a=bucket.deg_a, max_deg_b=bucket.deg_b,
-                route=bucket.route, span=bucket.span, rownnz_b=rownnz_b)
-        elif bucket.route in (ROUTE_SPA, ROUTE_BIN):
-            zb, fb = sampled_counts(
-                a, b, sub_d, bucket.deg_a, bucket.deg_b, rownnz_b=rownnz_b,
-                count=lambda cols, span=bucket.span: count_distinct_dense(
-                    cols, b.ncols, span))
-        else:
-            zb, fb = sampled_counts(a, b, sub_d, bucket.deg_a, bucket.deg_b,
-                                    rownnz_b=rownnz_b)
-        z = z + zb
-        f = f + fb
+    if not use_kernel:
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        f = torch.zeros((), dtype=torch.int32, device=dev)
+        for bucket, sub in zip(plan.buckets, plan.subset(_host_rows(rows))):
+            if sub.size == 0:
+                continue        # no sampled rows landed in this bucket
+            sub_d = torch.from_numpy(sub).to(dev)
+            if bucket.route in (ROUTE_SPA, ROUTE_BIN):
+                zb, fb = sampled_counts(
+                    a, b, sub_d, bucket.deg_a, bucket.deg_b,
+                    rownnz_b=rownnz_b,
+                    count=lambda cols, span=bucket.span: count_distinct_dense(
+                        cols, b.ncols, span))
+            else:
+                zb, fb = sampled_counts(a, b, sub_d, bucket.deg_a,
+                                        bucket.deg_b, rownnz_b=rownnz_b)
+            z = z + zb
+            f = f + fb
+        return z, f
+    tables = plan_tables(plan, dev)
+    row_flop = None
+    if floprc is None:
+        rows_h = np.asarray(_host_rows(rows), dtype=np.int64)
+    else:
+        rows_h, row_flop = _rows_and_flop(rows, floprc)
+    bk = plan.row_bucket[rows_h]
+    esc = tables.esc[bk]
+    parts = []
+    if esc.any():
+        if row_flop is None:
+            rows_h, row_flop = _rows_and_flop(rows_h,
+                                              _binned_floprc(a, b, plan))
+        table = esc_sample_table(plan, tables, rows_h, row_flop, dev)
+        parts.append(kops.fused_flop_symbolic_buckets(a, b, table,
+                                                      rownnz_b=rownnz_b))
+    if not esc.all():
+        for i in np.unique(bk[~esc]):
+            bucket = plan.buckets[i]
+            sub = np.ascontiguousarray(rows_h[bk == i], dtype=np.int32)
+            parts.append(kops.fused_flop_symbolic_routed(
+                a, b, torch.from_numpy(sub).to(dev), max_deg_a=bucket.deg_a,
+                max_deg_b=bucket.deg_b, route=bucket.route, span=bucket.span,
+                rownnz_b=rownnz_b))
+    if not parts:
+        zero = torch.zeros(2, dtype=torch.int32, device=dev)
+        return zero[0], zero[1]
+    z, f = parts[0][:2]
+    for zb, fb, _ in parts[1:]:
+        z, f = z + zb, f + fb
     return z, f
 
 
-def _binned_floprc(a: CSRDevice, b: CSRDevice, plan: BinningPlan) -> torch.Tensor:
-    """floprC assembled bucket by bucket through the per-bucket FLOP kernel —
-    each bucket gathers at its own deg_a bound, not the global one."""
+def _binned_floprc(a: CSRDevice, b: CSRDevice,
+                   plan: BinningPlan) -> torch.Tensor:
+    """floprC of every row in one launch of the FLOP kernel, each row at its
+    own bucket's deg_a bound (not the global one), from the plan's cached
+    tables."""
     from repro_torch.kernels import ops as kops
-    dev = a.rpt.device
     if not plan.buckets:
-        return torch.zeros(0, dtype=torch.int32, device=dev)
-    parts = [kops.flop_rows(a, b, torch.from_numpy(bucket.rows).to(dev),
-                            max_deg_a=bucket.deg_a)
-             for bucket in plan.buckets]
-    perm = torch.from_numpy(plan.inverse_perm()).to(dev)
-    return torch.cat(parts)[perm]
+        return torch.zeros(0, dtype=torch.int32, device=a.rpt.device)
+    return kops.flop_rows_buckets(a, b, plan_tables(plan, a.rpt.device).flop)
 
 
 def proposed_predict_binned(a: CSRDevice, b: CSRDevice, rows,
@@ -238,9 +352,10 @@ def proposed_predict_binned(a: CSRDevice, b: CSRDevice, rows,
 
     Identical outputs to :func:`proposed_predict`: z*/f* are exact integer
     counts whatever the padding.  With ``use_kernel`` the per-bucket pass
-    is the fused FLOP + symbolic kernel and floprC runs through the
-    per-bucket FLOP kernel.  ``floprc`` (Algorithm 1's per-row FLOP) may be
-    passed in by callers that already computed it (the planner)."""
+    is the fused FLOP + symbolic kernel (one launch for the ESC buckets) and
+    floprC runs through the FLOP kernel (one launch, each bucket at its
+    bound).  ``floprc`` (Algorithm 1's per-row FLOP) may be passed in by
+    callers that already computed it (the planner)."""
     if floprc is not None:
         floprc = torch.as_tensor(floprc, device=a.rpt.device)
         total_flop = floprc.sum(dtype=torch.int32)
@@ -249,7 +364,8 @@ def proposed_predict_binned(a: CSRDevice, b: CSRDevice, rows,
         total_flop = floprc.sum(dtype=torch.int32)
     else:
         floprc, total_flop = flop_per_row(a, b)
-    z_star, f_star = binned_symbolic_counts(a, b, rows, plan, use_kernel)
+    z_star, f_star = binned_symbolic_counts(a, b, rows, plan, use_kernel,
+                                            floprc=floprc)
     return _eq4(floprc, total_flop, z_star, f_star)
 
 
@@ -258,7 +374,8 @@ def reference_predict_binned(a: CSRDevice, b: CSRDevice, rows,
                              use_kernel: bool = False) -> PredictionDev:
     """Reference design (eq. 2), bucket-iterated — mirrors reference_predict."""
     floprc, total_flop = flop_per_row(a, b)
-    z_star, f_star = binned_symbolic_counts(a, b, rows, plan, use_kernel)
+    z_star, f_star = binned_symbolic_counts(a, b, rows, plan, use_kernel,
+                                            floprc=floprc)
     return _eq2(floprc, total_flop, z_star, f_star,
                 _host_rows(rows).shape[0] / a.nrows)
 

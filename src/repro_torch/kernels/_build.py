@@ -34,6 +34,19 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def source_define(name: str, macro: str) -> int:
+    """The integer that ``csrc/<name>.cu`` ``#define``s as ``macro``: a
+    launch constant that the host side also needs (it sizes shared memory
+    or splits rows between a kernel's parts), read from the source so that
+    it is defined in one place; no build is needed."""
+    import re
+    text = (CSRC / f"{name}.cu").read_text()
+    found = re.search(rf"^#define {macro} (\d+)\b", text, re.M)
+    if found is None:
+        raise RuntimeError(f"{name}.cu defines no integer {macro}")
+    return int(found.group(1))
+
+
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
@@ -307,6 +320,65 @@ def sort_workspace(name: str, device, max_deg_a: int, lanes: int,
         return lanes, n_rows, row_threads(lanes), smem_bytes, None, 0
     grid, scratch = scratch_slices(device, slice_bytes, n_rows)
     return smem_lanes, grid, 1024, smem_bytes, scratch, slice_bytes
+
+
+# csrc/esc_symbolic.cu: a warp sorts a short row of up to SYM_WARP_MAX
+# products in its own shared memory (a 256-byte staging area, then the keys);
+# SYM_WARPS warps a block
+SYM_WARP_MAX = source_define("esc_symbolic", "SYM_WARP_MAX")
+SYM_WARPS = source_define("esc_symbolic", "SYM_WARPS")
+
+
+class SymbolicShape(NamedTuple):
+    """Launch shape of the fused ESC symbolic kernel
+    (:func:`symbolic_shape`)."""
+
+    warp_keys: int      # keys a short row's warp holds in shared memory
+    smem_keys: int      # a long row's keys, or bitmask words, that shared
+    #                     memory holds (-1: none, its table is in scratch)
+    smem_bytes: int     # dynamic shared memory of a block
+    slice_bytes: int    # each long-row block's scratch slice (0: none)
+    long_blocks: int    # blocks that take the long rows (they loop)
+
+
+@functools.lru_cache(maxsize=256)
+def symbolic_shape(smem_limit: int, short_bound: int, long_bound: int,
+                   max_deg_a_long: int, n_long: int,
+                   ncols_b: int) -> SymbolicShape:
+    """Kernel 2's launch shape, on a card with ``smem_limit`` bytes of
+    opt-in shared memory a block, for short rows of at most
+    ``short_bound`` products (0: none; at most :data:`SYM_WARP_MAX`) and
+    ``n_long`` long rows of at most ``long_bound`` products whose bucket
+    bounds on A are at most ``max_deg_a_long``, over B's ``ncols_b``
+    columns.  A short row's warp holds exactly its bound's keys.  A long
+    row's block holds its table (product prefix and B-row starts, 8 bytes
+    an A entry) and then a region of ``smem_keys`` ints: its keys, or the
+    bitmask of its column extent — as many ints as the largest long row
+    has products, or as B has 32-column words, whichever is more, as far
+    as shared memory goes.  A long row whose extent fits the region counts
+    by bitmask; one whose keys fit it sorts there; any other sorts in a
+    scratch slice sized by ``long_bound``.  When not even the table and 32
+    ints fit, ``smem_keys`` is -1 and table and keys live in the slice."""
+    warp_keys = max(1, min(SYM_WARP_MAX, int(short_bound)))
+    short_bytes = (SYM_WARPS * (256 + align16(4 * warp_keys))
+                   if short_bound > 0 else 0)
+    smem_keys, long_bytes, slice_bytes, long_blocks = 0, 0, 0, 0
+    if n_long:
+        long_bound = max(1, int(long_bound))
+        table = 2 * align16(4 * (max_deg_a_long + 1))
+        room = (smem_limit - STATIC_SMEM_RESERVE - table) // 4
+        if room >= 32:
+            smem_keys = min(room, max(long_bound, -(-int(ncols_b) // 32)))
+            long_bytes = table + 4 * smem_keys
+            slice_bytes = align16(4 * long_bound) if long_bound > smem_keys \
+                else 0
+        else:
+            smem_keys = -1
+            slice_bytes = align16(table + 4 * long_bound)
+        long_blocks = (n_long if not slice_bytes else
+                       max(1, min(n_long, SCRATCH_BYTES // slice_bytes)))
+    return SymbolicShape(warp_keys, smem_keys, max(short_bytes, long_bytes),
+                         slice_bytes, long_blocks)
 
 
 class RowLaunch(NamedTuple):

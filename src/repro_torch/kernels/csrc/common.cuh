@@ -161,25 +161,6 @@ __device__ void repro_gather_products(
   __syncthreads();
 }
 
-// Gather row r's intermediate products into keys[0, n) (and the value
-// products into vals when VALS), pad keys to the next power of two with the
-// sentinel, and return n.  *flop as repro_row_prefix.  Ends with a barrier.
-template <bool VALS>
-__device__ int repro_gather_row(
-    int r, const int* __restrict__ a_rpt, const int* __restrict__ a_col,
-    const float* __restrict__ a_val, const int* __restrict__ b_rpt,
-    const int* __restrict__ b_col, const float* __restrict__ b_val,
-    const int* __restrict__ rownnz_b, int m, int k_rows, int max_deg_a,
-    int max_deg_b, int* prefix, int* keys, float* vals, int* flop) {
-  int start, deg;
-  const int n = repro_row_prefix(r, a_rpt, a_col, rownnz_b, m, k_rows,
-                                 max_deg_a, max_deg_b, prefix, &start, &deg,
-                                 flop);
-  repro_gather_products<VALS>(n, deg, prefix, start, a_col, a_val, b_rpt,
-                              b_col, b_val, keys, vals);
-  return n;
-}
-
 // The row's product-column extent: *lo the smallest product column and *hi
 // the largest, or REPRO_SENTINEL and -1 for a row without products.  B's rows
 // are sorted ascending (validate_csr), so a B row's first and last read
@@ -327,7 +308,9 @@ __device__ inline int repro_warp_exclusive_scan(int x, int* total,
 // loaded before any is compared (a step's comparators touch disjoint pairs),
 // so a lane keeps several shared-memory loads in flight.  flip: the step's
 // pairs are (i, i ^ (2j - 1)) within blocks of 2j keys, else (i, i + j).
+// VALS: vals follows the keys' permutation (else it is not read).
 #define REPRO_SORT_ILP 4
+template <bool VALS = true>
 __device__ inline void repro_sort_step(int* keys, float* vals, int n,
                                        int half, int j, bool flip,
                                        ReproGroup g) {
@@ -351,34 +334,56 @@ __device__ inline void repro_sort_step(int* keys, float* vals, int n,
       if (l[u] >= 0 && ki[u] > kl[u]) {
         keys[i[u]] = kl[u];
         keys[l[u]] = ki[u];
-        const float v = vals[i[u]];
-        vals[i[u]] = vals[l[u]];
-        vals[l[u]] = v;
+        if (VALS) {
+          const float v = vals[i[u]];
+          vals[i[u]] = vals[l[u]];
+          vals[l[u]] = v;
+        }
       }
     }
   }
 }
 
-// Ascending sort of keys[0, n) for any n by one group (by default a warp),
-// carrying vals through the same permutation.  The bitonic network in its
-// "flip" form: every comparator (i, l) has i < l and leaves the smaller key
-// at i, so the positions [n, next_pow2(n)) stand for +inf and are never
-// read or written, and the workspace holds exactly n pairs.  Equal keys are
-// never swapped: the output is a fixed function of the input.  Starts and
-// ends with a sync of the group.
-__device__ void repro_warp_sort(int* keys, float* vals, int n,
-                                ReproGroup g = repro_group()) {
+// The bitonic network in its "flip" form over keys[0, n) for any n, by the
+// group g (BLOCK: g is the whole block, and steps are separated by block
+// barriers instead of syncs of the group's lanes).  Every comparator (i, l)
+// has i < l and leaves the smaller key at i, so the positions [n,
+// next_pow2(n)) stand for +inf and are never read or written, and the
+// workspace holds exactly n keys.  Equal keys are never swapped: the output
+// is a fixed function of the input.
+template <bool VALS, bool BLOCK>
+__device__ void repro_sort_network(int* keys, float* vals, int n,
+                                   ReproGroup g) {
   const int n2 = repro_next_pow2(max(n, 1));
   const int half = n2 >> 1;
   for (int k = 2; k <= n2; k <<= 1) {
-    __syncwarp(g.mask);
-    repro_sort_step(keys, vals, n, half, k >> 1, true, g);
+    if (BLOCK) __syncthreads(); else __syncwarp(g.mask);
+    repro_sort_step<VALS>(keys, vals, n, half, k >> 1, true, g);
     for (int j = k >> 2; j > 0; j >>= 1) {
-      __syncwarp(g.mask);
-      repro_sort_step(keys, vals, n, half, j, false, g);
+      if (BLOCK) __syncthreads(); else __syncwarp(g.mask);
+      repro_sort_step<VALS>(keys, vals, n, half, j, false, g);
     }
   }
-  __syncwarp(g.mask);
+  if (BLOCK) __syncthreads(); else __syncwarp(g.mask);
+}
+
+// Ascending sort of keys[0, n) for any n by one group (by default a warp),
+// carrying vals through the same permutation when VALS (the network of
+// repro_sort_network).  Starts and ends with a sync of the group.
+template <bool VALS = true>
+__device__ void repro_warp_sort(int* keys, float* vals, int n,
+                                ReproGroup g = repro_group()) {
+  repro_sort_network<VALS, false>(keys, vals, n, g);
+}
+
+// The same sort by the whole block, every thread calling it: for rows too
+// long for one warp.  Starts and ends with a block barrier.
+template <bool VALS = true>
+__device__ void repro_block_sort(int* keys, float* vals, int n) {
+  repro_sort_network<VALS, true>(
+      keys, vals, n,
+      {static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x),
+       REPRO_FULL_MASK});
 }
 
 // Distinct keys of sorted keys[0, n), to every lane of the warp.

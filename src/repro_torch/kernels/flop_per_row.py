@@ -1,30 +1,73 @@
-"""Algorithm 1: FLOP per output row, for one degree bucket's row list or
-for all M rows.
+"""Algorithm 1: FLOP per output row, for one degree bucket's row list, for
+all M rows of a binned plan at once, or for all M rows at one bound.
 
-Two wrappers, each launching an entry of the hand-written CUDA source
-``csrc/flop_rows.cu`` on CUDA tensors and running its plain version on CPU
-tensors:
+Three wrappers, each launching an entry of the hand-written CUDA source
+``csrc/flop_rows.cu`` (one kernel body) on CUDA tensors and running its
+plain version on CPU tensors:
 
-* :func:`flop_rows` (plain :func:`flop_rows_plain`) over a row-id list;
-  replaces ``src/repro/kernels/flop_per_row.py::flop_rows_pallas``
-  (``_rows_kernel``);
+* :func:`flop_rows` (plain :func:`flop_rows_plain`) over a row-id list at
+  one bucket's bound; replaces
+  ``src/repro/kernels/flop_per_row.py::flop_rows_pallas`` (``_rows_kernel``);
+* :func:`flop_rows_buckets` (plain :func:`flop_rows_buckets_plain`): what
+  ``flop_rows_pallas`` gives bucket by bucket, for every row of a binned
+  plan in one launch, in row order — the binned predictor's floprC;
 * :func:`flop_per_row` (plain :func:`flop_per_row_plain`) over all M rows;
   replaces ``flop_per_row_pallas`` (``_kernel``).
 
-Both read at most ``max_deg_a`` entries of each A row, as the TPU kernels
-do.  On the H100 they are bound by bytes: 8 bytes read per A entry (column
-id, B row length) and 8 or 12 per row (two row pointers, the row id of a
-list), 4 written per row.  Narrow rows run one thread per row, wide ones
-one warp per row, so a warp's reads of A's column ids are contiguous.
+Each reads at most its row's bound of A entries, as the TPU kernels do.  On
+the H100 they are bound by bytes: 8 bytes read per A entry (column id, B row
+length) and 8 or 12 per row (two row pointers, the row id of a list or the
+bucket id), 4 written per row.  Rows whose bound is at most
+:data:`FLOP_NARROW` run one thread per row, wider ones one warp per row, so
+a warp's reads of A's column ids are contiguous.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from repro_torch.core.csr import CSRDevice, row_chunks
 from . import _build
 
 _LIB = "flop_rows"
+# csrc/flop_rows.cu: rows whose bound is at most this take one thread each
+# (the kernel's thread part skips the others, which flop_tables lists)
+FLOP_NARROW = _build.source_define(_LIB, "FLOP_NARROW")
+
+
+class FlopTables(NamedTuple):
+    """A binned plan's tables for :func:`flop_rows_buckets` on one device
+    (built by :func:`flop_tables`): one int32 tensor holding the row →
+    bucket map, each bucket's bound on A's rows, and the ascending rows
+    whose bound is past :data:`FLOP_NARROW`, in that order."""
+
+    packed: torch.Tensor
+    n_rows: int
+    n_buckets: int
+
+    @property
+    def row_bucket(self) -> torch.Tensor:
+        return self.packed[:self.n_rows]
+
+    @property
+    def deg_a(self) -> torch.Tensor:
+        return self.packed[self.n_rows:self.n_rows + self.n_buckets]
+
+    @property
+    def wide(self) -> torch.Tensor:
+        return self.packed[self.n_rows + self.n_buckets:]
+
+
+def flop_tables(row_bucket, deg_a, device) -> FlopTables:
+    """:class:`FlopTables` from a plan's row → bucket map and its buckets'
+    ``deg_a`` bounds (host arrays), uploaded to ``device`` in one copy."""
+    row_bucket = np.asarray(row_bucket, dtype=np.int32)
+    deg_a = np.asarray(deg_a, dtype=np.int32)
+    wide = np.flatnonzero(deg_a[row_bucket] > FLOP_NARROW).astype(np.int32)
+    packed = torch.from_numpy(np.concatenate([row_bucket, deg_a, wide]))
+    return FlopTables(packed.to(device), row_bucket.size, deg_a.size)
 
 
 def flop_rows_plain(a: CSRDevice, rownnz_b: torch.Tensor, rows: torch.Tensor,
@@ -64,6 +107,50 @@ def flop_rows(a: CSRDevice, rownnz_b: torch.Tensor, rows: torch.Tensor, *,
 
 
 flop_rows.launches = 0
+
+
+def flop_rows_buckets_plain(a: CSRDevice, rownnz_b: torch.Tensor,
+                            tables: FlopTables) -> torch.Tensor:
+    """Plain tensor-op version: :func:`flop_rows_plain` over each bucket's
+    rows at its bound, scattered into row order."""
+    out = torch.zeros(tables.row_bucket.shape[0], dtype=torch.int32,
+                      device=tables.row_bucket.device)
+    for b, deg_a in enumerate(tables.deg_a.tolist()):
+        rows = torch.nonzero(tables.row_bucket == b)[:, 0]
+        if rows.numel():
+            out[rows] = flop_rows_plain(a, rownnz_b, rows, max_deg_a=deg_a)
+    return out
+
+
+def flop_rows_buckets(a: CSRDevice, rownnz_b: torch.Tensor,
+                      tables: FlopTables) -> torch.Tensor:
+    """floprC for every row of a binned plan (int32 (M,), row order) in one
+    launch, row ``i`` reading at most ``tables.deg_a[tables.row_bucket[i]]``
+    entries of A — its bucket's bound."""
+    dev = _build.kernel_device(_LIB, a.rpt, a.col, rownnz_b, tables.packed)
+    if dev is None:
+        return flop_rows_buckets_plain(a, rownnz_b, tables)
+    n, nb = tables.n_rows, tables.n_buckets
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    i32 = torch.int32
+    base = _build.require(_LIB, tables.packed, i32, "tables")
+    if tables.packed.shape[0] < n + nb:
+        raise RuntimeError(f"{_LIB}: tables hold {tables.packed.shape[0]} "
+                           f"ints for {n} rows and {nb} buckets")
+    fn = _build.launcher(_LIB, "pipipipppiipip", entry="flop_rows_buckets")
+    rc = fn(base, n, base + 4 * n, nb, base + 4 * (n + nb),
+            tables.packed.shape[0] - n - nb, *_build.require_csr(_LIB, a, "a"),
+            _build.require(_LIB, rownnz_b, i32, "rownnz_b"), a.nrows,
+            rownnz_b.shape[0], out.data_ptr(), dev.index or 0,
+            _build.stream_of(dev))
+    _build.check(_LIB, rc)
+    flop_rows_buckets.launches += 1
+    return out
+
+
+flop_rows_buckets.launches = 0
 
 
 def flop_per_row_plain(a: CSRDevice, rownnz_b: torch.Tensor, *,

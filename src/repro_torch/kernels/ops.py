@@ -10,7 +10,11 @@ plain tensor-op version on CPU tensors.  The TPU grid knobs of the SpGEMM
 entry points (``block_rows``, ``block_samples``) size Pallas blocks and mean
 nothing to kernels that give each row its own thread block or warp, so
 they are dropped; flash attention keeps ``block_q`` and ``block_k`` for
-JAX's divisibility checks.
+JAX's divisibility checks.  Two entries have no JAX twin of their own:
+:func:`flop_rows_buckets` and :func:`fused_flop_symbolic_buckets` compute
+what :func:`flop_rows` and the ESC branch of
+:func:`fused_flop_symbolic_routed` give bucket by bucket, for a whole
+binned prediction in one launch each.
 """
 from __future__ import annotations
 
@@ -50,6 +54,13 @@ def flop_rows(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
     return _flop_k.flop_rows(a, torch.diff(b.rpt), rows, max_deg_a=max_deg_a)
 
 
+def flop_rows_buckets(a: CSRDevice, b: CSRDevice,
+                      tables: _flop_k.FlopTables) -> torch.Tensor:
+    """floprC for every row of a binned plan in one launch, each row at its
+    bucket's bound (``tables`` from ``predictor.plan_tables``)."""
+    return _flop_k.flop_rows_buckets(a, torch.diff(b.rpt), tables)
+
+
 def sampled_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
                      max_deg_a: int, max_deg_b: int, *, rownnz_b=None,
                      row_flop=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -66,6 +77,14 @@ def fused_flop_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
     """(z*, f*, FLOP per sampled row) in one ESC kernel, unrouted."""
     return _sym_k.fused_flop_symbolic(a, b, rows, max_deg_a=max_deg_a,
                                       max_deg_b=max_deg_b, rownnz_b=rownnz_b)
+
+
+def fused_flop_symbolic_buckets(a: CSRDevice, b: CSRDevice,
+                                table: _sym_k.SampleTable, *, rownnz_b=None):
+    """(z*, f*, FLOP per sample) for the sampled rows of a binned
+    prediction's ESC buckets in one launch, each at its bucket's bounds
+    (``table`` from ``predictor.esc_sample_table``)."""
+    return _sym_k.fused_flop_symbolic_buckets(a, b, table, rownnz_b=rownnz_b)
 
 
 def bitmask_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,

@@ -99,6 +99,150 @@ def test_kernels_match_plain_versions_on_every_bucket(card, alpha, route):
             _assert_numeric_equal(got, esc)
 
 
+def _one_launch_checks(ad, bd, bp, sample, card):
+    """Kernels 1 and 2's one-launch entries against their plain versions
+    and against the per-bucket kernels on every bucket of ``bp``; kernel
+    2's table takes every sampled row, whatever its bucket's route."""
+    rnb = torch.diff(bd.rpt)
+    tabs = predictor.plan_tables(bp, card)
+    floprc = flop_k.flop_rows_buckets(ad, rnb, tabs.flop)
+    assert torch.equal(floprc, flop_k.flop_rows_buckets_plain(ad, rnb,
+                                                              tabs.flop))
+    per_bucket = torch.zeros_like(floprc)
+    z_b = f_b = 0
+    for bk, sub in zip(bp.buckets, bp.subset(sample)):
+        rows = torch.from_numpy(bk.rows).to(card)
+        per_bucket[rows.long()] = flop_k.flop_rows(ad, rnb, rows,
+                                                   max_deg_a=bk.deg_a)
+        if sub.size:
+            got = sym_k.fused_flop_symbolic(
+                ad, bd, torch.from_numpy(sub).to(card), max_deg_a=bk.deg_a,
+                max_deg_b=bk.deg_b, rownnz_b=rnb)
+            z_b, f_b = z_b + int(got[0]), f_b + int(got[1])
+    assert torch.equal(floprc, per_bucket)
+    bk = bp.row_bucket[sample]
+    deg_a = np.array([b.deg_a for b in bp.buckets])[bk]
+    deg_b = np.array([b.deg_b for b in bp.buckets])[bk]
+    table = sym_k.sample_table(sample, deg_a, deg_b,
+                               floprc.cpu().numpy()[sample], card)
+    got = sym_k.fused_flop_symbolic_buckets(ad, bd, table, rownnz_b=rnb)
+    want = sym_k.fused_flop_symbolic_buckets_plain(ad, bd, table,
+                                                   rownnz_b=rnb)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1])) \
+        == (z_b, f_b)
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[2], floprc[torch.from_numpy(sample).to(card)
+                                      .long()])
+    return table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+@pytest.mark.parametrize("alpha", [1.2, 1.6])
+def test_one_launch_entries_match_plain_and_per_bucket(card, alpha, route):
+    """The one-launch FLOP and fused ESC symbolic entries equal their plain
+    versions and the per-bucket kernels, bucket by bucket, on the matrices
+    of the per-bucket check above; hub rows make long rows (a block each,
+    counted by bitmask), beside short ones (a warp each) at alpha 1.2."""
+    m = _valued(sprand.power_law(3000, 3000, 40, alpha, seed=5), 6)
+    bp = binning.build_plan(m, m, route=route)
+    sample = np.random.default_rng(0).integers(0, m.nrows, 300)
+    ad = csr.to_device(m, device=card)
+    table = _one_launch_checks(ad, ad, bp, sample, card)
+    assert table.n_long > 0 and (alpha > 1.5 or table.n_long < 300)
+
+
+def _long_row_operands():
+    """A (600 × 900) and B (900 × 4,000,000) whose first three A rows are
+    long: row 0 reads 300 B rows of 300 columns spread over B's 4 M columns
+    (90,000 products: too many keys and too wide an extent for shared
+    memory), row 1 reads 300 B rows whose columns all lie in the first
+    20,000 (90,000 products in a narrow extent), row 2 reads 40 B rows, 30
+    of them wide (12,000 products, a wide extent); the other A rows read 1
+    to 4 B rows of 1 to 40 columns."""
+    rng = np.random.default_rng(84)
+    ncols = 4_000_000
+    b_rows = ([np.sort(rng.choice(ncols, 300, replace=False))
+               for _ in range(300)]
+              + [np.sort(rng.choice(20_000, 300, replace=False))
+                 for _ in range(300)]
+              + [np.sort(rng.choice(ncols, rng.integers(1, 41),
+                                    replace=False)) for _ in range(300)])
+    a_rows = [np.arange(300), np.arange(300, 600), np.arange(0, 400, 10)]
+    a_rows += [np.sort(rng.choice(np.arange(600, 900), rng.integers(1, 5),
+                                  replace=False)) for _ in range(597)]
+
+    def host(rows, shape):
+        rpt = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+        col = np.concatenate(rows).astype(np.int32)
+        return CSR(rpt=rpt.astype(np.int64), col=col,
+                   val=np.ones(col.size, dtype=np.float32), shape=shape)
+    return host(a_rows, (600, 900)), host(b_rows, (900, ncols))
+
+
+@pytest.mark.cuda
+def test_fused_symbolic_long_rows_by_bitmask_smem_and_scratch(card):
+    """Each way a long row counts: by bitmask (a narrow extent), by a sort
+    in shared memory (its keys fit) and by a sort in a scratch slice (they
+    do not), beside short rows and with duplicates, against the plain
+    version, the per-bucket kernels and the host oracle."""
+    a, b = _long_row_operands()
+    bp = binning.build_plan(a, b, route="esc")
+    sample = np.concatenate([[0, 1, 2, 0], np.random.default_rng(85).integers(
+        0, a.nrows, 200), [1]])
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    table = _one_launch_checks(ad, bd, bp, sample, card)
+    shape = _build.symbolic_shape(
+        _build.max_smem("esc_symbolic", card), table.short_bound,
+        table.long_bound, table.max_deg_a_long, table.n_long, b.ncols)
+    assert table.n_long == 6 and table.long_bound == 90_000
+    assert 12_000 <= shape.smem_keys < 90_000 and shape.slice_bytes
+    got = sym_k.fused_flop_symbolic_buckets(ad, bd, table)
+    assert int(got[0]) == oracle.exact_sampled_nnz(a, b, sample)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 300])
+def test_fused_symbolic_rows_past_their_flop_bound(card, cap):
+    """A FLOP below a row's products sizes its workspace too small: the
+    row still counts exactly, in the spill bitmask.  With a FLOP of 1 every
+    row is short and each warp that overflows spills; capped at 300, the
+    hub rows are long, and row 0 (90,000 products over 4 M columns) fits
+    neither the block's bitmask, its keys nor its slice."""
+    a, b = _long_row_operands()
+    bp = binning.build_plan(a, b, route="esc")
+    sample = np.concatenate([[0, 1, 2, 0], np.random.default_rng(85).integers(
+        0, a.nrows, 200), [1]])
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    rnb = torch.diff(bd.rpt)
+    flop = flop_k.flop_rows_buckets(
+        ad, rnb, predictor.plan_tables(bp, card).flop).cpu().numpy()[sample]
+    bk = bp.row_bucket[sample]
+    table = sym_k.sample_table(
+        sample, np.array([x.deg_a for x in bp.buckets])[bk],
+        np.array([x.deg_b for x in bp.buckets])[bk],
+        np.minimum(flop, cap), card)
+    shape = _build.symbolic_shape(
+        _build.max_smem("esc_symbolic", card), table.short_bound,
+        table.long_bound, table.max_deg_a_long, table.n_long, b.ncols)
+    if cap == 1:
+        assert table.n_long == 0 and shape.warp_keys == 1
+    else:
+        # row 0's 90,000 keys and 125,000-word extent pass every workspace
+        assert table.n_long == 6 and table.long_bound == 300
+        assert shape.smem_keys < 90_000 and shape.slice_bytes < 4 * 90_000
+    got = sym_k.fused_flop_symbolic_buckets(ad, bd, table, rownnz_b=rnb)
+    want = sym_k.fused_flop_symbolic_buckets_plain(ad, bd, table,
+                                                   rownnz_b=rnb)
+    assert int(got[0]) == int(want[0]) == oracle.exact_sampled_nnz(a, b,
+                                                                   sample)
+    assert int(got[1]) == int(want[1]) and torch.equal(got[2], want[2])
+    assert np.array_equal(got[2].cpu().numpy(), flop)
+    # the spill is left zeroed: a second launch counts the same
+    assert int(sym_k.fused_flop_symbolic_buckets(ad, bd, table)[0]) \
+        == int(want[0])
+
+
 @pytest.mark.cuda
 def test_accumulator_kernels_on_a_wide_column_space(card):
     """Two million columns: the bitmask (62,500 words) outgrows shared

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's two main-path numeric kernels on one CUDA card, split by
 each row's FLOP class: ESC numeric (kernel 3, ``csrc/esc_numeric.cu``) and
-BIN numeric (kernel 6, ``csrc/bin_numeric.cu``).
+BIN numeric (kernel 6, ``csrc/bin_numeric.cu``); or, with ``--predict``, the
+binned predictor's two kernels (FLOP per row, kernel 1, and fused ESC
+symbolic, kernel 2) split into device and host time.
 
 Run from the repository root::
 
-    python3 tools/numeric_splits.py [--src DIR] [--out FILE]
+    python3 tools/numeric_splits.py [--predict] [--src DIR] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so one call on one card can time two trees in
@@ -20,8 +22,23 @@ with the kernels' own device time from ``torch.profiler`` beside it,
 product, and whether ``torch.profiler`` sees device time.  Where the kernel
 wrappers take ``max_row_flop``, each call gets its rows' largest FLOP, as
 the planned path passes it.  With ``--ptxas`` it also prints ``nvcc
--Xptxas -v`` (registers, shared memory, spills) for both sources.  One JSON
+-Xptxas -v`` (registers, shared memory, spills) for both sources (with
+``--predict``: for ``flop_rows.cu`` and ``esc_symbolic.cu``).  One JSON
 object per line on stdout, and the same lines in ``--out``.
+
+``--predict`` takes ``chip_smoke.py``'s five predict products instead, each
+with its ``route="esc"`` bucket plan and seed-0 sampled rows, and times the
+per-bucket calls of kernels 1 and 2 as the binned predictor made them one
+bucket at a time (rows already on the card): CUDA-event time of the whole
+sequence, the kernels' own device time and every device operation's from
+``torch.profiler``, and the host time to issue the sequence (no
+synchronisation inside it) per call.  Where the tree has the one-launch
+entries (``flop_rows_buckets``, ``fused_flop_symbolic_buckets``) it times
+them the same way, tables already on the card, and all-rows kernel 9 on the
+same product; and in every tree the whole ``_binned_floprc`` and
+``binned_symbolic_counts(use_kernel=True)`` calls by host clock, uploads
+included (the latter given floprC where it takes it, as the predictor
+gives it).
 """
 from __future__ import annotations
 
@@ -59,6 +76,54 @@ def cuda_ms(torch, fn, runs: int = RUNS) -> float:
     return times[len(times) // 2]
 
 
+def host_ms(torch, fn, runs: int = RUNS) -> float:
+    """Median host milliseconds to issue ``fn`` (after a synchronise, with
+    none inside): the host's share of a sequence of launches."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+def synced_ms(torch, fn, runs: int = RUNS) -> float:
+    """Median host-clock milliseconds of ``fn`` ended by a synchronise."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def profiled_ms(torch, fn, pattern: str) -> tuple:
+    """(device ms of the kernels whose name holds ``pattern``, device ms of
+    every device operation) in one run of ``fn``, from torch.profiler; None
+    where it sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    own = every = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0)
+        every += t
+        if pattern in e.key:
+            own += t
+    return (own / 1e3 if own else None), (every / 1e3 if every else None)
+
+
 def device_ms(torch, fn) -> float | None:
     """The numeric kernels' own device time in one run of ``fn`` (ms), from
     torch.profiler: beside ``cuda_ms``'s event time it splits the card's
@@ -82,14 +147,15 @@ def class_name(i: int) -> str:
     return f"{lo}-{hi}" if hi is not None else f">{lo - 1}"
 
 
-def ptxas(src_dir: str) -> list[str]:
-    """``nvcc -Xptxas -v`` of the two numeric sources, compiled to cubin."""
+def ptxas(src_dir: str, names=("esc_numeric", "bin_numeric")) -> list[str]:
+    """``nvcc -Xptxas -v`` of the named sources (by default the two numeric
+    ones), compiled to cubin."""
     from repro_torch.kernels import _build
     csrc = os.path.join(src_dir, "repro_torch", "kernels", "csrc")
     lines = []
     out_dir = _build.BUILD_ROOT / "ptxas"     # ignored, like every build
     out_dir.mkdir(parents=True, exist_ok=True)
-    for name in ("esc_numeric", "bin_numeric"):
+    for name in names:
         out = str(out_dir / f"{name}.cubin")
         flags = [f for f in _build.NVCC_FLAGS
                  if f not in ("-shared", "-Xcompiler", "-fPIC")]
@@ -109,6 +175,7 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--predict", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -141,8 +208,15 @@ def main() -> int:
     emit(dict(phase="setup", src=os.path.abspath(args.src), nvidia_smi=smi,
               torch=torch.__version__, build_s=built["seconds"]))
     if args.ptxas:
-        for ln in ptxas(os.path.abspath(args.src)):
+        names = (("flop_rows", "esc_symbolic") if args.predict
+                 else ("esc_numeric", "bin_numeric"))
+        for ln in ptxas(os.path.abspath(args.src), names):
             emit(dict(phase="ptxas", line=ln))
+    if args.predict:
+        predict_splits(torch, np, dev, emit)
+        if out_f:
+            out_f.close()
+        return 0
     takes_bound = "max_row_flop" in inspect.signature(
         num_k.spgemm_numeric).parameters
 
@@ -267,6 +341,132 @@ def main() -> int:
     if out_f:
         out_f.close()
     return 0
+
+
+PREDICT_MATRICES = MATRICES[:5]
+
+
+def host_profile(torch, emit, name, seqs, calls: int = 200) -> None:
+    """Where the host time of each one-launch entry goes: cProfile over
+    ``calls`` calls, the functions with the most own time, µs a call."""
+    import cProfile
+    import pstats
+    for kernel, how, _, fn, _ in seqs:
+        if how != "one_launch":
+            continue
+        prof = cProfile.Profile()
+        torch.cuda.synchronize()
+        prof.enable()
+        for _ in range(calls):
+            fn()
+        prof.disable()
+        torch.cuda.synchronize()
+        stats = pstats.Stats(prof).stats
+        top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+        emit(dict(phase="host_profile", matrix=name, kernel=kernel,
+                  us_per_call={f"{f[2]} ({os.path.basename(f[0])}:{f[1]})":
+                               v[2] / calls * 1e6 for f, v in top}))
+
+
+def predict_splits(torch, np, dev, emit) -> None:
+    """``--predict``: kernels 1 and 2 of the binned predictor, per bucket as
+    the parent made them and, where the tree has it, in one launch."""
+    from repro_torch.core import binning, csr, oracle, predictor
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flop_per_row as flop_k
+    from repro_torch.kernels import spgemm_symbolic as sym_k
+    from repro_torch.sparse import suite
+    one_launch = hasattr(flop_k, "flop_rows_buckets")
+    for name in PREDICT_MATRICES:
+        m = suite.get_matrix(name)
+        bp = binning.build_plan(m, m, route="esc")
+        rows = oracle.sample_rows(m.nrows, seed=0)
+        ad = csr.to_device(m, device=dev)
+        rnb = torch.diff(ad.rpt)
+        rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        k1 = [dict(a=ad, rownnz_b=rnb, max_deg_a=bk.deg_a,
+                   rows=torch.from_numpy(bk.rows).to(dev))
+              for bk in bp.buckets]
+        k2 = [dict(a=ad, b=ad, rows=torch.from_numpy(sub).to(dev),
+                   max_deg_a=bk.deg_a, max_deg_b=bk.deg_b, rownnz_b=rnb)
+              for bk, sub in zip(bp.buckets, bp.subset(rows)) if sub.size]
+        seqs = [("flop_rows", "per_bucket", "flop_rows",
+                 lambda: [flop_k.flop_rows(**kw) for kw in k1], len(k1)),
+                ("fused_flop_symbolic", "per_bucket", "esc_symbolic",
+                 lambda: [sym_k.fused_flop_symbolic(**kw) for kw in k2],
+                 len(k2))]
+        if one_launch:
+            tabs = predictor.plan_tables(bp, dev)
+            floprc = flop_k.flop_rows_buckets(ad, rnb, tabs.flop)
+            table = predictor.esc_sample_table(
+                bp, tabs, rows, floprc.cpu().numpy()[rows], dev)
+            da = int(m.row_nnz.max())
+            seqs += [("flop_rows", "one_launch", "flop_rows",
+                      lambda: flop_k.flop_rows_buckets(ad, rnb, tabs.flop), 1),
+                     ("fused_flop_symbolic", "one_launch", "esc_symbolic",
+                      lambda: sym_k.fused_flop_symbolic_buckets(
+                          ad, ad, table, rownnz_b=rnb), 1)]
+        else:
+            da = int(m.row_nnz.max())
+        seqs.append(("flop_per_row", "all_rows", "flop_",
+                     lambda: flop_k.flop_per_row(ad, rnb, max_deg_a=da), 1))
+        for kernel, how, pattern, fn, calls in seqs:
+            own, every = profiled_ms(torch, fn, pattern)
+            host = host_ms(torch, fn)
+            emit(dict(phase="predict_split", matrix=name, kernel=kernel,
+                      how=how, calls=calls, ms=cuda_ms(torch, fn),
+                      device_ms=own, all_device_ms=every, host_ms=host,
+                      host_ms_per_call=host / max(1, calls)))
+        if one_launch:
+            # kernel 2's one launch on its long rows (a block each) and on
+            # its short rows (a warp each) apart
+            row_flop = floprc.cpu().numpy()[rows]
+            bk = bp.row_bucket[rows]
+            da_s = np.array([b.deg_a for b in bp.buckets])[bk]
+            db_s = np.array([b.deg_b for b in bp.buckets])[bk]
+            long = (np.minimum(row_flop, da_s * db_s)
+                    > _build.SYM_WARP_MAX)
+            for cls, sel in (("long", long), ("short", ~long)):
+                if not sel.any():
+                    continue
+                t = sym_k.sample_table(rows[sel], da_s[sel], db_s[sel],
+                                       row_flop[sel], dev)
+                fn = lambda: sym_k.fused_flop_symbolic_buckets(
+                    ad, ad, t, rownnz_b=rnb)
+                own, _ = profiled_ms(torch, fn, "esc_symbolic")
+                emit(dict(phase="class_split", matrix=name,
+                          kernel="fused_flop_symbolic", rows_class=cls,
+                          rows=int(sel.sum()),
+                          max_products=int(row_flop[sel].max()),
+                          ms=cuda_ms(torch, fn), device_ms=own))
+            if name in ("pl_100k_d4", "rmat_80k"):
+                host_profile(torch, emit, name, seqs + [
+                    ("binned_symbolic_counts", "one_launch", "", lambda:
+                     predictor.binned_symbolic_counts(
+                         ad, ad, rows_d, bp, use_kernel=True, floprc=floprc),
+                     1),
+                    ("proposed_predict_binned", "one_launch", "", lambda:
+                     predictor.proposed_predict_binned(
+                         ad, ad, rows_d, bp, use_kernel=True), 1)])
+        # the whole predictor calls, uploads included, host clock; the
+        # symbolic count takes floprC where it can, as the predictor
+        # passes it
+        floprc_d = predictor._binned_floprc(ad, ad, bp)
+        kw = (dict(floprc=floprc_d) if "floprc" in inspect.signature(
+            predictor.binned_symbolic_counts).parameters else {})
+        emit(dict(phase="predict_whole", matrix=name,
+                  buckets=len(bp.buckets),
+                  sampled_buckets=len(k2), samples=int(rows.size),
+                  binned_floprc_ms=synced_ms(
+                      torch, lambda: predictor._binned_floprc(ad, ad, bp)),
+                  binned_symbolic_counts_ms=synced_ms(
+                      torch, lambda: predictor.binned_symbolic_counts(
+                          ad, ad, rows_d, bp, use_kernel=True, **kw)),
+                  proposed_predict_binned_ms=synced_ms(
+                      torch, lambda: predictor.proposed_predict_binned(
+                          ad, ad, rows_d, bp, use_kernel=True))))
+        del ad, rnb, k1, k2, seqs
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
