@@ -30,7 +30,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        the card, held to the committed baseline's pinned limits;
    (g) blocked GQA flash attention, ``ops.flash_attention``, at
        qwen2.5-32b's and phi3-mini's attention widths over 4096 tokens,
-       causal (top-left) and not, in bfloat16 and float32;
+       causal (top-left) and not, in bfloat16 (the tensor-core kernel) and
+       float32 (the CUDA-core one), each launch counted under its kernel;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
@@ -45,9 +46,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    bitmask symbolic kernels also against the ESC ones on the same sampled
    rows; the one-launch FLOP and ESC symbolic entries also against the
    per-bucket kernels and the host oracles) and times both, with CUDA
-   events, beside the bound and a PyTorch yardstick (the BIN kernel's:
-   ``torch.sparse.mm`` of its rows of A); kernels 1 and 2 as one launch
-   over a whole prediction, their per-bucket sequence beside it;
+   events, beside the bound and a PyTorch yardstick (the BIN and symbolic
+   kernels': ``torch.sparse.mm`` of their rows of A by B; attention's:
+   ``scaled_dot_product_attention``, also through each of its backends);
+   kernels 1 and 2 as one launch over a whole prediction, their
+   per-bucket sequence beside it;
 4. launches each numeric kernel twice on every bucket and holds ``val``
    bit for bit: the ESC and BIN kernels add in a fixed order, the SPA
    kernel's atomics only report.
@@ -84,6 +87,8 @@ PREDICT_MATRICES = ("er_120k_d3", "pl_100k_d4", "rmat_80k", "band_60k_d16",
 PLAIN_GLOBAL_LANES = 1 << 31
 WIDEST_ROWS = 64
 BASELINE = os.path.join("artifacts", "accuracy_subset_baseline.json")
+FLASH_SOURCES = dict(sm90="flash_attention_sm90.cu", simt="flash_attention.cu")
+G1_ACCEPT_MS = 2.0     # the tensor-core redesign's acceptance bar on G1
 
 
 def emit(obj) -> None:
@@ -182,6 +187,54 @@ def attention_work(q, k, causal) -> tuple[int, int]:
         q.element_size()
 
 
+def sdpa_backends(torch, q, k, v, want, emit, attn) -> None:
+    """Yardstick only: G1 through each SDPA backend that takes it with
+    ``enable_gqa=True``, one line each (time, agreement with the plain
+    version, its kernels' names from torch.profiler), then which backend
+    the default call runs: the one whose kernels it launches.  A backend
+    that refuses the shape says so in its line."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+
+    def kernel_names():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        found = sorted(((e.device_time_total, e.key)
+                        for e in prof.key_averages()
+                        if e.device_time_total > 0), reverse=True)
+        return [key for _, key in found[:4]]
+
+    default = kernel_names()
+    matches = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        line = dict(phase="sdpa_backend", case="G1", backend=backend.name)
+        try:
+            with sdpa_kernel(backend):
+                got = call()
+                line.update(accepted=True, ms=cuda_ms(torch, call),
+                            max_abs_err=float(
+                                (got.float() - want.float()).abs().max()),
+                            kernels=kernel_names())
+        except RuntimeError as exc:      # the backend does not take G1
+            line.update(accepted=False, reason=str(exc).splitlines()[0])
+        if default and line.get("kernels", [None])[:1] == default[:1]:
+            matches.append(backend.name)
+        emit(line)
+    emit(dict(phase="sdpa_default", case="G1", kernels=default,
+              matches=matches,
+              flash_attention_tflop_per_s={c: a[3] for c, a in attn.items()},
+              flash_attention_variant={c: a[2] for c, a in attn.items()}))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -228,7 +281,8 @@ def main() -> int:
                acc_k.spa_numeric, acc_k.bin_numeric, sym_k.sampled_symbolic,
                acc_k.bitmask_symbolic, flop_k.flop_per_row,
                fa_k.flash_attention, flop_k.flop_rows_buckets,
-               sym_k.fused_flop_symbolic_buckets)
+               sym_k.fused_flop_symbolic_buckets, fa_k.flash_attention_sm90,
+               fa_k.flash_attention_simt)
     names = [k.__name__ for k in kernels]
     launches = {path: dict.fromkeys(names, 0)
                 for path in ("predict", "plan_esc", "plan_auto",
@@ -626,7 +680,9 @@ def main() -> int:
     # attends 1024 queries over 4096 keys (top-left causal mask).  Inputs
     # are standard normal from a seed, made on the card.
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 in fp32
-    attn = {}           # case -> (max abs error against plain, kernel ms)
+    attn = {}           # case -> (max abs error against plain, kernel ms,
+    #                     variant, TFLOP/s)
+    timed_attn = {}     # G1, G2 -> (q, k, v, plain output, causal)
     for case, shape_q, shape_kv, dtype, causal in (
             ("G1", (4, 40, 4096, 128), (4, 8, 4096, 128), torch.bfloat16,
              True),
@@ -641,6 +697,11 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(len(attn))
         q, k, v = (torch.randn(s_, generator=gen, device=dev).to(dtype)
                    for s_ in (shape_q, shape_kv, shape_kv))
+        # the kernel follows from dtype and head dim: G2 (float32) on the
+        # CUDA cores, the 16-bit cases on the tensor cores
+        variant = fa_k.variant(dtype, shape_q[3])
+        kernel, other = (f"flash_attention_{x}" for x in (
+            variant, "simt" if variant == "sm90" else "sm90"))
         torch.cuda.synchronize()
         t = time.perf_counter()
         out, counts = drive("attention", lambda: kops.flash_attention(
@@ -650,25 +711,27 @@ def main() -> int:
         want = fa_k.flash_attention_plain(q, k, v, causal=causal)
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         err = float((out.float() - want.float()).abs().max())
-        if (counts["flash_attention"] != 1 or out.shape != q.shape
+        if ((counts["flash_attention"], counts[kernel], counts[other])
+                != (1, 1, 0) or out.shape != q.shape
                 or out.dtype != dtype or not bool(out.isfinite().all())
                 or (dtype == torch.float32 and err > tol)
                 or not torch.allclose(out.float(), want.float(), rtol=tol,
                                       atol=tol)):
             fail(f"attention {case}: kernel != plain (max abs {err}) or "
-                 f"not launched once ({counts['flash_attention']})")
+                 f"not launched once on {kernel} ({counts})")
         ms = cuda_ms(torch, lambda: fa_k.flash_attention(q, k, v,
                                                          causal=causal))
-        attn[case] = (err, ms)
-        if case == "G1":    # beside its plain version and SDPA below
-            g1 = (q, k, v, want)
         ops, nbytes = attention_work(q, k, causal)
-        emit(dict(phase="attention", case=case, q=list(shape_q),
-                  kv=list(shape_kv), dtype=str(dtype).split(".")[-1],
-                  causal=causal, max_abs_err=err, tolerance=tol,
-                  seconds=secs, kernel_ms=ms, operations=ops, bytes=nbytes,
+        attn[case] = (err, ms, variant, ops / ms * 1e-9)
+        if case in ("G1", "G2"):    # beside the plain version and SDPA
+            timed_attn[case] = (q, k, v, want, causal)
+        emit(dict(phase="attention", case=case, variant=variant,
+                  kernel=kernel, q=list(shape_q), kv=list(shape_kv),
+                  dtype=str(dtype).split(".")[-1], causal=causal,
+                  max_abs_err=err, tolerance=tol, seconds=secs, kernel_ms=ms,
+                  operations=ops, bytes=nbytes,
                   tflop_per_s=ops / ms * 1e-9, launches=counts))
-        del q, k, v, out, want
+        del q, k, v, out
     torch.cuda.empty_cache()
 
     predictions = dict(predict=len(PREDICT_MATRICES), plan_esc=len(mats),
@@ -690,6 +753,17 @@ def main() -> int:
         if (launches[path]["flop_rows"]
                 or launches[path]["fused_flop_symbolic"]):
             fail(f"a per-bucket kernel-1 or kernel-2 launch on path {path}")
+    # kernel 7 runs on kernel 2's body, but counts as itself: one launch a
+    # global-pad prediction (proposed and reference on each product, one a
+    # case of the experiment), and no kernel-2 launch on those paths
+    for path, want in (("global_predict", 2 * len(mats)),
+                       ("experiment", 75)):
+        got = tuple(launches[path][k] for k in (
+            "sampled_symbolic", "fused_flop_symbolic",
+            "fused_flop_symbolic_buckets"))
+        if got != (want, 0, 0):
+            fail(f"path {path}: launches of kernels 7, 2 (per bucket, one "
+                 f"launch) {got}, not ({want}, 0, 0)")
     for path, kinds in (("plan_esc", ("spgemm_numeric",)),
                         ("plan_auto", ("fused_flop_symbolic_bitmask",
                                        "spa_numeric", "bin_numeric")),
@@ -698,7 +772,9 @@ def main() -> int:
                         ("global_bitmask", ("bitmask_symbolic",)),
                         ("global_spgemm", ("spgemm_numeric",)),
                         ("experiment", ("sampled_symbolic", "flop_per_row")),
-                        ("attention", ("flash_attention",))):
+                        ("attention", ("flash_attention",
+                                       "flash_attention_sm90",
+                                       "flash_attention_simt"))):
         for k in kinds:
             if launches[path][k] <= 0:
                 fail(f"kernel {k} was not launched on main path {path}")
@@ -978,7 +1054,7 @@ def main() -> int:
                      "accumulator.py:387"),
                  "sampled_symbolic": (
                      sym_k.sampled_symbolic, sym_k.sampled_symbolic_plain,
-                     sym_k.fused_flop_symbolic, "sampled_symbolic.cu",
+                     sym_k.fused_flop_symbolic, "esc_symbolic.cu",
                      "spgemm_symbolic.py:142"),
                  "bitmask_symbolic": (
                      acc_k.bitmask_symbolic, acc_k.bitmask_symbolic_plain,
@@ -1023,22 +1099,25 @@ def main() -> int:
             fail(f"library FLOP {name}: != host oracle")
         return cuda_ms(torch, lambda: torch.sparse.mm(pattern, lengths))
 
-    def library_rows_ms(name, rows):
+    def library_rows_ms(name, rows, ones=False):
         """Yardstick only: one cuSPARSE product of those rows of A (its
         pattern and values, built before the timed call) by B, checked
-        against the rows' exact nnz."""
+        against the rows' exact nnz; with ``ones`` every value is 1, so no
+        sum cancels (the symbolic kernels' yardstick: the product's row
+        nnz are the rows' z)."""
         m = dict(mats)[name]
+        val = np.ones_like(m.val) if ones else m.val
         deg = np.diff(m.rpt)[rows]
         rpt = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
         idx = np.repeat(m.rpt[rows] - rpt[:-1], deg) + np.arange(rpt[-1])
         a_rows = torch.sparse_csr_tensor(
             torch.from_numpy(rpt).to(dev),
             torch.from_numpy(m.col[idx].astype(np.int64)).to(dev),
-            torch.from_numpy(m.val[idx]).to(dev), size=(rows.size, m.ncols))
+            torch.from_numpy(val[idx]).to(dev), size=(rows.size, m.ncols))
         b_sp = torch.sparse_csr_tensor(
             torch.from_numpy(m.rpt).to(dev),
             torch.from_numpy(m.col.astype(np.int64)).to(dev),
-            torch.from_numpy(m.val).to(dev), size=m.shape)
+            torch.from_numpy(val).to(dev), size=m.shape)
         got = torch.sparse.mm(a_rows, b_sp)
         if not np.array_equal(torch.diff(got.crow_indices()).cpu().numpy(),
                               b_row_nnz[name][rows]):
@@ -1096,6 +1175,10 @@ def main() -> int:
                 if int(b_row_nnz[name][esc_rows].sum()) != z_host:
                     fail(f"library rows {name}: sum != host z*")
                 lib_ms = library_rows_ms(name, esc_rows)
+            else:
+                # kernels 4, 7 and 8: their sampled rows' product by B
+                lib_ms = library_rows_ms(
+                    name, np.concatenate([c[1] for c in cs]), ones=True)
         else:
             nbytes = sum(bytes_numeric(np, m, *c[1:]) for c in cs)
             ops = sum(numeric_ops(floprc[name], c[1]) for c in cs)
@@ -1127,7 +1210,7 @@ def main() -> int:
     # predict kernels (one launch over the prediction), the cant-sized FEM
     # product for the ESC numeric, the fused bitmask symbolic, the SPA and
     # the all-rows FLOP kernels, R-MAT's hub rows for BIN and R-MAT's
-    # sampled rows at global bounds for the unfused symbolic kernels
+    # sampled rows at global bounds for the global-pad symbolic kernels
     timings = {key: entry(*key) for key in calls}
     # the global pad's cost in the predictor: kernel 7 on R-MAT's sampled
     # rows beside the binned predictor's fused per-bucket calls on the same
@@ -1181,36 +1264,50 @@ def main() -> int:
                                ops / FP32_FLOP_PER_S) * 1e3))
         del ad, pa, p
         torch.cuda.empty_cache()
-    # flash attention on G1 beside its plain version and SDPA, the
-    # yardstick (its is_causal is top-left aligned too), held to the plain
-    # version first
-    q, k, v, want = g1
+    # flash attention beside its plain version and SDPA, the yardstick (its
+    # is_causal is top-left aligned too), held to the plain version first:
+    # the tensor-core kernel on G1, the CUDA-core one on G2 (float32)
+    for case in ("G1", "G2"):
+        q, k, v, want, causal = timed_attn.pop(case)
+        err, ms, variant, tflops = attn[case]
+        name = f"flash_attention_{variant}"
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
 
-    if not torch.allclose(sdpa().float(), want.float(), rtol=1e-2,
-                          atol=1e-2):
-        fail("attention G1: scaled_dot_product_attention != plain")
-    ops, nbytes = attention_work(q, k, True)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_FLOP_PER_S * 1e3
-    err, ms = attn["G1"]
-    timings["flash_attention", "G1"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:82",
-        launches=sum(launches[p]["flash_attention"] for p in launches),
-        max_abs_err=err, ms=ms,
-        plain_ms=cuda_ms(torch, lambda: fa_k.flash_attention_plain(
-            q, k, v, causal=True)),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=cuda_ms(torch, sdpa), timed_on="G1", calls=1,
-        bytes=nbytes, operations=ops, tflop_per_s=ops / ms * 1e-9)
-    emit(dict(phase="kernel_time", **timings["flash_attention", "G1"]))
-    del q, k, v, want, g1
+        if not torch.allclose(sdpa().float(), want.float(), rtol=1e-2,
+                              atol=1e-2):
+            fail(f"attention {case}: scaled_dot_product_attention != plain")
+        ops, nbytes = attention_work(q, k, causal)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / (FP32_FLOP_PER_S if q.dtype == torch.float32
+                        else BF16_FLOP_PER_S) * 1e3
+        bound = max(bytes_ms, ops_ms)
+        source = FLASH_SOURCES[variant]
+        e = dict(name=name, route="cuda",
+                 source=f"src/repro_torch/kernels/csrc/{source}",
+                 replaces="src/repro/kernels/flash_attention.py:82",
+                 launches=sum(launches[p][name] for p in launches),
+                 max_abs_err=err, ms=ms,
+                 plain_ms=cuda_ms(torch, lambda: fa_k.flash_attention_plain(
+                     q, k, v, causal=causal)),
+                 bound_ms=bound,
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 library_ms=cuda_ms(torch, sdpa), timed_on=case, calls=1,
+                 bytes=nbytes, operations=ops, tflop_per_s=tflops)
+        if case == "G1":
+            # the redesign's marks: half the bound (where the rule leaves a
+            # kernel alone, if it also does not lose to SDPA) and the
+            # acceptance bar
+            e.update(target_ms=2 * bound, target_met=ms <= 2 * bound,
+                     acceptance_ms=G1_ACCEPT_MS,
+                     acceptance_met=ms <= G1_ACCEPT_MS,
+                     loses_to_library=ms > e["library_ms"])
+            sdpa_backends(torch, q, k, v, want, emit, attn)
+        timings[name, case] = e
+        emit(dict(phase="kernel_time", **e))
+        del q, k, v, want
     report = [timings["flop_rows", "pl_100k_d4"],
               timings["fused_flop_symbolic", "pl_100k_d4"],
               timings["spgemm_numeric", "cant_like"],
@@ -1220,7 +1317,8 @@ def main() -> int:
               timings["sampled_symbolic", "rmat_80k"],
               timings["bitmask_symbolic", "rmat_80k"],
               timings["flop_per_row", "cant_like"],
-              timings["flash_attention", "G1"]]
+              timings["flash_attention_sm90", "G1"],
+              timings["flash_attention_simt", "G2"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

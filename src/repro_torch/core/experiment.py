@@ -12,7 +12,7 @@ method 'utilizes the same information computed by the reference design'):
 
 and verify the identity  e2 == (e1 - ef)/(1 + ef)  (eq. 5) per case.
 
-The sampled counts z* and f* come from the unfused symbolic kernel
+The sampled counts z* and f* come from the global-pad symbolic kernel
 (``kernels.ops.sampled_symbolic``) and F from the all-rows FLOP kernel
 (``kernels.ops.flop_per_row``), both at the pair's global degree bounds,
 where they are exact, on the named device (the CUDA card by default; on a

@@ -147,8 +147,8 @@ def _global_counts(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
     """(floprC, F, z*, f*) at the global degree bounds.  With
     ``use_kernel`` floprC runs through the all-rows FLOP kernel at
     ``max_deg_a`` (exact, since it bounds A's rows) and (z*, f*) through
-    the unfused symbolic kernel, its workspace sized by the sampled rows'
-    FLOP."""
+    the global-pad symbolic kernel, each sampled row's workspace sized by
+    its FLOP."""
     if use_kernel:
         from repro_torch.kernels import ops as kops
         floprc = kops.flop_per_row(a, b, max_deg_a=max_deg_a)

@@ -277,7 +277,7 @@ def block_workspace(name: str, device, ws_bytes: int, threads: int,
 
 
 def split_workspace(smem_limit: int, fixed_bytes: int, item_bytes: int,
-                    items: int, pow2: bool = False) -> tuple[int, int, int]:
+                    items: int) -> tuple[int, int, int]:
     """Where a row's workspace goes when rows differ in size: a fixed part
     of ``fixed_bytes`` (the row's product prefix and tables) and up to
     ``items`` items of ``item_bytes`` each (the largest row's sort keys or
@@ -285,41 +285,20 @@ def split_workspace(smem_limit: int, fixed_bytes: int, item_bytes: int,
     block.  Returns ``(smem_items, smem_bytes, slice_bytes)``.
 
     Shared memory (``smem_bytes``) holds the fixed part and ``smem_items``
-    items: all ``items`` when they fit, else as many as fit (the largest
-    power of two of them with ``pow2``).  A row with more items than
-    ``smem_items`` works in a global scratch slice of ``slice_bytes``
-    holding its items (0: every row fits).  When not even the fixed part
-    and 32 items fit, ``smem_items`` is -1, shared memory holds nothing
-    and the fixed part heads the slice.  So a row goes to scratch when its
-    own items do not fit beside the fixed part, whatever the others
-    hold."""
+    items: all ``items`` when they fit, else as many as fit.  A row with
+    more items than ``smem_items`` works in a global scratch slice of
+    ``slice_bytes`` holding its items (0: every row fits).  When not even
+    the fixed part and 32 items fit, ``smem_items`` is -1, shared memory
+    holds nothing and the fixed part heads the slice.  So a row goes to
+    scratch when its own items do not fit beside the fixed part, whatever
+    the others hold."""
     room = smem_limit - STATIC_SMEM_RESERVE - fixed_bytes
     if item_bytes * items <= room:
         return items, fixed_bytes + item_bytes * items, 0
     if room >= item_bytes * 32:
         fit = room // item_bytes
-        if pow2:
-            fit = 1 << (fit.bit_length() - 1)
         return fit, fixed_bytes + item_bytes * fit, item_bytes * items
     return -1, 0, fixed_bytes + item_bytes * items
-
-
-def sort_workspace(name: str, device, max_deg_a: int, lanes: int,
-                   n_rows: int):
-    """Launch shape of a one-block-per-row sort whose rows each hold at most
-    ``lanes`` keys of 4 bytes (a power of two): ``(smem_lanes, grid,
-    threads, smem_bytes, scratch, slice_bytes)`` with the row's product
-    prefix as the fixed part of :func:`split_workspace` and the keys in
-    powers of two: a row whose padded product count exceeds ``smem_lanes``
-    sorts in the block's ``slice_bytes`` slice of ``scratch`` (``None`` when
-    no row needs it)."""
-    smem_lanes, smem_bytes, slice_bytes = split_workspace(
-        max_smem(name, device), align16(4 * (max_deg_a + 1)), 4, lanes,
-        pow2=True)
-    if not slice_bytes:
-        return lanes, n_rows, row_threads(lanes), smem_bytes, None, 0
-    grid, scratch = scratch_slices(device, slice_bytes, n_rows)
-    return smem_lanes, grid, 1024, smem_bytes, scratch, slice_bytes
 
 
 # csrc/esc_symbolic.cu: a warp sorts a short row of up to SYM_WARP_MAX
@@ -356,8 +335,9 @@ def symbolic_shape(smem_limit: int, short_bound: int, long_bound: int,
     bitmask of its column extent — as many ints as the largest long row
     has products, or as B has 32-column words, whichever is more, as far
     as shared memory goes.  A long row whose extent fits the region counts
-    by bitmask; one whose keys fit it sorts there; any other sorts in a
-    scratch slice sized by ``long_bound``.  When not even the table and 32
+    by bitmask; one whose keys fit it sorts there; any other counts in a
+    scratch slice of ``long_bound`` ints, by bitmask where its extent fits
+    the slice, else by a sort.  When not even the table and 32
     ints fit, ``smem_keys`` is -1 and table and keys live in the slice."""
     warp_keys = max(1, min(SYM_WARP_MAX, int(short_bound)))
     short_bytes = (SYM_WARPS * (256 + align16(4 * warp_keys))

@@ -138,29 +138,6 @@ __device__ inline int repro_product_entry(int p, int deg, const int* prefix,
   return b_rpt[a_col[start + lo]] + (p - prefix[lo]);
 }
 
-// Gather the n products of a row whose prefix repro_row_prefix built into
-// keys[0, n) (and the value products into vals when VALS), and pad keys to
-// the next power of two with the sentinel.  Ends with a barrier.
-template <bool VALS>
-__device__ void repro_gather_products(
-    int n, int deg, const int* prefix, int start,
-    const int* __restrict__ a_col, const float* __restrict__ a_val,
-    const int* __restrict__ b_rpt, const int* __restrict__ b_col,
-    const float* __restrict__ b_val, int* keys, float* vals) {
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    int j;
-    const int e = repro_product_entry(p, deg, prefix, start, a_col, b_rpt, &j);
-    keys[p] = b_col[e];
-    if (VALS) vals[p] = __fmul_rn(a_val[start + j], b_val[e]);
-  }
-  const int n2 = repro_next_pow2(max(n, 1));
-  for (int p = n + threadIdx.x; p < n2; p += blockDim.x) {
-    keys[p] = REPRO_SENTINEL;
-    if (VALS) vals[p] = 0.0f;
-  }
-  __syncthreads();
-}
-
 // The row's product-column extent: *lo the smallest product column and *hi
 // the largest, or REPRO_SENTINEL and -1 for a row without products.  B's rows
 // are sorted ascending (validate_csr), so a B row's first and last read
@@ -239,33 +216,6 @@ __device__ inline void repro_fill_tail(int nnz, int cap,
   for (int s = min(nnz, cap) + threadIdx.x; s < cap; s += blockDim.x) {
     out_col[s] = REPRO_SENTINEL;
     out_val[s] = 0.0f;
-  }
-}
-
-// Block-cooperative bitonic sort of keys[0, n) ascending (n a power of two),
-// carrying vals through the same permutation when VALS.  Ends with a barrier.
-template <bool VALS>
-__device__ void repro_bitonic_sort(int* keys, float* vals, int n) {
-  const int half = n >> 1;
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));  // bit j clear
-        const int l = i + j;
-        const bool up = (i & k) == 0;
-        const int ki = keys[i], kl = keys[l];
-        if ((ki > kl) == up) {
-          keys[i] = kl;
-          keys[l] = ki;
-          if (VALS) {
-            const float vi = vals[i];
-            vals[i] = vals[l];
-            vals[l] = vi;
-          }
-        }
-      }
-      __syncthreads();
-    }
   }
 }
 

@@ -4,14 +4,23 @@
 // Replaces: src/repro/kernels/spgemm_symbolic.py::fused_flop_symbolic_pallas
 // (_fused_kernel), which gathers a (BS, next_pow2(DA*DB)) block at one
 // bucket's degree bounds, bitonic-sorts it along lanes and counts strict
-// ascents; the binned predictor calls it once per degree bucket.
+// ascents; the binned predictor calls it once per degree bucket.  Also
+// replaces sampled_symbolic_pallas (_kernel), the same count at the global
+// degree bounds whose f* counts the gathered products instead.
 //
-// One entry serves both ways of calling it: one bucket's rows at its bounds
-// (rows only), or every sampled row of a binned prediction that falls in an
+// One entry serves every way of calling it: one bucket's rows at its bounds
+// (rows only), every sampled row of a binned prediction that falls in an
 // ESC bucket, in one launch, each row at its own bucket's bounds (row_da,
-// row_db) and writing to its own output slot (out_idx).  As in the TPU
-// kernel, a row reads at most DA entries of A and at most DB of each B row
-// it references; its FLOP sums the referenced B rows' untruncated lengths.
+// row_db) and writing to its own output slot (out_idx), or the global-pad
+// predictor's sampled rows at one pair of bounds, each sized by its own
+// FLOP (row_flop) without reordering them: every row then has a warp and a
+// block, and whichever does not fit its bound returns at once, so the host
+// sorts, reads back and uploads nothing.  As in the TPU kernels, a row
+// reads at most DA entries of A and at most DB of each B row it
+// references; its FLOP sums the referenced B rows' untruncated lengths.
+// f* (totals[1]) sums the rows' FLOP, or with `gathered` their gathered
+// products (each B row read to at most DB entries): the two agree when DB
+// reaches B's widest row.
 //
 // What held the per-bucket launches back on the H100 was not the card: a
 // prediction made 8 to 17 of them, each with its host work (an upload of the
@@ -39,9 +48,13 @@
 //     sorts with the same network as the warps, over the whole block, and
 //     counts its run starts: in shared memory when its own products fit
 //     smem_keys, else in the block's slice of global scratch (sized by the
-//     largest bound that does not fit).
+//     largest bound that does not fit), where it counts by presence bits
+//     instead when its extent fits the slice as a bitmask.  The global-pad
+//     wrapper sizes the slice by B's columns, so that every long row counts
+//     by bitmask and, past shared memory, the blocks count their rows side
+//     by side.
 //     The table sits in shared memory unless even it does not fit
-//     (smem_keys < 0: no bitmask, every long row sorts in scratch).
+//     (smem_keys < 0: no bitmask there, the slice holds table and keys).
 // Each row writes its FLOP and adds its z and FLOP to the two totals with
 // integer atomics, so z* and f* are exact in any order, with no reduction
 // launched after the kernel.  A row whose products exceed the bound it was
@@ -131,7 +144,7 @@ __device__ void sym_warp_row(SymRow row, const int* __restrict__ a_rpt,
                              const int* __restrict__ rownnz_b, int m,
                              int k_rows, int warp_keys, int* s_off,
                              int* s_e0, int* keys, int* totals,
-                             unsigned* spill, int spill_words,
+                             unsigned* spill, int spill_words, int gathered,
                              int* flop_out) {
   const int lane = threadIdx.x & 31;
   int start = 0, deg = 0;
@@ -182,7 +195,7 @@ __device__ void sym_warp_row(SymRow row, const int* __restrict__ a_rpt,
   }
   if (lane == 0) {
     atomicAdd(&totals[0], z);
-    atomicAdd(&totals[1], flop);
+    atomicAdd(&totals[1], gathered ? n : flop);
     flop_out[row.out] = flop;
   }
 }
@@ -218,23 +231,58 @@ __device__ void sym_gather(int n, int deg, const int* prefix, const int* e0,
   }
 }
 
+// A long row's distinct columns by presence bits over its column extent
+// [lo, lo + 32 * words) in mask: the block's shared memory, or (kGlobal) its
+// scratch slice, read back from L2 past the atomics.  Ends with no barrier.
+template <bool kGlobal>
+__device__ int sym_block_bitmask(unsigned* mask, int words, int lo, int n,
+                                 int deg, const int* prefix, const int* e0,
+                                 const int* __restrict__ b_col) {
+  for (int w = threadIdx.x; w < words; w += blockDim.x) mask[w] = 0u;
+  __syncthreads();
+  sym_gather(n, deg, prefix, e0, b_col, [&](int, int c) {
+    atomicOr(&mask[(c - lo) >> 5], 1u << ((c - lo) & 31));
+  });
+  __syncthreads();
+  int local = 0;
+  for (int w = threadIdx.x; w < words; w += blockDim.x)
+    local += __popc(kGlobal ? __ldcg(&mask[w]) : mask[w]);
+  int z;
+  repro_block_exclusive_scan(local, &z);
+  return z;
+}
+
+// With row_flop, row ri is long when min(row_flop[ri], DA*DB) passes the
+// warp's keys (the same for every thread of a block).
+__device__ inline bool sym_long(int ri, const int* row_flop, int max_deg_a,
+                                int max_deg_b, int warp_keys) {
+  const long long cap = static_cast<long long>(max_deg_a) * max_deg_b;
+  return min(static_cast<long long>(row_flop[ri]), cap) > warp_keys;
+}
+
 __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
     const int* __restrict__ rows, const int* __restrict__ row_da,
     const int* __restrict__ row_db, const int* __restrict__ out_idx,
+    const int* __restrict__ row_flop,
     int n_rows, int n_long, int long_blocks, int max_deg_a, int max_deg_b,
     int max_deg_a_long, const int* __restrict__ a_rpt,
     const int* __restrict__ a_col, const int* __restrict__ b_rpt,
     const int* __restrict__ b_col, const int* __restrict__ rownnz_b, int m,
     int k_rows, int warp_keys, int smem_keys, char* scratch,
     long long slice_bytes, int* __restrict__ totals, int spill_words,
-    int* __restrict__ flop_out) {
+    int gathered, int* __restrict__ flop_out) {
   extern __shared__ __align__(16) char smem[];
   unsigned* spill = reinterpret_cast<unsigned*>(totals + 3);
   if (static_cast<int>(blockIdx.x) >= long_blocks) {
-    // short rows, a warp each; this part has no block barrier
+    // short rows, a warp each; this part has no block barrier.  With
+    // row_flop every row has a warp here, which leaves a long one alone.
     const int w = threadIdx.x >> 5;
-    const int ri = n_long + (blockIdx.x - long_blocks) * SYM_WARPS + w;
-    if (ri >= n_rows) return;
+    const int ri = (row_flop ? 0 : n_long) +
+                   (blockIdx.x - long_blocks) * SYM_WARPS + w;
+    if (ri >= n_rows ||
+        (row_flop && sym_long(ri, row_flop, max_deg_a, max_deg_b,
+                              warp_keys)))
+      return;
     char* region = smem + static_cast<long long>(w) *
                               (256 + repro_align16(4LL * warp_keys));
     int* s_off = reinterpret_cast<int*>(region);
@@ -242,7 +290,7 @@ __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
                          max_deg_b),
                  a_rpt, a_col, b_rpt, b_col, rownnz_b, m, k_rows, warp_keys,
                  s_off, s_off + 32, reinterpret_cast<int*>(region + 256),
-                 totals, spill, spill_words, flop_out);
+                 totals, spill, spill_words, gathered, flop_out);
     return;
   }
   // long rows, a block each: the table (product prefix, then each A
@@ -259,6 +307,8 @@ __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
   const long long slice_keys =
       slice ? (slice_bytes - (table_in_smem ? 0 : 2 * pre_bytes)) / 4 : 0;
   for (int ri = blockIdx.x; ri < n_long; ri += long_blocks) {
+    if (row_flop && !sym_long(ri, row_flop, max_deg_a, max_deg_b, warp_keys))
+      continue;   // a short row: its warp counts it
     const SymRow row = sym_row(ri, rows, row_da, row_db, out_idx, max_deg_a,
                                max_deg_b);
     int start, deg, flop;
@@ -278,17 +328,13 @@ __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
     if (words <= smem_keys) {
       // the extent fits the keys' shared memory as a bitmask: count the
       // distinct columns by presence bits, no sort
-      unsigned* mask = reinterpret_cast<unsigned*>(keys_smem);
-      for (int w = threadIdx.x; w < words; w += blockDim.x) mask[w] = 0u;
-      __syncthreads();
-      sym_gather(n, deg, prefix, e0, b_col, [&](int, int c) {
-        atomicOr(&mask[(c - lo) >> 5], 1u << ((c - lo) & 31));
-      });
-      __syncthreads();
-      int local = 0;
-      for (int w = threadIdx.x; w < words; w += blockDim.x)
-        local += __popc(mask[w]);
-      repro_block_exclusive_scan(local, &z);
+      z = sym_block_bitmask<false>(reinterpret_cast<unsigned*>(keys_smem),
+                                   words, lo, n, deg, prefix, e0, b_col);
+    } else if (n > smem_keys && words <= slice_keys) {
+      // the same in the block's scratch slice, when the keys would not fit
+      // shared memory either
+      z = sym_block_bitmask<true>(reinterpret_cast<unsigned*>(keys_slice),
+                                  words, lo, n, deg, prefix, e0, b_col);
     } else if (n <= smem_keys || n <= slice_keys) {
       int* keys = n <= smem_keys ? keys_smem : keys_slice;
       sym_gather(n, deg, prefix, e0, b_col, [&](int p, int c) {
@@ -316,7 +362,7 @@ __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
     }
     if (threadIdx.x == 0) {
       atomicAdd(&totals[0], z);
-      atomicAdd(&totals[1], flop);
+      atomicAdd(&totals[1], gathered ? n : flop);
       flop_out[row.out] = flop;
     }
     __syncthreads();   // the next row rewrites the table and the keys
@@ -346,17 +392,21 @@ static cudaError_t sym_smem_attr(int device) {
 
 // rows (n_rows,), the first n_long of them long rows; row_da, row_db and
 // out_idx may be null (then max_deg_a, max_deg_b and the row's own index).
+// With row_flop (one int a row; row_da, row_db and out_idx null), n_long is
+// n_rows or 0 and each row is long or short by its own FLOP.
 // totals (3 + spill_words ints, zeroed here: z*, f*, the spill lock, then
-// the spill bitmask of ceil(B's columns / 32) words) gets z* and f*,
-// flop_out one int per row.
+// the spill bitmask of ceil(B's columns / 32) words) gets z* and f* (the
+// gathered products with `gathered`, else the FLOP), flop_out one int per
+// row.
 extern "C" int esc_symbolic_launch(
     const void* rows, const void* row_da, const void* row_db,
-    const void* out_idx, int n_rows, int n_long, int long_blocks,
-    int max_deg_a, int max_deg_b, int max_deg_a_long, const void* a_rpt,
-    const void* a_col, const void* b_rpt, const void* b_col,
+    const void* out_idx, const void* row_flop, int n_rows, int n_long,
+    int long_blocks, int max_deg_a, int max_deg_b, int max_deg_a_long,
+    const void* a_rpt, const void* a_col, const void* b_rpt, const void* b_col,
     const void* rownnz_b, int m, int k_rows, int warp_keys, int smem_keys,
     void* scratch, long long slice_bytes, int smem_bytes, void* totals,
-    int spill_words, void* flop_out, int device, void* stream) {
+    int spill_words, int gathered, void* flop_out, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = sym_smem_attr(device);
@@ -364,19 +414,21 @@ extern "C" int esc_symbolic_launch(
   err = cudaMemsetAsync(totals, 0, (3LL + spill_words) * sizeof(int),
                         static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int short_blocks = (n_rows - n_long + SYM_WARPS - 1) / SYM_WARPS;
+  const int short_rows = row_flop ? n_rows : n_rows - n_long;
+  const int short_blocks = (short_rows + SYM_WARPS - 1) / SYM_WARPS;
   const int grid = long_blocks + short_blocks;
   if (grid <= 0) return 0;
   esc_symbolic_kernel<<<grid, SYM_THREADS, smem_bytes,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rows), static_cast<const int*>(row_da),
       static_cast<const int*>(row_db), static_cast<const int*>(out_idx),
-      n_rows, n_long, long_blocks, max_deg_a, max_deg_b, max_deg_a_long,
+      static_cast<const int*>(row_flop), n_rows, n_long, long_blocks,
+      max_deg_a, max_deg_b, max_deg_a_long,
       static_cast<const int*>(a_rpt), static_cast<const int*>(a_col),
       static_cast<const int*>(b_rpt), static_cast<const int*>(b_col),
       static_cast<const int*>(rownnz_b), m, k_rows, warp_keys, smem_keys,
       static_cast<char*>(scratch), slice_bytes, static_cast<int*>(totals),
-      spill_words, static_cast<int*>(flop_out));
+      spill_words, gathered, static_cast<int*>(flop_out));
   return static_cast<int>(cudaGetLastError());
 }
 

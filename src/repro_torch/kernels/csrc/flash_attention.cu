@@ -31,12 +31,13 @@
 // product.  The finish is acc / max(l, 1e-30), stored in q's dtype.
 //
 // Bound on the H100: operations.  4 FLOP per (row, visible key, head-dim
-// element) against 2 bytes per element of q, k, v and out in bf16: at
-// Sq = Sk = 4096, D = 128 over 200 FLOP a byte, above the card's ridge.
-// This kernel runs its products as fp32 FMAs on the CUDA cores (67 TFLOP/s)
-// and not on the tensor cores (989 TFLOP/s bf16), and each query tile
-// re-reads its K/V tiles from L2; wgmma, TMA and a bf16 datapath are later
-// work.
+// element) against 4 bytes per element of q, k, v and out in float32: at
+// Sq = Sk = 4096, D = 128 over 800 FLOP a byte, above the card's float32
+// ridge of 20.  This kernel runs its products as fp32 FMAs on the CUDA
+// cores (67 TFLOP/s): it serves float32 at any head dim and 16-bit types at
+// the widths the tensor-core kernel (flash_attention_sm90.cu: bfloat16 and
+// float16 at D 64, 96 and 128) does not take.  Each query tile re-reads its
+// K/V tiles from L2.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>

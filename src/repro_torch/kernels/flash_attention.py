@@ -1,13 +1,23 @@
 """Blocked GQA flash attention, forward only.
 
-:func:`flash_attention` launches the hand-written CUDA kernel
-``csrc/flash_attention.cu`` on CUDA tensors and runs its plain tensor-op
-version :func:`flash_attention_plain` on CPU tensors; it replaces
+:func:`flash_attention` launches one of two hand-written CUDA kernels on
+CUDA tensors and runs its plain tensor-op version
+:func:`flash_attention_plain` on CPU tensors; it replaces
 ``src/repro/kernels/flash_attention.py::_flash_single`` (``_flash_kernel``)
-behind that module's public ``flash_attention``.  Query head ``h`` reads kv
-head ``h // (Hq // Hkv)``, as JAX's ``reshape(b, hkv, group, sq, d)`` maps
-them.  The products, the softmax and its state are float32 whatever the
-input dtype; the output has q's dtype.
+behind that module's public ``flash_attention``.  The kernel follows from
+q's dtype and head dim alone, before the launch (:func:`variant`):
+
+* ``sm90`` (``csrc/flash_attention_sm90.cu``): bfloat16 and float16 at
+  head dims 64, 96 and 128, on the tensor cores (``wgmma``, TMA);
+* ``simt`` (``csrc/flash_attention.cu``): everything else — float32 at any
+  head dim, 16-bit types at other widths up to 256 — with fp32 FMAs on the
+  CUDA cores.
+
+Query head ``h`` reads kv head ``h // (Hq // Hkv)``, as JAX's
+``reshape(b, hkv, group, sq, d)`` maps them.  The scores, the softmax and
+its state are float32 whatever the input dtype, and the output has q's
+dtype; the ``sm90`` kernel rounds the probabilities to q's 16-bit type for
+their product with V, where JAX keeps them in float32.
 
 The causal mask is top-left aligned: query ``i`` sees keys ``j <= i`` for
 any ``Sq`` and ``Sk``, as the TPU kernel's ``qpos >= kpos`` does.  The JAX
@@ -26,7 +36,12 @@ import torch
 from . import _build
 
 _LIB = "flash_attention"
+_SM90 = "flash_attention_sm90"
 NEG_INF = -1e30
+# the sm90 kernel's dtypes and head dims; its tiles, from its source
+SM90_DTYPES = (torch.bfloat16, torch.float16)
+SM90_HEAD_DIMS = (64, 96, 128)
+SM90_BM = _build.source_define(_SM90, "FA9_BM")    # query rows of a block
 # query rows per score block of the plain version: a (B, Hq, 512, Sk) fp32
 # block at a time, not the whole (B, Hq, Sq, Sk)
 PLAIN_CHUNK = 512
@@ -85,40 +100,103 @@ def _check_inputs(q, k, v, block_q: int, block_k: int) -> None:
                         f"{k.dtype}, {v.dtype}")
 
 
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that attention at ``dtype`` and head dim ``d`` launches:
+    ``"sm90"`` for a 16-bit type at a width of :data:`SM90_HEAD_DIMS`,
+    else ``"simt"``."""
+    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS else "simt"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with a 16-byte aligned start, as a tensor map needs (a
+    contiguous view into a larger tensor may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(lib: str, q, k, v, causal: bool) -> torch.Tensor:
+    """One launch of ``lib``'s kernel (both take the same arguments) on
+    contiguous CUDA tensors of one dtype; returns its output."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dev = q.device
+    out = torch.empty_like(q)
+    qp, code = _build.require_float(lib, q, q.dtype, "q")
+    fn = _build.launcher(lib, "ppppiiiiiiiiip")
+    rc = fn(qp, _build.require_float(lib, k, q.dtype, "k")[0],
+            _build.require_float(lib, v, q.dtype, "v")[0], out.data_ptr(),
+            code, b, hq, hkv, sq, sk, d, int(bool(causal)), dev.index or 0,
+            _build.stream_of(dev))
+    _build.check(lib, rc)
+    return out
+
+
+def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/flash_attention_sm90.cu`` on contiguous CUDA
+    tensors of one 16-bit dtype at a head dim of :data:`SM90_HEAD_DIMS` (as
+    :func:`flash_attention` checked them); raises on anything else."""
+    b, sq, d = q.shape[0], q.shape[2], q.shape[3]
+    if variant(q.dtype, d) != "sm90":
+        raise ValueError(f"{_SM90}: takes bfloat16 or float16 at head dims "
+                         f"{SM90_HEAD_DIMS}, got {q.dtype} at {d}")
+    if b > 65535 or -(-sq // SM90_BM) > 65535:
+        raise ValueError(f"{_SM90}: batch {b} and query tiles "
+                         f"{-(-sq // SM90_BM)} must each be at most 65535 "
+                         "(grid dimensions)")
+    need = _build.function(_SM90, f"{_SM90}_smem_bytes", "i", "q")(d)
+    if need + _build.STATIC_SMEM_RESERVE > _build.max_smem(_SM90, q.device):
+        raise ValueError(f"{_SM90}: {need} bytes of shared memory do not "
+                         f"fit a block on {q.device}")
+    out = _launch(_SM90, _aligned(q), _aligned(k), _aligned(v), causal)
+    flash_attention_sm90.launches += 1
+    return out
+
+
+flash_attention_sm90.launches = 0
+
+
+def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/flash_attention.cu`` (fp32 arithmetic on the
+    CUDA cores, head dims up to 256) on contiguous CUDA tensors of one
+    dtype, as :func:`flash_attention` checked them."""
+    b, hq, d = q.shape[0], q.shape[1], q.shape[3]
+    need = _build.function(_LIB, "flash_attention_smem_bytes", "i", "q")(d)
+    if need < 0 or need + _build.STATIC_SMEM_RESERVE > _build.max_smem(
+            _LIB, q.device):
+        raise ValueError(f"flash_attention: head dim {d} does not fit the "
+                         f"kernel's shared-memory tiles on {q.device} (at "
+                         "most 256)")
+    if max(b, hq) > 65535:
+        raise ValueError(f"flash_attention: batch {b} and q heads {hq} must "
+                         "each be at most 65535 (grid dimensions)")
+    out = _launch(_LIB, q, k, v, causal)
+    flash_attention_simt.launches += 1
+    return out
+
+
+flash_attention_simt.launches = 0
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """Attention of q ``(B, Hq, Sq, D)`` over k, v ``(B, Hkv, Sk, D)`` →
     ``(B, Hq, Sq, D)`` in q's dtype.  ``block_q`` and ``block_k`` are the
     TPU kernel's tiles: they must divide ``Sq`` and ``Sk``, as there, and
-    change nothing else; the CUDA kernel picks its own tiles.  Forward
-    only."""
+    change nothing else; the CUDA kernels pick their own tiles.  On CUDA
+    tensors the kernel is :func:`variant`'s, with no other: one that
+    cannot build or launch raises.  Forward only."""
     _check_inputs(q, k, v, block_q, block_k)
     dev = _build.kernel_device(_LIB, q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if dev is None:
         return flash_attention_plain(q, k, v, causal=causal)
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    need = _build.function(_LIB, "flash_attention_smem_bytes", "i", "q")(d)
-    if need < 0 or need + _build.STATIC_SMEM_RESERVE > _build.max_smem(
-            _LIB, dev):
-        raise ValueError(f"flash_attention: head dim {d} does not fit the "
-                         f"kernel's shared-memory tiles on {dev} (at most "
-                         "256)")
-    if max(b, hq) > 65535:
-        raise ValueError(f"flash_attention: batch {b} and q heads {hq} must "
-                         "each be at most 65535 (grid dimensions)")
-    qp, code = _build.require_float(_LIB, q, q.dtype, "q")
-    fn = _build.launcher(_LIB, "ppppiiiiiiiiip")
-    rc = fn(qp, _build.require_float(_LIB, k, q.dtype, "k")[0],
-            _build.require_float(_LIB, v, q.dtype, "v")[0], out.data_ptr(),
-            code, b, hq, hkv, sq, sk, d, int(bool(causal)), dev.index or 0,
-            _build.stream_of(dev))
-    _build.check(_LIB, rc)
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    launch = (flash_attention_sm90 if variant(q.dtype, q.shape[3]) == "sm90"
+              else flash_attention_simt)
+    out = launch(q, k, v, causal=causal)
     flash_attention.launches += 1
     return out
 

@@ -66,7 +66,7 @@ def sampled_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
                      row_flop=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(z*, f*) for the proposed predictor at global bounds, f* the
     gathered products.  ``row_flop`` (the sampled rows' FLOP, optional)
-    sizes the kernel's workspace."""
+    sizes each row's workspace in the kernel's one launch."""
     return _sym_k.sampled_symbolic(a, b, rows, max_deg_a=max_deg_a,
                                    max_deg_b=max_deg_b, rownnz_b=rownnz_b,
                                    row_flop=row_flop)

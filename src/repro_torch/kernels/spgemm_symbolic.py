@@ -1,36 +1,35 @@
-"""Algorithm 2 (ESC symbolic) over sampled rows: the fused kernel, per
-bucket or for a whole binned prediction in one launch, and the unfused
-global-pad one.
+"""Algorithm 2 (ESC symbolic) over sampled rows: one hand-written CUDA
+kernel, ``csrc/esc_symbolic.cu``, behind three wrappers.
 
-Three wrappers, each launching its hand-written CUDA kernel on CUDA tensors
-and running its plain version on CPU tensors:
+Each wrapper launches the kernel on CUDA tensors and runs its plain version
+on CPU tensors:
 
-* :func:`fused_flop_symbolic` (``csrc/esc_symbolic.cu``) → ``(z*, f*,
-  flop per sampled row)``: the sampled distinct-column count, the sampled
-  FLOP and Algorithm 1's FLOP of each sampled row, at one bucket's degree
-  bounds.  Replaces
+* :func:`fused_flop_symbolic` → ``(z*, f*, flop per sampled row)``: the
+  sampled distinct-column count, the sampled FLOP and Algorithm 1's FLOP
+  of each sampled row, at one bucket's degree bounds.  Replaces
   ``src/repro/kernels/spgemm_symbolic.py::fused_flop_symbolic_pallas``
   (``_fused_kernel``);
-* :func:`fused_flop_symbolic_buckets` (the same kernel): the same outputs
-  for the sampled rows of every ESC bucket of a binned prediction in one
-  launch, each row at its own bucket's bounds (a :class:`SampleTable`) —
-  what the TPU kernel gives bucket by bucket;
-* :func:`sampled_symbolic` (``csrc/sampled_symbolic.cu``) → ``(z*, f*)``
-  with f* the count of *gathered* products (each B row read to at most
-  ``max_deg_b`` entries), at the global degree bounds of the paper's
-  predictor.  Replaces ``sampled_symbolic_pallas`` (``_kernel``).
+* :func:`fused_flop_symbolic_buckets`: the same outputs for the sampled
+  rows of every ESC bucket of a binned prediction in one launch, each row
+  at its own bucket's bounds (a :class:`SampleTable`) — what the TPU kernel
+  gives bucket by bucket;
+* :func:`sampled_symbolic` → ``(z*, f*)`` with f* the count of *gathered*
+  products (each B row read to at most ``max_deg_b`` entries), at the
+  global degree bounds of the paper's predictor: one launch over the
+  sampled rows as given, each taking a warp or a block by its own FLOP on
+  the card.  Replaces ``sampled_symbolic_pallas`` (``_kernel``).
 
-On the H100 all are bound by bytes: a row's product columns (4 bytes each
-from B, plus A's row and B's row lengths) are gathered and sorted on chip.
-The fused kernel gives a short row one warp and a long one a block, by a
-bound on each row's products (its FLOP, or the bucket's ``DA·DB`` without
-one); a long row counts by bitmask when its column extent fits shared
-memory, and only a row that neither fits as a bitmask nor as keys in the
-card's 227 KB of shared memory sorts in a global scratch slice.  A row
-whose products pass the bound it was given (a FLOP below them) still counts
-right, by presence bits in a global spill bitmask.  z* and f* are exact
-integers: the fused kernel adds each row's counts with integer atomics, the
-unfused one writes them and they are summed here.
+On the H100 the kernel is bound by bytes: a row's product columns (4 bytes
+each from B, plus A's row and B's row lengths) are gathered and counted on
+chip.  It gives a short row one warp and a long one a block, by a bound on
+each row's products (its FLOP, or ``DA·DB`` without one); a long row
+counts by bitmask when its column extent fits shared memory, and a row
+that neither fits as a bitmask nor as keys in the card's 227 KB of shared
+memory counts in its block's global scratch slice: by bitmask when its
+extent fits the slice, else by a sort.  A row whose products pass
+the bound it was given (a FLOP below them) still counts right, by presence
+bits in a global spill bitmask.  z* and f* are exact integers, added per
+row with integer atomics.
 """
 from __future__ import annotations
 
@@ -39,14 +38,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.binning import ceil_pow2
 from repro_torch.core.csr import CSRDevice
 from repro_torch.core.predictor import sampled_counts
 from . import _build
 from .flop_per_row import flop_rows_plain
 
 _LIB = "esc_symbolic"
-_SAMPLED = "sampled_symbolic"
 
 
 def fused_flop_symbolic_plain(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
@@ -64,15 +61,19 @@ def fused_flop_symbolic_plain(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
 def _fused_launch(a: CSRDevice, b: CSRDevice, rownnz_b: torch.Tensor, dev,
                   rows: torch.Tensor, n_long: int, max_deg_a: int,
                   max_deg_b: int, short_bound: int, long_bound: int,
-                  max_deg_a_long: int):
+                  max_deg_a_long: int, gathered: bool = False,
+                  row_flop: torch.Tensor | None = None):
     """One launch of ``csrc/esc_symbolic.cu`` over ``rows`` (its first
     ``n_long`` the long rows): an int32 ``(S,)`` tensor of row ids, every
     row at ``max_deg_a``/``max_deg_b`` and in place, or a
     :class:`SampleTable`'s ``(4, S)`` samples (each row's own bounds and
-    place).  Returns ``(z*, f*, FLOP per row in the caller's order)``,
-    int32 views of one buffer that the kernel fills; the buffer also holds
-    the spill lock and bitmask (one word per 32 of B's columns) of rows past
-    their bound."""
+    place).  With ``row_flop`` (int32 ``(S,)``, beside an ``(S,)`` tensor
+    of rows) ``n_long`` is ``S`` or 0 and each row is long or short by
+    ``min(row_flop, max_deg_a·max_deg_b)`` on the card.  Returns ``(z*,
+    f*, FLOP per row in the caller's order)``, int32 views of one buffer
+    that the kernel fills, f* the rows' FLOP or, with ``gathered``, their
+    gathered products; the buffer also holds the spill lock and bitmask
+    (one word per 32 of B's columns) of rows past their bound."""
     s = rows.shape[-1]
     spill_words = max(1, -(-b.ncols // 32))
     res = torch.empty(3 + spill_words + s, dtype=torch.int32, device=dev)
@@ -94,8 +95,10 @@ def _fused_launch(a: CSRDevice, b: CSRDevice, rownnz_b: torch.Tensor, dev,
         ptrs = [base + 4 * s * k for k in range(4)]
     else:
         ptrs = [_build.require(_LIB, rows, i32, "rows"), None, None, None]
-    fn = _build.launcher(_LIB, "ppppiiiiiipppppiiiipqipipip")
-    rc = fn(*ptrs, s, n_long,
+    flop_ptr = (None if row_flop is None else
+                _build.require(_LIB, row_flop, i32, "row_flop"))
+    fn = _build.launcher(_LIB, "pppppiiiiiipppppiiiipqipiipip")
+    rc = fn(*ptrs, flop_ptr, s, n_long,
             shape.long_blocks, int(max_deg_a), int(max_deg_b),
             int(max_deg_a_long), *_build.require_csr(_LIB, a, "a"),
             *_build.require_csr(_LIB, b, "b"),
@@ -103,10 +106,16 @@ def _fused_launch(a: CSRDevice, b: CSRDevice, rownnz_b: torch.Tensor, dev,
             rownnz_b.shape[0], shape.warp_keys, shape.smem_keys,
             scratch.data_ptr() if scratch is not None else None,
             shape.slice_bytes, shape.smem_bytes, res.data_ptr(),
-            spill_words, res.data_ptr() + 4 * (3 + spill_words),
+            spill_words, int(gathered),
+            res.data_ptr() + 4 * (3 + spill_words),
             dev.index or 0, _build.stream_of(dev))
     _build.check(_LIB, rc)
     return res[0], res[1], res[3 + spill_words:]
+
+
+def _empty_counts(dev):
+    zero = torch.zeros(2, dtype=torch.int32, device=dev)
+    return zero[0], zero[1], zero[2:]
 
 
 def fused_flop_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
@@ -125,8 +134,7 @@ def fused_flop_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                                          rownnz_b=rownnz_b)
     s = rows.shape[0]
     if not s:
-        zero = torch.zeros(2, dtype=torch.int32, device=dev)
-        return zero[0], zero[1], zero[2:]
+        return _empty_counts(dev)
     bound = int(max_deg_a) * int(max_deg_b)
     long = bound > _build.SYM_WARP_MAX
     out = _fused_launch(a, b, rownnz_b, dev, rows, s if long else 0,
@@ -213,8 +221,7 @@ def fused_flop_symbolic_buckets(a: CSRDevice, b: CSRDevice,
         return fused_flop_symbolic_buckets_plain(a, b, table,
                                                  rownnz_b=rownnz_b)
     if not table.samples.shape[1]:
-        zero = torch.zeros(2, dtype=torch.int32, device=dev)
-        return zero[0], zero[1], zero[2:]
+        return _empty_counts(dev)
     out = _fused_launch(a, b, rownnz_b, dev, table.samples, table.n_long, 0,
                         0, table.short_bound, table.long_bound,
                         table.max_deg_a_long)
@@ -238,48 +245,42 @@ def sampled_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
                      rownnz_b: torch.Tensor | None = None,
                      row_flop: torch.Tensor | None = None):
     """(z* int32, f* int32) for ``rows`` at the given degree bounds, f* the
-    gathered products.
+    gathered products, in one launch of the fused kernel with nothing read
+    back.
 
     ``row_flop`` (int32 (S,), optional) bounds each sampled row's gathered
-    products — Algorithm 1's FLOP of the rows at ``max_deg_a`` does — and
-    sizes the workspace from the widest of them; without it the workspace
-    covers ``max_deg_a·max_deg_b`` products.  Either way a row sorts in
-    shared memory whenever it fits there."""
+    products — Algorithm 1's FLOP of the rows at ``max_deg_a`` does — so
+    each row takes a warp or a block by its own products, decided on the
+    card; without it every row is bounded by ``max_deg_a·max_deg_b``.  A
+    long row counts by presence bits over its column extent, in shared
+    memory sized for B's columns or, where they do not fit there, in its
+    block's scratch slice, so that the blocks still count side by side;
+    only a short row past its hint counts in the kernel's global spill
+    bitmask."""
     if rownnz_b is None:
         rownnz_b = torch.diff(b.rpt)
-    dev = _build.kernel_device(_SAMPLED, a.rpt, a.col, b.rpt, b.col,
-                               rownnz_b, rows)
+    dev = _build.kernel_device(_LIB, a.rpt, a.col, b.rpt, b.col, rownnz_b,
+                               rows)
     if dev is None:
         return sampled_symbolic_plain(a, b, rows, max_deg_a=max_deg_a,
                                       max_deg_b=max_deg_b, rownnz_b=rownnz_b)
     s = rows.shape[0]
-    z_rows = torch.empty(s, dtype=torch.int32, device=dev)
-    f_rows = torch.empty(s, dtype=torch.int32, device=dev)
-    if s:
-        i32 = torch.int32
-        if rownnz_b.shape[0] != b.nrows:
-            raise RuntimeError(f"{_SAMPLED}: rownnz_b has "
-                               f"{rownnz_b.shape[0]} entries for {b.nrows} "
-                               f"rows of B")
-        bound = max_deg_a * max_deg_b
-        if row_flop is not None:
-            bound = min(bound, int(row_flop.max()))
-        smem_lanes, grid, threads, smem, scratch, slice_bytes = \
-            _build.sort_workspace(_SAMPLED, dev, max_deg_a,
-                                  ceil_pow2(max(1, bound)), s)
-        fn = _build.launcher(_SAMPLED, "pipppppiiiiipqiiippip")
-        rc = fn(_build.require(_SAMPLED, rows, i32, "rows"), s,
-                *_build.require_csr(_SAMPLED, a, "a"),
-                *_build.require_csr(_SAMPLED, b, "b"),
-                _build.require(_SAMPLED, rownnz_b, i32, "rownnz_b"),
-                a.nrows, rownnz_b.shape[0], int(max_deg_a), int(max_deg_b),
-                smem_lanes,
-                scratch.data_ptr() if scratch is not None else None,
-                slice_bytes, grid, threads, smem, z_rows.data_ptr(),
-                f_rows.data_ptr(), dev.index or 0, _build.stream_of(dev))
-        _build.check(_SAMPLED, rc)
-        sampled_symbolic.launches += 1
-    return z_rows.sum(dtype=torch.int32), f_rows.sum(dtype=torch.int32)
+    if not s:
+        return _empty_counts(dev)[:2]
+    if row_flop is not None and row_flop.shape != rows.shape:
+        raise RuntimeError(f"{_LIB}: row_flop has shape "
+                           f"{tuple(row_flop.shape)} for {s} rows")
+    bound = int(max_deg_a) * int(max_deg_b)
+    short = min(bound, _build.SYM_WARP_MAX)
+    # a long row's workspace is a bitmask of B's columns beside its table,
+    # in shared memory or else in its block's scratch slice: every long
+    # row's column extent fits it, so none sorts or spills
+    out = _fused_launch(a, b, rownnz_b, dev, rows,
+                        s if bound > short else 0, max_deg_a, max_deg_b,
+                        short, -(-b.ncols // 32), max_deg_a, gathered=True,
+                        row_flop=row_flop)
+    sampled_symbolic.launches += 1
+    return out[0], out[1]
 
 
 sampled_symbolic.launches = 0

@@ -151,3 +151,123 @@ def test_plain_runs_on_the_cpu_without_counting_a_launch():
     out = tops.flash_attention(q, k, v, block_q=64, block_k=64)
     assert out.dtype == torch.bfloat16 and not out.requires_grad
     assert tfa_k.flash_attention.launches == before
+
+
+# --------------------------------------------------------------------------- #
+# Which kernel a CUDA call launches, and the sm90 kernel's key-tile schedule
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128, 160, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_variant_follows_dtype_and_head_dim(dtype, d):
+    """bf16 and f16 at D 64, 96 and 128 go to the tensor-core kernel, every
+    other (dtype, D) to the CUDA-core one."""
+    want = ("sm90" if dtype != torch.float32 and d in (64, 96, 128)
+            else "simt")
+    assert tfa_k.variant(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float16, 96),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 128),
+                                     (torch.float16, 256)])
+def test_a_cuda_call_launches_its_variant_and_no_other(monkeypatch, dtype,
+                                                       d):
+    """The wrapper picks the kernel before the launch from dtype and D; the
+    launches count under the variant and under ``flash_attention``."""
+    picked = []
+    for name in ("flash_attention_sm90", "flash_attention_simt"):
+        fake = (lambda name: lambda q, k, v, *, causal: picked.append(name)
+                or torch.zeros_like(q))(name)
+        monkeypatch.setattr(tfa_k, name, fake)
+    monkeypatch.setattr(tfa_k._build, "kernel_device",
+                        lambda name, *ts: torch.device("cpu"))
+    before = tfa_k.flash_attention.launches
+    _, (q, k, v) = _inputs(64, 64, d, 4, 2, "float32")
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    tfa_k.flash_attention(q, k, v, block_q=64, block_k=64)
+    assert picked == [f"flash_attention_{tfa_k.variant(dtype, d)}"]
+    assert tfa_k.flash_attention.launches == before + 1
+
+
+def test_a_failed_sm90_launch_raises_without_a_fallback(monkeypatch):
+    def broken(q, k, v, *, causal):
+        raise RuntimeError("flash_attention_sm90: CUDA error")
+
+    def other(q, k, v, *, causal):
+        raise AssertionError("fell back to the simt kernel")
+
+    monkeypatch.setattr(tfa_k, "flash_attention_sm90", broken)
+    monkeypatch.setattr(tfa_k, "flash_attention_simt", other)
+    monkeypatch.setattr(tfa_k, "flash_attention_plain", other)
+    monkeypatch.setattr(tfa_k._build, "kernel_device",
+                        lambda name, *ts: torch.device("cpu"))
+    _, (q, k, v) = _inputs(64, 64, 128, 4, 2, "bfloat16")
+    with pytest.raises(RuntimeError, match="flash_attention_sm90"):
+        tfa_k.flash_attention(q, k, v, block_q=64, block_k=64)
+
+
+def test_sm90_variant_refuses_what_it_does_not_take():
+    _, (q, k, v) = _inputs(64, 64, 32, 4, 2, "bfloat16")
+    with pytest.raises(ValueError, match="flash_attention_sm90"):
+        tfa_k.flash_attention_sm90(q, k, v, causal=True)
+
+
+def test_sm90_tiles_are_read_from_the_kernel_source():
+    text = (tfa_k._build.CSRC / "flash_attention_sm90.cu").read_text()
+    assert f"#define FA9_BM {tfa_k.SM90_BM} " in text
+    assert f"#define FA9_BN {SM90_BN} " in text
+
+
+SM90_BN = tfa_k._build.source_define("flash_attention_sm90", "FA9_BN")
+
+
+def sm90_key_tiles(q0, sq, sk, causal):
+    """The sm90 kernel's schedule for its query tile of ``SM90_BM`` rows
+    from ``q0``, as ``csrc/flash_attention_sm90.cu``'s ``fa9_key_tiles``
+    and ``edge`` compute it: ``[(k0, masked), ...]``, the key tiles of
+    ``SM90_BN`` keys it visits (all, or when causal those up to its last
+    row's diagonal) and whether it masks each (a tile that may hold a key
+    past ``sk`` or above a row's diagonal)."""
+    bm = tfa_k.SM90_BM
+    n = -(-sk // SM90_BN)
+    if causal:
+        n = min(n, (min(q0 + bm, sq) - 1) // SM90_BN + 1)
+    return [(k0, k0 + SM90_BN > sk or (causal and k0 + SM90_BN - 1 > q0))
+            for k0 in range(0, n * SM90_BN, SM90_BN)]
+
+
+def _plain_visible(sq, sk, causal):
+    """Which keys each query sees, as the plain version masks them: with q
+    and k zero every visible key weighs the same, and v the identity makes
+    out[i, j] that weight (zero where key j is masked)."""
+    q = torch.zeros(1, 1, sq, sk)
+    k = torch.zeros(1, 1, sk, sk)
+    v = torch.eye(sk)[None, None]
+    return tfa_k.flash_attention_plain(q, k, v, causal=causal)[0, 0] > 0
+
+
+# Sq = Sk, Sq < Sk, Sq > Sk and ragged sizes, off the 128-row tiles
+@pytest.mark.parametrize("sq,sk,causal", [
+    (256, 256, True), (128, 384, True), (384, 128, True), (96, 160, True),
+    (200, 130, True), (130, 333, True), (256, 256, False),
+    (96, 160, False)])
+def test_sm90_schedule_visits_exactly_the_tiles_with_a_visible_key(sq, sk,
+                                                                   causal):
+    """Each query tile of the sm90 kernel visits exactly the key tiles that
+    hold a key one of its rows sees under the plain version's mask, and
+    leaves unmasked only tiles whose every key its every row sees."""
+    seen = _plain_visible(sq, sk, causal)
+    bm, bn = tfa_k.SM90_BM, SM90_BN
+    for q0 in range(0, sq, bm):
+        rows = seen[q0:q0 + bm]
+        tiles = sm90_key_tiles(q0, sq, sk, causal)
+        visited = [k0 for k0, _ in tiles]
+        want = [k0 for k0 in range(0, sk, bn)
+                if bool(rows[:, k0:k0 + bn].any())]
+        assert visited == want
+        for k0, masked in tiles:
+            block = rows[:, k0:k0 + bn]
+            assert masked or (bool(block.all()) and block.shape[1] == bn)

@@ -321,12 +321,15 @@ def test_launch_counters_count_kernel_launches_only(card):
 def _global_pad_checks(ad, bd, rows, da, db):
     """Kernels 7 and 8 against their plain versions on ``rows``, with and
     without the workspace hint, and kernel 7's z* against the fused ESC
-    kernel's on the same rows (f* too when B's rows are read whole)."""
+    kernel's on the same rows (f* too when B's rows are read whole).  A
+    hint of 1 a row sends every row to a warp that it outgrows (each
+    counts in the spill bitmask); a huge one sends every row to a block."""
     rnb = torch.diff(bd.rpt)
     kw = dict(a=ad, b=bd, rows=rows, max_deg_a=da, max_deg_b=db)
     want = sym_k.sampled_symbolic_plain(**kw)
     hint = flop_k.flop_rows(ad, rnb, rows, max_deg_a=da)
-    for row_flop in (None, hint):
+    for row_flop in (None, hint, torch.ones_like(hint),
+                     torch.full_like(hint, 1 << 30)):
         got = sym_k.sampled_symbolic(**kw, row_flop=row_flop)
         assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
     esc = sym_k.fused_flop_symbolic(**kw)
@@ -355,6 +358,34 @@ def test_global_pad_kernels_match_plain_versions(card, trunc):
         np.argsort(m.row_nnz)[-8:]]).astype(np.int32)
     rows = torch.from_numpy(sample).to(card)
     _global_pad_checks(ad, ad, rows, da, da // 2 if trunc else da)
+
+
+@pytest.mark.cuda
+def test_sampled_symbolic_long_rows_count_in_their_scratch_slices(card):
+    """Kernel 7 at global bounds over B's 4 M columns: a long row's bitmask
+    of B's columns (125,000 words) does not fit shared memory, so each long
+    row's block counts it by presence bits in its own scratch slice — row
+    0's 90,000 products over the whole extent too — beside short rows and
+    duplicates."""
+    a, b = _long_row_operands()
+    sample = np.concatenate([[0, 1, 2, 0], np.random.default_rng(85).integers(
+        0, a.nrows, 200), [1]]).astype(np.int32)
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+    words = -(-b.ncols // 32)
+    shape = _build.symbolic_shape(
+        _build.max_smem("esc_symbolic", card), _build.SYM_WARP_MAX, words,
+        da, sample.size, b.ncols)
+    assert 0 <= shape.smem_keys < words
+    assert shape.slice_bytes == _build.align16(4 * words)
+    rows = torch.from_numpy(sample).to(card)
+    kw = dict(a=ad, b=bd, rows=rows, max_deg_a=da, max_deg_b=db)
+    want = sym_k.sampled_symbolic_plain(**kw)
+    assert int(want[0]) == oracle.exact_sampled_nnz(a, b, sample)
+    hint = flop_k.flop_rows(ad, torch.diff(bd.rpt), rows, max_deg_a=da)
+    for row_flop in (None, hint, torch.full_like(hint, 1 << 30)):
+        got = sym_k.sampled_symbolic(**kw, row_flop=row_flop)
+        assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
 
 
 @pytest.mark.cuda
@@ -539,14 +570,18 @@ def test_numeric_val_is_bitwise_equal_across_launches(card, route):
 # (sq, sk, D, causal, Hq, Hkv): the CPU tests' cases
 # (tests/test_torch_attention.py), a 1024-token case at qwen2.5-32b's
 # attention width (40 heads, 8 kv heads, D 128), phi3-mini's (32 heads,
-# D 96), and ragged tiles (Sq, Sk off the kernel's 64-row tiles, D 48)
+# D 96), and ragged tiles (Sq, Sk off the kernels' 64- and 128-row tiles,
+# D 48); for the tensor-core kernel, D 128 causal with Sq < Sk and Sq > Sk
+# over groups of five, and ragged tiles at D 128 and 96
 ATTN_CASES = [(128, 128, 64, True, 4, 2), (128, 256, 64, False, 4, 2),
               (256, 256, 32, True, 4, 2),
               (64, 128, 32, True, 4, 2), (128, 64, 32, True, 4, 2),
               (128, 128, 96, True, 4, 4), (128, 128, 16, True, 4, 2),
               (128, 128, 64, False, 6, 2),
               (1024, 1024, 128, True, 40, 8), (1024, 1024, 96, True, 32, 32),
-              (96, 160, 48, True, 4, 2)]
+              (96, 160, 48, True, 4, 2),
+              (128, 384, 128, True, 10, 2), (384, 128, 128, True, 10, 2),
+              (96, 160, 128, True, 4, 2), (96, 160, 96, False, 4, 4)]
 # fp32: the same sums in another order; bf16/f16: one rounding of the output
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
@@ -566,10 +601,12 @@ def test_flash_attention_kernel_matches_plain_version(card, sq, sk, d, causal,
                                                       hq, hkv, dtype):
     q, k, v = _attn_inputs(card, (2, hq, sq, d), (2, hkv, sk, d), dtype,
                            sq + sk + d)
-    before = fa_k.flash_attention.launches
+    kernel = getattr(fa_k, f"flash_attention_{fa_k.variant(dtype, d)}")
+    before = (fa_k.flash_attention.launches, kernel.launches)
     got = fa_k.flash_attention(q, k, v, causal=causal, block_q=32,
                                block_k=32)
-    assert fa_k.flash_attention.launches == before + 1
+    assert (fa_k.flash_attention.launches, kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype and got.shape == q.shape
     want = fa_k.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(),
@@ -582,11 +619,16 @@ def test_flash_attention_kernel_takes_strided_inputs_and_refuses_wide_heads(
     q, k, v = _attn_inputs(card, (1, 4, 64, 128), (1, 2, 64, 128),
                            torch.bfloat16, 1)
     qs = q.transpose(1, 2).contiguous().transpose(1, 2)   # not contiguous
-    torch.testing.assert_close(fa_k.flash_attention(qs, k, v, block_q=64,
-                                                    block_k=64),
-                               fa_k.flash_attention(q, k, v, block_q=64,
-                                                    block_k=64),
-                               rtol=0, atol=0)
+    # contiguous, but starting 2 bytes into its storage: no tensor map
+    # takes that start, so the sm90 kernel reads an aligned copy
+    qm = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)[1:].view(
+        q.shape).copy_(q)
+    want = fa_k.flash_attention(q, k, v, block_q=64, block_k=64)
+    for other in (qs, qm):
+        torch.testing.assert_close(fa_k.flash_attention(other, k, v,
+                                                        block_q=64,
+                                                        block_k=64),
+                                   want, rtol=0, atol=0)
     wide = torch.zeros(1, 2, 64, 320, device=card)
     with pytest.raises(ValueError, match="head dim 320"):
         fa_k.flash_attention(wide, wide, wide, block_q=64, block_k=64)

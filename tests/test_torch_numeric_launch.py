@@ -135,26 +135,36 @@ def test_bin_row_goes_to_scratch_only_past_the_shared_memory_limit(
             assert shape.slice_pairs == bound
 
 
-def _old_sort_workspace(limit, max_deg_a, lanes):
-    """Kernel 7's sizing as it stood before it moved onto split_workspace:
-    (smem_lanes, smem_bytes, slice_bytes)."""
-    pre = _build.align16(4 * (max_deg_a + 1))
-    room = limit - _build.STATIC_SMEM_RESERVE - pre
-    if 4 * lanes <= room:
-        return lanes, pre + 4 * lanes, 0
-    if room >= 4 * 32:
-        smem_lanes = 1 << ((room // 4).bit_length() - 1)
-        return smem_lanes, pre + 4 * smem_lanes, 4 * lanes
-    return -1, 0, pre + 4 * lanes
-
-
 @pytest.mark.parametrize("limit", SMEM_LIMITS)
 def test_sort_workspace_keeps_its_sizing_on_split_workspace(limit):
+    """split_workspace over a grid of product prefixes (the fixed part of
+    a row's workspace) and keys of 4 bytes, each result one of its three
+    cases: every key fits beside the prefix in shared memory; the most
+    keys that fit there (at least 32), with a slice holding all of them;
+    or not even the prefix and 32 keys, which then share the slice."""
+    seen = set()
     for max_deg_a in (1, 200, 916, 60_000):
-        for lanes in (1, 32, 1 << 10, 1 << 15, 1 << 16, 1 << 20):
-            assert _build.split_workspace(
-                limit, _build.align16(4 * (max_deg_a + 1)), 4, lanes,
-                pow2=True) == _old_sort_workspace(limit, max_deg_a, lanes)
+        pre = _build.align16(4 * (max_deg_a + 1))
+        for lanes in (1, 32, 1000, 1 << 10, 1 << 15, 1 << 16, 1 << 20):
+            items, smem, slice_bytes = _build.split_workspace(limit, pre, 4,
+                                                              lanes)
+            if not slice_bytes:
+                seen.add("fit")
+                assert (items, smem) == (lanes, pre + 4 * lanes)
+                assert smem + _build.STATIC_SMEM_RESERVE <= limit
+            elif items >= 0:
+                seen.add("part")
+                assert 32 <= items < lanes and smem == pre + 4 * items
+                assert smem + _build.STATIC_SMEM_RESERVE <= limit
+                # one key more would not fit
+                assert smem + 4 + _build.STATIC_SMEM_RESERVE > limit
+                assert slice_bytes == 4 * lanes
+            else:
+                seen.add("none")
+                assert (items, smem) == (-1, 0)
+                assert pre + 4 * 32 + _build.STATIC_SMEM_RESERVE > limit
+                assert slice_bytes == pre + 4 * lanes
+    assert seen == {"fit", "part", "none"}
 
 
 # --------------------------------------------------------------------------- #

@@ -230,6 +230,85 @@ def test_a_flop_below_the_rows_products_changes_no_count(family):
 
 
 # --------------------------------------------------------------------------- #
+# Kernel 7 at the global bounds, on kernel 2's launch
+# --------------------------------------------------------------------------- #
+_GLOBAL_JAX = {}
+
+
+def _global_case(family, trunc):
+    """The global-pad kernel-7 case of a mini family: port operands, seed-7
+    sample rows, the global bounds (B's rows read to fewer entries than its
+    widest has with ``trunc``) and JAX's ``sampled_symbolic_pallas`` (z*,
+    f*) in interpret mode, computed once per case."""
+    jm = _MINI[family]
+    jd, td, _, _, rows = _case(jm, samples=48, seed=7)
+    da = int(np.diff(jm.rpt).max())
+    db = da - max(1, da // 3) if trunc else da
+    if (family, trunc) not in _GLOBAL_JAX:
+        zj, fj = jops.sampled_symbolic(jd, jd, jnp.asarray(rows), da, db)
+        _GLOBAL_JAX[family, trunc] = (int(zj), int(fj))
+    return td, rows, da, db, _GLOBAL_JAX[family, trunc]
+
+
+@pytest.mark.parametrize("trunc", [False, True])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_global_pad_counts_match_jax_sampled_symbolic(family, trunc):
+    """Kernel 7's wrapper as the global-pad predictor calls it (every
+    sampled row at the global bounds, its FLOP as the hint, f* the gathered
+    products) on CPU tensors, where it runs the plain version: equal to
+    JAX's ``sampled_symbolic_pallas`` (interpret mode) with B's rows read
+    whole and, with ``trunc``, to fewer entries than B's widest has; f*
+    then falls below the FLOP that kernel 2's f* sums.  The card's warp or
+    block choice is modelled in the next test and run in the card tests."""
+    td, rows, da, db, (zj, fj) = _global_case(family, trunc)
+    rnb = torch.diff(td.rpt)
+    trows = torch.from_numpy(rows)
+    flop = tflop_k.flop_rows(td, rnb, trows, max_deg_a=da)
+    z, f = tops.sampled_symbolic(td, td, trows, da, db, row_flop=flop)
+    assert (int(z), int(f)) == (int(zj), int(fj))
+    zp, fp = tsym_k.sampled_symbolic_plain(td, td, trows, max_deg_a=da,
+                                           max_deg_b=db)
+    assert (int(zp), int(fp)) == (int(zj), int(fj))
+    # kernel 2's own counts on the same rows: z* the same, f* the FLOP
+    z2, f2, fl = tsym_k.fused_flop_symbolic_plain(td, td, trows,
+                                                  max_deg_a=da, max_deg_b=db)
+    assert int(z2) == int(z) and torch.equal(fl, flop)
+    assert int(f2) == int(flop.sum()) >= int(f)
+    if not trunc:
+        assert int(f2) == int(f)
+
+
+@pytest.mark.parametrize("hint", ["flop", "one", "huge"])
+@pytest.mark.parametrize("trunc", [False, True])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_global_pad_row_dispatch_model_matches_jax(family, trunc, hint):
+    """A model of kernel 7's launch on the card: each sampled row takes a
+    block when ``min(hint, DA·DB)`` passes a warp's keys (``SYM_WARP_MAX``,
+    capped by ``DA·DB``), else a warp, and whichever it takes adds the
+    row's z and gathered products once.  Counted so, over the rows' FLOP,
+    a hint of 1 a row (every row a warp) and of 2^30 (every row a block
+    where ``DA·DB`` passes a warp), z* and f* equal JAX's."""
+    td, rows, da, db, want = _global_case(family, trunc)
+    trows = torch.from_numpy(rows)
+    flop = tflop_k.flop_rows(td, torch.diff(td.rpt), trows, max_deg_a=da)
+    hints = dict(flop=flop, one=torch.ones_like(flop),
+                 huge=torch.full_like(flop, 1 << 30))
+    cap = da * db
+    warp_keys = min(cap, _build.SYM_WARP_MAX)
+    long = torch.clamp(hints[hint].long(), max=cap) > warp_keys
+    if hint == "one":
+        assert not bool(long.any())
+    if hint == "huge":
+        assert bool(long.all()) == (cap > _build.SYM_WARP_MAX)
+    z = f = 0
+    for sel in (long, ~long):
+        zs, fs = tsym_k.sampled_symbolic_plain(td, td, trows[sel],
+                                               max_deg_a=da, max_deg_b=db)
+        z, f = z + int(zs), f + int(fs)
+    assert (z, f) == want
+
+
+# --------------------------------------------------------------------------- #
 # Host-side tables
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("source, macro, value", [

@@ -26,6 +26,16 @@ the planned path passes it.  With ``--ptxas`` it also prints ``nvcc
 ``--predict``: for ``flop_rows.cu`` and ``esc_symbolic.cu``).  One JSON
 object per line on stdout, and the same lines in ``--out``.
 
+``--attention`` times ``ops.flash_attention`` on ``chip_smoke.py``'s
+attention cases G1-G4 (CUDA events, the device time ``torch.profiler``
+sees, TFLOP/s) beside ``scaled_dot_product_attention`` on the same inputs;
+``--global`` times the global-pad predictor's sampled symbolic kernel
+(kernel 7) on the five predict products' seed-0 samples at their global
+bounds, with the rows' FLOP as its workspace hint, as the predictor calls
+it (events, device time, host time to issue a call), and on two products
+whose long rows do not fit shared memory (``wide_products``).  Both run on a tree
+whose flash attention or kernel 7 has either design.
+
 ``--predict`` takes ``chip_smoke.py``'s five predict products instead, each
 with its ``route="esc"`` bucket plan and seed-0 sampled rows, and times the
 per-bucket calls of kernels 1 and 2 as the binned predictor made them one
@@ -176,6 +186,8 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--predict", action="store_true")
+    ap.add_argument("--attention", action="store_true")
+    ap.add_argument("--global", dest="global_pad", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -209,11 +221,17 @@ def main() -> int:
               torch=torch.__version__, build_s=built["seconds"]))
     if args.ptxas:
         names = (("flop_rows", "esc_symbolic") if args.predict
+                 else ("flash_attention_sm90",) if args.attention
                  else ("esc_numeric", "bin_numeric"))
         for ln in ptxas(os.path.abspath(args.src), names):
             emit(dict(phase="ptxas", line=ln))
-    if args.predict:
-        predict_splits(torch, np, dev, emit)
+    if args.predict or args.attention or args.global_pad:
+        if args.predict:
+            predict_splits(torch, np, dev, emit)
+        if args.global_pad:
+            global_splits(torch, np, dev, emit)
+        if args.attention:
+            attention_splits(torch, dev, emit)
         if out_f:
             out_f.close()
         return 0
@@ -466,6 +484,101 @@ def predict_splits(torch, np, dev, emit) -> None:
                       torch, lambda: predictor.proposed_predict_binned(
                           ad, ad, rows_d, bp, use_kernel=True))))
         del ad, rnb, k1, k2, seqs
+        torch.cuda.empty_cache()
+
+
+# chip_smoke.py's attention cases: (case, q shape, kv shape, dtype, causal)
+ATTENTION_CASES = (
+    ("G1", (4, 40, 4096, 128), (4, 8, 4096, 128), "bfloat16", True),
+    ("G2", (1, 40, 4096, 128), (1, 8, 4096, 128), "float32", True),
+    ("G3", (2, 32, 4096, 96), (2, 32, 4096, 96), "bfloat16", True),
+    ("G4", (1, 40, 1024, 128), (1, 8, 4096, 128), "bfloat16", True),
+    ("G4_full", (1, 40, 1024, 128), (1, 8, 4096, 128), "bfloat16", False))
+
+
+def attention_splits(torch, dev, emit) -> None:
+    """``--attention``: the flash kernel on each case, events and device
+    time, beside SDPA; inputs standard normal from the case's seed, as
+    chip_smoke.py makes them."""
+    from repro_torch.kernels import ops as kops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for seed, (case, sq, skv, dtype, causal) in enumerate(ATTENTION_CASES):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v = (torch.randn(s_, generator=gen, device=dev).to(
+            getattr(torch, dtype)) for s_ in (sq, skv, skv))
+        b, hq, n_q, d = sq
+        n = min(n_q, skv[2])
+        pairs = (n * (n + 1) // 2 + (n_q - n) * skv[2] if causal
+                 else n_q * skv[2])
+        ops = 4 * b * hq * d * pairs
+        fn = lambda: kops.flash_attention(q, k, v, causal=causal)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+        ms = cuda_ms(torch, fn)
+        _, device = profiled_ms(torch, fn, "")
+        emit(dict(phase="attention_split", case=case, dtype=dtype,
+                  causal=causal, ms=ms, device_ms=device,
+                  tflop_per_s=ops / ms * 1e-9, sdpa_ms=cuda_ms(torch, sdpa),
+                  operations=ops))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def wide_products(np):
+    """Kernel 7's products past the card's shared memory, as ``(name, A, B,
+    sampled rows)``: ``pl20k_x_er4m``, a power-law A (20,000 rows, mean 16
+    entries) by B of 4,000 rows of about 200 columns spread over 4 M, so a
+    long row's bitmask of B's columns (125,000 words) does not fit shared
+    memory, sampled at its seed-0 rows and its 32 widest; and
+    ``er64_d40k_x_er5k``, 64 rows of about 33,000 entries, whose product
+    prefix table alone does not fit, by B of 100,000 rows of about 2
+    columns over 5,000, every row sampled."""
+    from repro_torch.core import oracle
+    from repro_torch.sparse import random as sprand
+    a = sprand.power_law(20_000, 4_000, 16, 1.2, seed=1)
+    rows = np.union1d(oracle.sample_rows(a.nrows, seed=0),
+                      np.argsort(a.row_nnz)[-32:])
+    yield ("pl20k_x_er4m", a, sprand.erdos_renyi(4_000, 4_000_000, 200,
+                                                 seed=2), rows)
+    a = sprand.erdos_renyi(64, 100_000, 40_000, seed=3)
+    yield ("er64_d40k_x_er5k", a, sprand.erdos_renyi(100_000, 5_000, 2,
+                                                     seed=4),
+           np.arange(a.nrows))
+
+
+def global_splits(torch, np, dev, emit) -> None:
+    """``--global``: kernel 7 as the global-pad predictor calls it, on each
+    predict product's seed-0 samples at the global bounds, then on the
+    products of :func:`wide_products`; ``agrees`` holds its (z*, f*)
+    against the plain version's."""
+    from repro_torch.core import csr, oracle
+    from repro_torch.kernels import flop_per_row as flop_k
+    from repro_torch.kernels import spgemm_symbolic as sym_k
+    from repro_torch.sparse import suite
+
+    def squared():
+        for name in PREDICT_MATRICES:
+            m = suite.get_matrix(name)
+            yield name, m, m, oracle.sample_rows(m.nrows, seed=0)
+    for name, a, b, rows in (*squared(), *wide_products(np)):
+        ad = csr.to_device(a, device=dev)
+        bd = ad if b is a else csr.to_device(b, device=dev)
+        rnb = torch.diff(bd.rpt)
+        da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+        rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        hint = flop_k.flop_per_row(ad, rnb, max_deg_a=da)[rows_d.long()]
+        fn = lambda: sym_k.sampled_symbolic(ad, bd, rows_d, max_deg_a=da,
+                                            max_deg_b=db, rownnz_b=rnb,
+                                            row_flop=hint)
+        want = sym_k.sampled_symbolic_plain(ad, bd, rows_d, max_deg_a=da,
+                                            max_deg_b=db, rownnz_b=rnb)
+        agrees = [int(x) for x in fn()] == [int(x) for x in want]
+        own, every = profiled_ms(torch, fn, "symbolic")
+        emit(dict(phase="global_split", matrix=name, samples=int(rows.size),
+                  max_deg=da, max_deg_b=db, agrees=agrees,
+                  ms=cuda_ms(torch, fn), device_ms=own, all_device_ms=every,
+                  host_ms=host_ms(torch, fn), synced_ms=synced_ms(torch, fn)))
+        del ad, bd, rnb, rows_d, hint
         torch.cuda.empty_cache()
 
 
