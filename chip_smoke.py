@@ -46,14 +46,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    bitmask symbolic kernels also against the ESC ones on the same sampled
    rows; the one-launch FLOP and ESC symbolic entries also against the
    per-bucket kernels and the host oracles) and times both, with CUDA
-   events, beside the bound and a PyTorch yardstick (the BIN and symbolic
+   events (the SPA and all-rows FLOP kernels also by their profiler device
+   time; the latter on ``cant_like``, ``webbase_like`` and ``pl_100k_d4``),
+   beside the bound and a PyTorch yardstick (the BIN and symbolic
    kernels': ``torch.sparse.mm`` of their rows of A by B; attention's:
    ``scaled_dot_product_attention``, also through each of its backends);
    kernels 1 and 2 as one launch over a whole prediction, their
    per-bucket sequence beside it;
 4. launches each numeric kernel twice on every bucket and holds ``val``
-   bit for bit: the ESC and BIN kernels add in a fixed order, the SPA
-   kernel's atomics only report.
+   bit for bit (ESC, SPA and BIN all add each column's products in a fixed
+   order), SPA also on the reference phase's forced ``route="spa"`` plans,
+   where each bucket is held to its plain version and to the ESC kernel.
 
 It prints one JSON object per phase, then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last
@@ -88,6 +91,9 @@ PLAIN_GLOBAL_LANES = 1 << 31
 WIDEST_ROWS = 64
 BASELINE = os.path.join("artifacts", "accuracy_subset_baseline.json")
 FLASH_SOURCES = dict(sm90="flash_attention_sm90.cu", simt="flash_attention.cu")
+# kernels whose kernel_time lines also carry their profiler device time, by
+# a part of their CUDA kernels' names
+DEVICE_TIMED = dict(spa_numeric="spa_numeric", flop_per_row="flop_all_rows")
 G1_ACCEPT_MS = 2.0     # the tensor-core redesign's acceptance bar on G1
 
 
@@ -125,6 +131,23 @@ def cuda_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, pattern: str, reps: int = TIMED_RUNS):
+    """Mean device milliseconds a run of ``fn`` spends in the kernels whose
+    name holds ``pattern``, from torch.profiler over ``reps`` runs after a
+    warm-up (None where the profiler sees no device time): beside the CUDA
+    events it leaves out the host's time to issue the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0)
+                for e in prof.key_averages() if pattern in e.key)
+    return total / 1e3 / reps if total else None
 
 
 def referenced(np, m, rows, deg_a):
@@ -791,12 +814,21 @@ def main() -> int:
 
     # ---- small products on every route against the dense oracle -------- #
     minis = suite.mini_suite(scale=200)
+    forced_spa = []     # (matrix, kwargs) of each forced-SPA bucket
     for route in ("esc", "spa", "bin", "auto"):
         for name, m in minis:
             p = plan.plan_spgemm(m, m, route=route, use_kernel=True,
                                  device=dev)
             if route != "auto" and p.binning.route_rows()[route] != m.nrows:
                 fail(f"reference {name}: route {route} not forced")
+            if route == "spa":
+                ad = p.to_device(m, "a")
+                forced_spa += [(name, dict(
+                    a=ad, b=ad, rows=torch.from_numpy(bk.rows).to(dev),
+                    max_deg_a=bk.deg_a, max_deg_b=bk.deg_b, row_capacity=cap,
+                    tile_n=bk.tile_n, n_tiles=bk.n_tiles))
+                    for bk, cap in zip(p.binning.buckets,
+                                       p.alloc.bucket_capacities)]
             c = plan.reassemble(p, plan.execute(p, m, m))
             if not np.allclose(c.to_dense(), spgemm_dense_oracle(m, m),
                                rtol=VAL_RTOL, atol=1e-6):
@@ -934,6 +966,7 @@ def main() -> int:
     # their plain versions, the host oracles and each other, and kernel 7
     # against the fused ESC kernel (kernel 2) on the same rows at the same
     # bounds; the contract line times 7 and 8 on R-MAT's rows, 9 on cant's
+    # (9 is also timed on webbase's and pl's, the skewed products)
     for name, m in mats:
         rows = oracle.sample_rows(m.nrows, seed=0)
         ad = csr.to_device(m, device=dev)
@@ -967,7 +1000,7 @@ def main() -> int:
             if err or got != host:
                 fail(f"{k} {name}: kernel != plain/ESC kernel/host oracle")
             int_err[k] = max(int_err[k], err)
-        if name == "cant_like":
+        if name in ("cant_like", "webbase_like", "pl_100k_d4"):
             calls["flop_per_row", name] = [(kw9, None, da, None)]
         if name == "rmat_80k":
             calls["sampled_symbolic", name] = [
@@ -1007,10 +1040,24 @@ def main() -> int:
                      *call[1:]))
 
     # ---- determinism: each numeric kernel twice on every bucket, val
-    # compared bit for bit; ESC and BIN add in a fixed order and fail on a
-    # difference, SPA adds with float atomics and only reports
+    # compared bit for bit; all three add each column's products in a fixed
+    # order and fail on a difference.  SPA also on the forced route="spa"
+    # plans of the reference phase, each bucket held there to its plain
+    # version and to the ESC kernel too
     same = {k: [0, 0] for k in ("spgemm_numeric", "spa_numeric",
-                                "bin_numeric")}
+                                "bin_numeric", "spa_numeric_forced")}
+
+    def twice(kernel, fn, kw, what):
+        first, second = fn(**kw), fn(**kw)
+        if not (torch.equal(first[0], second[0])
+                and torch.equal(first[1].view(torch.int32),
+                                second[1].view(torch.int32))
+                and torch.equal(first[2], second[2])):
+            fail(f"determinism {kernel} {what}: differs between two launches")
+        same[kernel][0] += 1
+        same[kernel][1] += 1
+        return first
+
     for (kernel, name), cs in calls.items():
         if kernel not in same:
             continue
@@ -1018,15 +1065,22 @@ def main() -> int:
                   spa_numeric=acc_k.spa_numeric,
                   bin_numeric=acc_k.bin_numeric)[kernel]
         for c in cs:
-            first, second = fn(**c[0]), fn(**c[0])
-            equal = (torch.equal(first[0], second[0]) and torch.equal(
-                first[1].view(torch.int32), second[1].view(torch.int32)))
-            if not equal and kernel != "spa_numeric":
-                fail(f"determinism {kernel} {name}: val differs between two "
-                     f"launches on a bucket of width {c[2]}x{c[3]}")
-            same[kernel][0] += 1
-            same[kernel][1] += int(equal)
-            del first, second
+            twice(kernel, fn, c[0], f"{name} on a bucket of width "
+                  f"{c[2]}x{c[3]}")
+    for name, kw in forced_spa:
+        got = twice("spa_numeric_forced", acc_k.spa_numeric, kw,
+                    f"{name} (forced SPA) on a bucket of width "
+                    f"{kw['max_deg_a']}x{kw['max_deg_b']}")
+        esc_kw = {k: v for k, v in kw.items() if k not in ("tile_n",
+                                                           "n_tiles")}
+        for want in (acc_k.spa_numeric_plain(**kw),
+                     num_k.spgemm_numeric(**esc_kw)):
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[2], want[2])
+                    and int(got[3]) == int(want[3])
+                    and vals_close(got[1], want[1])):
+                fail(f"forced SPA {name}: kernel != plain/ESC kernel on a "
+                     f"bucket of width {kw['max_deg_a']}x{kw['max_deg_b']}")
     emit(dict(phase="determinism", **{
         k: dict(buckets=n, bitwise_equal=eq) for k, (n, eq) in same.items()}))
 
@@ -1128,7 +1182,7 @@ def main() -> int:
         fn, plain_fn, esc_fn, source, replaces = kernel_of[kernel]
         cs = calls[kernel, name]
         m = dict(mats)[name]
-        extra = {}
+        extra, device = {}, {}
         if (kernel, name) in one_launch:
             # one launch over the whole prediction, its tables already on
             # the card, and the per-bucket launches beside it
@@ -1140,6 +1194,10 @@ def main() -> int:
                              torch, lambda: [fn(**c[0]) for c in cs]))
         else:
             ms = cuda_ms(torch, lambda: [fn(**c[0]) for c in cs])
+            if kernel in DEVICE_TIMED:
+                device[kernel] = device_ms(
+                    torch, lambda: [fn(**c[0]) for c in cs],
+                    DEVICE_TIMED[kernel])
             # the workspace hint is the kernel's own: the plain versions
             # and the fused ESC kernel take none
             plain_kw = [{k: v for k, v in c[0].items()
@@ -1203,7 +1261,9 @@ def main() -> int:
                                 else library_ms(name)),
                     esc_ms=esc_ms, timed_on=name,
                     calls=1 if extra else len(cs), bytes=nbytes,
-                    operations=ops, **extra)
+                    operations=ops,
+                    **({"device_ms": device[kernel]} if device else {}),
+                    **extra)
 
     # every (kernel, matrix) timing gets its own line; the contract line
     # takes one matrix per kernel: the power-law predict input for the ESC

@@ -219,6 +219,15 @@ def stream_of(device) -> int:
 
 
 _SMEM: dict = {}
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device.index or 0).multi_processor_count
+    return _SMS[device.index]
 
 
 def max_smem(name: str, device) -> int:
@@ -299,6 +308,68 @@ def split_workspace(smem_limit: int, fixed_bytes: int, item_bytes: int,
         fit = room // item_bytes
         return fit, fixed_bytes + item_bytes * fit, item_bytes * items
     return -1, 0, fixed_bytes + item_bytes * items
+
+
+# csrc/spa_numeric.cu: warps of a block, the fewest lanes a row takes, and
+# the warps an SM must get from row groups before rows take whole blocks
+SPA_WARPS = source_define("spa_numeric", "SPA_WARPS")
+SPA_MIN_GROUP = source_define("spa_numeric", "SPA_MIN_GROUP")
+SPA_FILL = source_define("spa_numeric", "SPA_FILL")
+
+
+class SpaShape(NamedTuple):
+    """Launch shape of the SPA numeric kernel (:func:`spa_numeric_shape`)."""
+
+    group: int          # lanes a row takes (SPA_MIN_GROUP to 32; 0: a block)
+    threads: int        # threads of a block
+    unit_bytes: int     # a row unit's workspace
+    smem_bytes: int     # dynamic shared memory of a block (0: none)
+    slice_bytes: int    # each unit's scratch slice (0: shared memory)
+
+    @property
+    def units(self) -> int:
+        """Rows a block holds at once."""
+        return self.threads // self.group if self.group else 1
+
+
+@functools.lru_cache(maxsize=256)
+def spa_numeric_shape(smem_limit: int, max_deg_a: int, max_deg_b: int,
+                      tile_n: int, n_rows: int, sms: int) -> SpaShape:
+    """Kernel 5's launch shape for ``n_rows`` rows of at most ``max_deg_a``
+    A entries over B rows of at most ``max_deg_b``, in tiles of ``tile_n``
+    lanes, on a card of ``sms`` SMs with ``smem_limit`` bytes of opt-in
+    shared memory a block.
+
+    A row's unit holds four tables of ``max_deg_a + 1`` entries (B cursor,
+    B row end, B tile stop, A value) and the tile's ``tile_n`` lanes.  A row
+    takes a group of lanes, as many as a B row's entries (a power of two,
+    :data:`SPA_MIN_GROUP` to 32), so 32 / group rows share a warp, and a
+    block holds up to :data:`SPA_WARPS` warps' units in shared memory,
+    fewer when fewer fit; when not even one warp's fit, the group widens to
+    32 lanes, and if one unit still does not fit, every unit works in its
+    own global scratch slice.  A launch whose groups would fill fewer than
+    :data:`SPA_FILL` warps an SM gives each row a block of
+    :data:`SPA_WARPS` warps instead (``group`` 0), whose unit also holds a
+    fifth table (the entries' offsets), a copy of the tile's B entries
+    (``max_deg_a * max_deg_b`` columns and values) and two tables a warp
+    (where each entry's copy enters and leaves the warp's tile lanes), in
+    shared memory or, past it, in the block's slice."""
+    da, db = max(0, int(max_deg_a)), max(0, int(max_deg_b))
+    table = align16(4 * (da + 1))
+    unit = 4 * table + 4 * int(tile_n)
+    room = smem_limit - STATIC_SMEM_RESERVE
+    group = min(32, max(SPA_MIN_GROUP, _ceil_pow2(db)))
+    if -(-int(n_rows) * group // 32) < sms * SPA_FILL:
+        unit = (align16(5 * table + 4 * int(tile_n) + 8 * da * db)
+                + 2 * SPA_WARPS * table)
+        fits = unit <= room
+        return SpaShape(0, 32 * SPA_WARPS, unit, unit if fits else 0,
+                        0 if fits else unit)
+    for g in (group, 32):
+        warps = min(SPA_WARPS, room // (32 // g * unit))
+        if warps >= 1:
+            return SpaShape(g, 32 * warps, unit, warps * (32 // g) * unit, 0)
+    return SpaShape(group, 32 * SPA_WARPS, unit, 0, unit)
 
 
 # csrc/esc_symbolic.cu: a warp sorts a short row of up to SYM_WARP_MAX

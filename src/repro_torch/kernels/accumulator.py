@@ -21,11 +21,11 @@ smallest one (:func:`extent_relative`), so the bitmask words and the dense
 tiles cover the row's column extent, not B's column space: the lever that
 makes SPA cheap on banded and FEM structure.  z* and f* equal the ESC
 kernel's bit for bit, and ``col``, ``row_nnz`` and ``overflow`` equal ESC's;
-``val`` agrees to float tolerance.  The BIN kernel adds each column's
-products in a fixed order, so its ``val`` is bitwise the same from run to
-run; the SPA kernel adds with shared-memory float atomics, so its ``val``
-may differ in its last bits between runs.  On the H100 all three are bound
-by bytes (see each source).
+``val`` agrees to float tolerance.  Both numeric kernels add each
+column's products in a fixed order, so their ``val`` is bitwise the same
+from run to run: BIN in its stable bins' order, SPA one product at a time
+in A-entry order, whichever unit (a group of lanes or a block) takes the
+row.  On the H100 all three are bound by bytes (see each source).
 """
 from __future__ import annotations
 
@@ -223,7 +223,8 @@ def spa_numeric(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
     """(col int32 (R, cap), val float32 (R, cap), row_nnz int32 (R,),
     overflow int32) for ``rows`` through a dense accumulator of ``n_tiles``
     tiles of ``tile_n`` lanes (a power of two ≥ 128) relative to each row's
-    smallest product column.  B's rows must be sorted."""
+    smallest product column.  B's rows must be sorted; a row that repeats
+    a column has the repeats added one at a time."""
     return _numeric(_SPA, spa_numeric, spa_numeric_plain, a, b, rows,
                     max_deg_a, max_deg_b, row_capacity, tile_n, n_tiles,
                     rownnz_b)
@@ -280,18 +281,20 @@ def _numeric(lib, wrapper, plain, a, b, rows, max_deg_a, max_deg_b,
                 a.nrows, rownnz_b.shape[0], int(max_deg_a), int(max_deg_b),
                 tile_n, n_tiles, cap)
         if lib == _SPA:
-            # workspace: the row's product prefix, one tile of floats and
-            # its presence words
-            ws_bytes = (_build.align16(4 * (max_deg_a + 1)) + 4 * tile_n
-                        + tile_n // 8)
-            grid, threads, smem, scratch, slice_bytes = \
-                _build.block_workspace(
-                    lib, dev, ws_bytes,
-                    _build.row_threads(ceil_pow2(max_deg_a * max_deg_b)), r)
-            fn = _build.launcher(lib, "pipppppppiiiiiiipqiiipppip")
-            rc = fn(*args, _ptr(scratch), slice_bytes, grid, threads, smem,
-                    col.data_ptr(), val.data_ptr(), row_nnz.data_ptr(),
+            shape = _build.spa_numeric_shape(
+                _build.max_smem(lib, dev), int(max_deg_a), int(max_deg_b),
+                tile_n, r, _build.sm_count(dev))
+            grid, scratch = -(-r // shape.units), None
+            if shape.slice_bytes:
+                grid, scratch = _build.scratch_slices(
+                    dev, shape.units * shape.slice_bytes, grid)
+            ctl = torch.empty(1, dtype=torch.int32, device=dev)
+            fn = _build.launcher(lib, "pipppppppiiiiiiiipqiiippppip")
+            rc = fn(*args, shape.group, _ptr(scratch), shape.unit_bytes,
+                    grid, shape.threads, shape.smem_bytes, col.data_ptr(),
+                    val.data_ptr(), row_nnz.data_ptr(), ctl.data_ptr(),
                     dev.index or 0, _build.stream_of(dev))
+            overflow = ctl[0]
         else:
             static = int(max_deg_a) * int(max_deg_b)
             bound = static if max_row_flop is None else min(
@@ -320,8 +323,8 @@ def _numeric(lib, wrapper, plain, a, b, rows, max_deg_a, max_deg_b,
             overflow = ctl[1]
         _build.check(lib, rc)
         wrapper.launches += 1
-    if lib == _SPA or not r:
-        overflow = torch.clamp(row_nnz - cap, min=0).sum(dtype=torch.int32)
+    if not r:
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
     return col, val, row_nnz, overflow
 
 

@@ -13,9 +13,8 @@
 //     kernel body as flop_rows_launch.
 //   flop_per_row_launch, for all M rows at one bound (rows[i] = i, no list):
 //     Replaces: src/repro/kernels/flop_per_row.py::flop_per_row_pallas
-//     (_kernel), which does the same over contiguous blocks of rows.  It
-//     keeps two kernels of its own, a thread a row or a warp a row: on the
-//     body the other two share, its device time on an H100 grew by 1-4%.
+//     (_kernel), which does the same over contiguous blocks of rows.  It has
+//     a kernel of its own, flop_all_rows_kernel (design below).
 //
 // Each reads at most its row's bound of A entries, as the TPU kernels do: a
 // row wider than that is undercounted there and here alike.
@@ -37,12 +36,40 @@
 // to exploit, so the design only keeps the reads of a warp on neighbouring
 // addresses (the warp part reads a row's A column ids contiguously, the
 // thread part reads the row pointers and bucket ids contiguously).
+//
+// Design of flop_all_rows_kernel: a warp owns `rpw` consecutive rows, lane
+// L row L.  rpw is a power of two up to 32, chosen in the launcher so that a
+// warp reads about FLOP_ALL_ENTRIES entries on average and its rows hold at
+// most FLOP_ALL_SPAN at the bound (a hub row does not hold up a warp of 31
+// others).  The warp streams its rows' entries as one contiguous range,
+// 32 a load, a batch of chunks at once and the next batch's column ids
+// loading while this one gathers, so every entry is read once and
+// coalesced whatever the rows' lengths; each chunk's B row lengths are
+// prefix-summed across the warp, and row L adds the difference of that
+// scan at its counted range's two ends (its first max_deg_a entries), so no
+// lane looks up its row and no sum crosses a warp: no atomic, no zeroing
+// pass, and each row's sum is written once, coalesced.  A row's entries
+// past max_deg_a are skipped between batches (read only inside a batch).
+// A warp whose counted entries run past FLOP_ALL_LONG (a quarter of that
+// when the warps are too few to fill the card) loads FLOP_ALL_BATCH chunks
+// a batch, any other two, which leaves the SM more warps: the choice is
+// the warp's own, so a hub's warp goes long and its neighbours stay short.
+// Sums are int32 (unsigned arithmetic, so they wrap as the JAX package's
+// do).
 #include "common.cuh"
 
 #define FLOP_THREADS 256
 // flop_per_row.py reads FLOP_NARROW from here to list a plan's wide rows
 #define FLOP_NARROW 16      // rows with a bound up to this take one thread
 #define FLOP_TABLE 12288    // bucket bounds held in (dynamic) shared memory
+// flop_all_rows_kernel: the entries a warp aims at (its rows: this over the
+// mean degree, 32 at most), the most its rows may hold at the bound, the
+// chunks of 32 a lane loads at once on a long run, and the entries past
+// which a warp's run counts as long
+#define FLOP_ALL_ENTRIES 256
+#define FLOP_ALL_SPAN 6400
+#define FLOP_ALL_BATCH 8
+#define FLOP_ALL_LONG 512
 
 __device__ inline int flop_row_entry(int j, int start, const int* a_col,
                                      const int* rownnz_b, int k_rows) {
@@ -169,63 +196,125 @@ extern "C" int flop_rows_buckets_launch(const void* row_bucket, int n,
       k_rows, out, device, stream);
 }
 
-// flop_per_row_launch's own kernels (kept off the shared body, see above):
-// a thread or a warp a row, output row i is row i of A.
-__global__ void flop_rows_thread_kernel(const int* __restrict__ a_rpt,
-                                        const int* __restrict__ a_col,
-                                        const int* __restrict__ rownnz_b,
-                                        int m, int k_rows, int max_deg_a,
-                                        int* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= m) return;
-  const int start = a_rpt[r];
-  const int deg = min(a_rpt[r + 1] - start, max_deg_a);
-  int s = 0;
-  for (int j = 0; j < deg; ++j)
-    s += flop_row_entry(j, start, a_col, rownnz_b, k_rows);
-  out[r] = s;
-}
-
-__global__ void flop_rows_warp_kernel(const int* __restrict__ a_rpt,
-                                      const int* __restrict__ a_col,
-                                      const int* __restrict__ rownnz_b,
-                                      int m, int k_rows, int max_deg_a,
-                                      int* __restrict__ out) {
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// flop_all_rows_kernel's stream over a warp's counted entries [c0, last):
+// lane L's row counts [s, e); BATCH chunks of 32 entries are loaded at once
+// and the next batch's column ids while this one gathers.  Returns lane
+// L's sum.
+template <int BATCH>
+__device__ __forceinline__ unsigned flop_all_stream(
+    int c0, int last, int s, int e, const int* __restrict__ a_col,
+    const int* __restrict__ rownnz_b, int k_rows) {
   const int lane = threadIdx.x & 31;
-  if (r >= m) return;  // whole warps leave together
-  const int start = a_rpt[r];
-  const int deg = min(a_rpt[r + 1] - start, max_deg_a);
-  int s = 0;
-  for (int j = lane; j < deg; j += 32)
-    s += flop_row_entry(j, start, a_col, rownnz_b, k_rows);
+  // the first counted entry at or past p (last when there is none)
+  auto next_start = [&](int p) {
+    return __reduce_min_sync(REPRO_FULL_MASK, e > p ? max(s, p) : last);
+  };
+  unsigned acc = 0;
+  int k[BATCH];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(REPRO_FULL_MASK, s, o);
-  if (lane == 0) out[r] = s;
+  for (int b = 0; b < BATCH; ++b) {
+    const int j = c0 + 32 * b + lane;
+    k[b] = j < last ? a_col[j] : -1;
+  }
+  while (c0 < last) {
+    const int c1 = next_start(c0 + 32 * BATCH);
+    int k1[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int j = c1 + 32 * b + lane;
+      k1[b] = j < last ? a_col[j] : -1;
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b)
+      k[b] = (k[b] >= 0 && k[b] < k_rows) ? rownnz_b[k[b]] : 0;
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      // inclusive scan of the chunk's lengths; row L's share of the chunk
+      // is the scan at its last counted entry less the scan before its first
+      unsigned x = static_cast<unsigned>(k[b]);
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_up_sync(REPRO_FULL_MASK, x, o);
+        if (lane >= o) x += y;
+      }
+      const int cb = c0 + 32 * b;
+      const int lo = max(s - cb, 0), hi = min(e - cb, 32);
+      const unsigned at_hi =
+          __shfl_sync(REPRO_FULL_MASK, x, min(max(hi - 1, 0), 31));
+      const unsigned at_lo =
+          __shfl_sync(REPRO_FULL_MASK, x, min(max(lo - 1, 0), 31));
+      if (lo < hi) acc += at_hi - (lo > 0 ? at_lo : 0u);
+    }
+    c0 = c1;
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) k[b] = k1[b];
+  }
+  return acc;
 }
 
-// out[i] for every row i < m of A.
+// flop_per_row_launch's kernel: warp w owns rows [w * rpw, w * rpw + rpw),
+// lane L row w * rpw + L.  A warp whose counted entries run past long_run
+// streams them FLOP_ALL_BATCH chunks at a time, any other two.
+__global__ void __launch_bounds__(FLOP_THREADS) flop_all_rows_kernel(
+    const int* __restrict__ a_rpt, const int* __restrict__ a_col,
+    const int* __restrict__ rownnz_b, int m, int k_rows, int max_deg_a,
+    int rpw, int long_run, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long r0 =
+      ((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+      rpw;
+  if (r0 >= m) return;  // whole warps leave together
+  const int n = static_cast<int>(min(static_cast<long long>(rpw), m - r0));
+  // lane L < n: row r0 + L counts entries [s, e); the other lanes none
+  int s = a_rpt[r0], e = s;
+  if (lane < n) {
+    s = a_rpt[r0 + lane];
+    e = s + max(0, min(a_rpt[r0 + lane + 1] - s, max_deg_a));
+  }
+  const int last = __reduce_max_sync(REPRO_FULL_MASK, e);
+  const int c0 = __reduce_min_sync(REPRO_FULL_MASK, e > s ? s : last);
+  const unsigned acc =
+      last - c0 > long_run
+          ? flop_all_stream<FLOP_ALL_BATCH>(c0, last, s, e, a_col, rownnz_b,
+                                            k_rows)
+          : flop_all_stream<2>(c0, last, s, e, a_col, rownnz_b, k_rows);
+  if (lane < n) out[r0 + lane] = static_cast<int>(acc);
+}
+
+// out[i] for every row i < m of A, whose col array holds n_entries entries
+// (sets the rows a warp takes).
 extern "C" int flop_per_row_launch(const void* a_rpt, const void* a_col,
                                    const void* rownnz_b, int m, int k_rows,
-                                   int max_deg_a, void* out, int device,
-                                   void* stream) {
+                                   int max_deg_a, long long n_entries,
+                                   void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 256;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* rpt_p = static_cast<const int*>(a_rpt);
-  const int* col_p = static_cast<const int*>(a_col);
-  const int* nb_p = static_cast<const int*>(rownnz_b);
-  int* out_p = static_cast<int*>(out);
-  if (max_deg_a <= FLOP_NARROW) {
-    const int grid = (m + threads - 1) / threads;
-    flop_rows_thread_kernel<<<grid, threads, 0, s>>>(
-        rpt_p, col_p, nb_p, m, k_rows, max_deg_a, out_p);
-  } else {
-    const long long grid = (32LL * m + threads - 1) / threads;
-    flop_rows_warp_kernel<<<static_cast<unsigned>(grid), threads, 0, s>>>(
-        rpt_p, col_p, nb_p, m, k_rows, max_deg_a, out_p);
-  }
+  if (m <= 0) return 0;
+  // rows a warp: the largest power of two up to 32 whose rows hold at most
+  // FLOP_ALL_ENTRIES entries on average and FLOP_ALL_SPAN at the bound
+  const long long per = static_cast<long long>(FLOP_ALL_ENTRIES) * m /
+                        max(1LL, n_entries);
+  int rpw = 1;
+  while (rpw < 32 && 2LL * rpw <= per &&
+         2LL * rpw * max_deg_a <= FLOP_ALL_SPAN)
+    rpw <<= 1;
+  const long long warps = (m + rpw - 1) / rpw;
+  const long long grid = (32 * warps + FLOP_THREADS - 1) / FLOP_THREADS;
+  // a warp's run counts as long past FLOP_ALL_LONG entries, or past a
+  // quarter of that when the warps are too few to fill the card (more
+  // loads in flight a warp then hide the latency the card cannot)
+  int sms = 0, threads_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&threads_sm,
+                               cudaDevAttrMaxThreadsPerMultiProcessor, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool few = warps < static_cast<long long>(sms) * (threads_sm / 32);
+  flop_all_rows_kernel<<<static_cast<unsigned>(grid), FLOP_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(a_rpt), static_cast<const int*>(a_col),
+      static_cast<const int*>(rownnz_b), m, k_rows, max_deg_a, rpw,
+      few ? FLOP_ALL_LONG / 4 : FLOP_ALL_LONG, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

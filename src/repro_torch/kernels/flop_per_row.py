@@ -17,9 +17,13 @@ plain version on CPU tensors:
 Each reads at most its row's bound of A entries, as the TPU kernels do.  On
 the H100 they are bound by bytes: 8 bytes read per A entry (column id, B row
 length) and 8 or 12 per row (two row pointers, the row id of a list or the
-bucket id), 4 written per row.  Rows whose bound is at most
-:data:`FLOP_NARROW` run one thread per row, wider ones one warp per row, so
-a warp's reads of A's column ids are contiguous.
+bucket id), 4 written per row.  In the first two, rows whose bound is at
+most :data:`FLOP_NARROW` run one thread per row, wider ones one warp per
+row, so a warp's reads of A's column ids are contiguous.  The all-rows
+kernel gives each warp a run of consecutive rows (as many as hold about 256
+entries on average, 32 at most, fewer where a hub row at the bound would
+hold the warp up) and streams their entries as one coalesced range,
+summing each row's share by a prefix scan across the warp.
 """
 from __future__ import annotations
 
@@ -177,11 +181,11 @@ def flop_per_row(a: CSRDevice, rownnz_b: torch.Tensor, *,
     out = torch.empty(a.nrows, dtype=torch.int32, device=dev)
     if a.nrows == 0:
         return out
-    fn = _build.launcher(_LIB, "pppiiipip", entry="flop_per_row")
+    fn = _build.launcher(_LIB, "pppiiiqpip", entry="flop_per_row")
     rc = fn(*_build.require_csr(_LIB, a, "a"),
             _build.require(_LIB, rownnz_b, torch.int32, "rownnz_b"),
-            a.nrows, rownnz_b.shape[0], int(max_deg_a), out.data_ptr(),
-            dev.index or 0, _build.stream_of(dev))
+            a.nrows, rownnz_b.shape[0], int(max_deg_a), a.col.shape[0],
+            out.data_ptr(), dev.index or 0, _build.stream_of(dev))
     _build.check(_LIB, rc)
     flop_per_row.launches += 1
     return out

@@ -22,6 +22,7 @@ from repro_torch.kernels import flop_per_row as flop_k
 from repro_torch.kernels import spgemm_numeric as num_k
 from repro_torch.kernels import spgemm_symbolic as sym_k
 from repro_torch.sparse import random as sprand
+from repro_torch.sparse import suite
 from repro_torch.sparse.formats import CSR
 
 torch.set_num_threads(1)
@@ -565,6 +566,162 @@ def test_numeric_val_is_bitwise_equal_across_launches(card, route):
         first, second = kernel(**kw), kernel(**kw)
         assert torch.equal(first[0], second[0])
         assert torch.equal(first[1], second[1])
+
+
+def _assert_bitwise(got, again):
+    assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+    assert torch.equal(got[1].view(torch.int32), again[1].view(torch.int32))
+
+
+def _spa_checks(a, b, rows, max_deg_a, max_deg_b, row_capacity, tile_n,
+                n_tiles):
+    """Kernel 5 twice, bit for bit, against its plain version; col, row_nnz
+    and overflow also against the ESC kernel when the window covers every
+    row's extent."""
+    kw = dict(a=a, b=b, rows=rows, max_deg_a=max_deg_a, max_deg_b=max_deg_b,
+              row_capacity=row_capacity)
+    got = acc_k.spa_numeric(**kw, tile_n=tile_n, n_tiles=n_tiles)
+    _assert_bitwise(got, acc_k.spa_numeric(**kw, tile_n=tile_n,
+                                           n_tiles=n_tiles))
+    _assert_numeric_equal(got, acc_k.spa_numeric_plain(
+        **kw, tile_n=tile_n, n_tiles=n_tiles))
+    return got, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["spa", "auto"])
+def test_spa_val_is_bitwise_equal_across_launches(card, route):
+    """Kernel 5 adds each column's products in A-entry order: on every SPA
+    bucket of the five mini families' forced and auto-routed plans, two
+    launches give the same val bit for bit, equal to the plain version,
+    and col, row_nnz and overflow equal the ESC kernel's."""
+    buckets = 0
+    for i, (name, m) in enumerate(suite.mini_suite(scale=200)):
+        m = _valued(m, 80 + i)
+        sample = np.random.default_rng(8).integers(0, m.nrows, 60)
+        p = plan.plan_spgemm(m, m, route=route, use_kernel=True,
+                             sample_rows=sample, device=card)
+        ad = p.to_device(m, "a")
+        for bk, cap in zip(p.binning.buckets, p.alloc.bucket_capacities):
+            if bk.route != binning.ROUTE_SPA:
+                continue
+            got, kw = _spa_checks(ad, ad, torch.from_numpy(bk.rows).to(card),
+                                  bk.deg_a, bk.deg_b, cap, bk.tile_n,
+                                  bk.n_tiles)
+            esc = num_k.spgemm_numeric(**kw)
+            assert torch.equal(got[0], esc[0]) and torch.equal(got[2], esc[2])
+            assert int(got[3]) == int(esc[3])
+            buckets += 1
+    assert buckets >= (5 if route == "spa" else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [24, 512])
+def test_spa_wide_tiles_multi_tile_rows_and_scratch(card, cap):
+    """The forced wide-span cases: 16,384-lane tiles over two million
+    columns (up to 128 tiles a row, only those holding products visited);
+    128-lane tiles whose window ends inside the rows' extent (products past
+    it dropped); and rows of about 15,000 A entries, whose tables put every
+    unit in a scratch slice.  Bit for bit across launches and equal to the
+    plain version."""
+    a = _valued(sprand.erdos_renyi(400, 500, 6, seed=21), 22)
+    b = _valued(sprand.erdos_renyi(500, 2_000_000, 6, seed=23), 24)
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    rows = torch.arange(a.nrows, dtype=torch.int32, device=card)
+    da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+    tile_n, n_tiles = binning.spa_tile(b.ncols, binning.DEFAULT_LANE_BUDGET)
+    assert (tile_n, n_tiles) == (16_384, 128)
+    got, kw = _spa_checks(ad, bd, rows, da, db, cap, tile_n, n_tiles)
+    esc = num_k.spgemm_numeric(**kw)
+    assert torch.equal(got[0], esc[0]) and torch.equal(got[2], esc[2])
+    # banded rows of about 60 columns' extent: 128-lane tiles, 4 of them
+    # (multi-tile rows) and 1 of them (the window cuts the extent)
+    m = _valued(sprand.banded(3000, 3000, 40, 250, seed=25), 26)
+    md = csr.to_device(m, device=card)
+    rows = torch.arange(m.nrows, dtype=torch.int32, device=card)
+    dm = int(m.row_nnz.max())
+    for n in (4, 1):
+        _spa_checks(md, md, rows, dm, dm, cap, 128, n)
+    # tables of ~15,000 A entries a row: no unit fits shared memory
+    a = _valued(sprand.erdos_renyi(64, 100_000, 15_000, seed=27), 28)
+    b = _valued(sprand.erdos_renyi(100_000, 5_000, 2, seed=29), 30)
+    da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+    tile_n, n_tiles = binning.spa_tile(b.ncols, binning.DEFAULT_LANE_BUDGET)
+    shape = _build.spa_numeric_shape(_build.max_smem("spa_numeric", card),
+                                     da, db, tile_n, a.nrows,
+                                     _build.sm_count(card))
+    assert shape.slice_bytes > 0
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    rows = torch.arange(a.nrows, dtype=torch.int32, device=card)
+    _spa_checks(ad, bd, rows, da, db, cap, tile_n, n_tiles)
+
+
+@pytest.mark.cuda
+def test_spa_sums_a_repeated_b_column(card):
+    """B built by ``from_coo(dedup=False)``, its rows repeating columns two
+    and three times (as validate_csr(allow_duplicates=True) admits): each
+    column's repeats are summed, bit for bit across launches, equal to the
+    plain version and, in col and row_nnz, to the ESC kernel."""
+    rng = np.random.default_rng(91)
+    n = 400
+    rows_b, cols_b = [], []
+    for r in range(n):
+        c = np.sort(rng.choice(600, 40, replace=False))
+        c = np.repeat(c, rng.integers(1, 4, c.size))   # runs of 1 to 3
+        rows_b.append(np.full(c.size, r))
+        cols_b.append(c)
+    rows_b, cols_b = np.concatenate(rows_b), np.concatenate(cols_b)
+    b = CSR.from_coo(rows_b, cols_b,
+                     rng.standard_normal(cols_b.size).astype(np.float32),
+                     (n, 600), dedup=False)
+    assert (np.diff(b.col)[np.diff(np.repeat(np.arange(n),
+                                             b.row_nnz)) == 0] == 0).any()
+    a = _valued(sprand.erdos_renyi(300, n, 8, seed=92), 93)
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+    tile_n, n_tiles = binning.spa_tile(b.ncols, binning.DEFAULT_LANE_BUDGET)
+    outs = []
+    # 300 rows take a block each; the same rows listed 8 times fill the
+    # card with warp groups: each column is summed in A-entry order either
+    # way, so val is the same bit for bit
+    for reps in (1, 8):
+        rows = torch.arange(a.nrows, dtype=torch.int32,
+                            device=card).repeat(reps)
+        shape = _build.spa_numeric_shape(
+            _build.max_smem("spa_numeric", card), da, db, tile_n,
+            rows.shape[0], _build.sm_count(card))
+        assert (shape.group == 0) == (reps == 1)
+        got, kw = _spa_checks(ad, bd, rows, da, db, 700, tile_n, n_tiles)
+        esc = num_k.spgemm_numeric(**kw)
+        assert torch.equal(got[0], esc[0]) and torch.equal(got[2], esc[2])
+        outs.append(got)
+    _assert_bitwise([x[:a.nrows] for x in outs[1][:3]], outs[0])
+
+
+@pytest.mark.cuda
+def test_flop_per_row_kernel_on_a_skewed_matrix(card):
+    """Kernel 9 against its plain version and the host oracle on a
+    power-law A with one row of 12,000 entries (its warp streams it across
+    many loads), every seventh row empty, and bounds below and above the
+    rows' degrees."""
+    base = sprand.power_law(20_000, 20_000, 6, 1.4, seed=95)
+    rows = np.repeat(np.arange(base.nrows), base.row_nnz)
+    keep = rows % 7 != 0
+    rng = np.random.default_rng(96)
+    hub = np.sort(rng.choice(base.ncols, 12_000, replace=False))
+    r_all = np.concatenate([rows[keep], np.full(hub.size, 4321)])
+    c_all = np.concatenate([base.col[keep], hub])
+    m = CSR.from_coo(r_all, c_all, np.ones(r_all.size, np.float32),
+                     base.shape)
+    assert int(m.row_nnz.max()) >= 12_000 and (m.row_nnz == 0).sum() > 2000
+    md = csr.to_device(m, device=card)
+    rnb = torch.diff(md.rpt)
+    for max_deg_a in (1, 5, 40, 3000, int(m.row_nnz.max())):
+        got = flop_k.flop_per_row(md, rnb, max_deg_a=max_deg_a)
+        assert torch.equal(got, flop_k.flop_per_row_plain(
+            md, rnb, max_deg_a=max_deg_a))
+    floprc, _ = oracle.flop_per_row(m, m)
+    assert np.array_equal(got.cpu().numpy(), floprc)
 
 
 # (sq, sk, D, causal, Hq, Hkv): the CPU tests' cases

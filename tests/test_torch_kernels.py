@@ -15,6 +15,7 @@ from repro.kernels import accumulator as jacc_k
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.sparse import random as jrand
+from repro.sparse.formats import CSR as JCSR
 from repro_torch import convert
 from repro_torch.core.csr import COL_SENTINEL
 from repro_torch.core.errors import PlanMismatchError
@@ -402,6 +403,40 @@ def test_flop_per_row_truncates_as_jax_does(max_deg_a):
     if deg.max() > max_deg_a:
         full = tops.flop_per_row(ta, tb, max_deg_a=int(deg.max()))
         assert int(got.sum()) < int(full.sum())
+
+
+def _with_empty_rows(m, every):
+    """``m`` with every ``every``-th row emptied (its entries dropped)."""
+    rows = np.repeat(np.arange(m.nrows), np.diff(m.rpt))
+    keep = rows % every != 0
+    return JCSR.from_coo(rows[keep], m.col[keep], m.val[keep], m.shape)
+
+
+@pytest.mark.parametrize("max_deg_a", [3, 24, None])
+def test_flop_per_row_plain_matches_jax_on_wide_and_empty_rows(max_deg_a):
+    """Kernel 9's plain version against the JAX package on a power-law A
+    whose widest rows pass ``max_deg_a`` and every fifth row is empty: at a
+    bound below the widest row, JAX's Pallas FLOP kernel over every row
+    (its all-rows kernel fails here, R1), at the widest row's degree also
+    its oracles."""
+    a = _with_empty_rows(jrand.power_law(300, 200, 6, 1.3, seed=151), 5)
+    b = jrand.erdos_renyi(200, 150, 4, seed=153)
+    ja, jb, ta, tb = _pair(a, b)
+    deg = np.diff(a.rpt)
+    assert (deg == 0).sum() >= 60 and deg.max() > 24
+    da = int(deg.max()) if max_deg_a is None else max_deg_a
+    got = tflop_k.flop_per_row_plain(ta, torch.diff(tb.rpt), max_deg_a=da)
+    assert got.dtype == torch.int32 and got.shape == (a.nrows,)
+    rows = jnp.arange(a.nrows, dtype=jnp.int32)
+    want = jops.flop_rows(ja, jb, rows, max_deg_a=da, block_rows=64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.numpy()[deg == 0].any()
+    if max_deg_a is None:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jref.flop_per_row_ref(ja.rpt, ja.col, jnp.diff(jb.rpt))))
+    else:
+        assert int(got.sum()) < int(tflop_k.flop_per_row_plain(
+            ta, torch.diff(tb.rpt), max_deg_a=int(deg.max())).sum())
 
 
 @pytest.mark.parametrize("route", ["esc", "spa", "bin"])

@@ -135,6 +135,84 @@ def test_bin_row_goes_to_scratch_only_past_the_shared_memory_limit(
             assert shape.slice_pairs == bound
 
 
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("limit", SMEM_LIMITS)
+@pytest.mark.parametrize("max_deg_a,max_deg_b,tile_n", [
+    (16, 16, 128), (28, 39, 128), (79, 79, 256), (3, 2, 1024),
+    (916, 916, 4096), (6, 6, 16_384), (30_000, 8, 256)])
+def test_spa_row_unit_and_its_workspace(limit, max_deg_a, max_deg_b,
+                                        tile_n):
+    """Kernel 5's launch shape: a row takes as many lanes as a B row's
+    entries (a power of two, SPA_MIN_GROUP to 32), with its four tables and
+    its tile in shared memory for as many of a block's SPA_WARPS warps as
+    fit; a group that does not fit widens to a warp, and a unit that still
+    does not fit works in a scratch slice of its own.  A launch too small
+    to give every SM SPA_FILL warps of groups takes a block a row, in shared
+    memory or in the block's slice."""
+    table = _build.align16(4 * (max_deg_a + 1))
+    unit = 4 * table + 4 * tile_n
+    room = limit - _build.STATIC_SMEM_RESERVE
+    group = min(32, max(_build.SPA_MIN_GROUP,
+                        1 << (max_deg_b - 1).bit_length()))
+    # enough rows for group units
+    shape = _build.spa_numeric_shape(limit, max_deg_a, max_deg_b, tile_n,
+                                     1 << 20, H100_SMS)
+    assert shape.unit_bytes == unit and unit % 16 == 0
+    assert shape.group in (group, 32) and 32 % shape.group == 0
+    assert shape.threads % 32 == 0
+    assert 32 <= shape.threads <= 32 * _build.SPA_WARPS
+    if shape.slice_bytes:
+        # not even one unit fits: every unit in its own slice
+        assert unit > room and shape.smem_bytes == 0
+        assert shape.slice_bytes == unit and shape.group == group
+        assert shape.threads == 32 * _build.SPA_WARPS
+    else:
+        units = shape.threads // shape.group
+        assert shape.units == units
+        assert shape.smem_bytes == units * unit <= room
+        # the group widens only when a warp's rows do not fit at its size
+        assert (shape.group == group) == (32 // group * unit <= room)
+        # as many warps as fit, up to SPA_WARPS
+        warps = shape.threads // 32
+        assert warps == _build.SPA_WARPS or (warps + 1) * (units // warps) \
+            * unit > room
+    # too few rows to fill the card with groups: a block a row, with a
+    # fifth table, a copy of the tile's B entries and two tables a warp
+    few = (H100_SMS * _build.SPA_FILL - 1) * (32 // group)
+    unit = (_build.align16(5 * table + 4 * tile_n
+                           + 8 * max_deg_a * max_deg_b)
+            + 2 * _build.SPA_WARPS * table)
+    for n_rows in (1, few):
+        shape = _build.spa_numeric_shape(limit, max_deg_a, max_deg_b, tile_n,
+                                         n_rows, H100_SMS)
+        assert (shape.group, shape.threads, shape.units) == (
+            0, 32 * _build.SPA_WARPS, 1)
+        assert shape.unit_bytes == unit
+        assert (shape.smem_bytes, shape.slice_bytes) == (
+            (unit, 0) if unit <= room else (0, unit))
+    assert _build.spa_numeric_shape(limit, max_deg_a, max_deg_b, tile_n,
+                                    few + 1, H100_SMS).group > 0
+
+
+def test_spa_auto_buckets_keep_their_units_in_shared_memory():
+    """The main path's SPA buckets (band, FEM and cant-sized products:
+    rows of 16 to 79 entries, tiles of 128 to 256 lanes) run in shared
+    memory at every limit: the large ones full blocks of groups, short B
+    rows sharing a warp, and the 62-row FEM bucket a block a row."""
+    for limit in SMEM_LIMITS:
+        for da, db, tile_n, rows, group in (
+                (16, 16, 128, 60_000, 16), (28, 39, 128, 62, 0),
+                (42, 42, 256, 29_938, 32), (62, 75, 256, 2_683, 32),
+                (79, 79, 256, 59_768, 32), (4, 4, 128, 50_000, 8)):
+            shape = _build.spa_numeric_shape(limit, da, db, tile_n, rows,
+                                             H100_SMS)
+            assert shape.slice_bytes == 0
+            assert (shape.group, shape.threads) == (group,
+                                                    32 * _build.SPA_WARPS)
+
+
 @pytest.mark.parametrize("limit", SMEM_LIMITS)
 def test_sort_workspace_keeps_its_sizing_on_split_workspace(limit):
     """split_workspace over a grid of product prefixes (the fixed part of

@@ -36,6 +36,18 @@ it (events, device time, host time to issue a call), and on two products
 whose long rows do not fit shared memory (``wide_products``).  Both run on a tree
 whose flash attention or kernel 7 has either design.
 
+``--spa`` times the SPA numeric kernel (kernel 5, ``csrc/spa_numeric.cu``)
+on every SPA bucket of the ``route="auto"`` plans of ``band_60k_d16``,
+``fem_30k_d48`` and ``cant_like`` squared, by FLOP class and whole, as the
+executor calls it (the bucket's bounds, tile and capacity): CUDA-event ms,
+the kernel's own device ms from ``torch.profiler`` and the host ms to issue
+a call, with the ESC numeric kernel (3) on the same rows beside it; then
+all SPA buckets of each product in sequence.  ``--flop-all`` times the
+all-rows FLOP kernel (kernel 9) on the seven products at each one's largest
+row degree, as the global-pad predictor calls it: events, device and host
+ms, its bound (bytes over 3.35 TB/s) and whether it equals the host
+oracle.  Both run on a tree with either design of the two kernels.
+
 ``--predict`` takes ``chip_smoke.py``'s five predict products instead, each
 with its ``route="esc"`` bucket plan and seed-0 sampled rows, and times the
 per-bucket calls of kernels 1 and 2 as the binned predictor made them one
@@ -115,15 +127,16 @@ def synced_ms(torch, fn, runs: int = RUNS) -> float:
     return times[len(times) // 2]
 
 
-def profiled_ms(torch, fn, pattern: str) -> tuple:
+def profiled_ms(torch, fn, pattern: str, reps: int = 1) -> tuple:
     """(device ms of the kernels whose name holds ``pattern``, device ms of
-    every device operation) in one run of ``fn``, from torch.profiler; None
-    where it sees no device time."""
+    every device operation) in a run of ``fn``, from torch.profiler, the
+    mean over ``reps`` runs; None where it sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     own = every = 0.0
     for e in prof.key_averages():
@@ -131,7 +144,8 @@ def profiled_ms(torch, fn, pattern: str) -> tuple:
         every += t
         if pattern in e.key:
             own += t
-    return (own / 1e3 if own else None), (every / 1e3 if every else None)
+    return ((own / 1e3 / reps if own else None),
+            (every / 1e3 / reps if every else None))
 
 
 def device_ms(torch, fn) -> float | None:
@@ -188,6 +202,8 @@ def main() -> int:
     ap.add_argument("--predict", action="store_true")
     ap.add_argument("--attention", action="store_true")
     ap.add_argument("--global", dest="global_pad", action="store_true")
+    ap.add_argument("--spa", action="store_true")
+    ap.add_argument("--flop-all", dest="flop_all", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -199,8 +215,6 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import accumulator as acc_k
     from repro_torch.kernels import spgemm_numeric as num_k
-    from repro_torch.sparse import random as sprand
-    from repro_torch.sparse import suite
     warnings.filterwarnings("ignore", message="Sparse")
     out_f = open(args.out, "a") if args.out else None
 
@@ -222,10 +236,16 @@ def main() -> int:
     if args.ptxas:
         names = (("flop_rows", "esc_symbolic") if args.predict
                  else ("flash_attention_sm90",) if args.attention
+                 else ("spa_numeric", "flop_rows") if args.spa or args.flop_all
                  else ("esc_numeric", "bin_numeric"))
         for ln in ptxas(os.path.abspath(args.src), names):
             emit(dict(phase="ptxas", line=ln))
-    if args.predict or args.attention or args.global_pad:
+    if (args.predict or args.attention or args.global_pad or args.spa
+            or args.flop_all):
+        if args.spa:
+            spa_splits(torch, np, dev, emit)
+        if args.flop_all:
+            flop_all_splits(torch, np, dev, emit)
         if args.predict:
             predict_splits(torch, np, dev, emit)
         if args.global_pad:
@@ -238,11 +258,7 @@ def main() -> int:
     takes_bound = "max_row_flop" in inspect.signature(
         num_k.spgemm_numeric).parameters
 
-    mats = [(n, suite.get_matrix(n)) for n in MATRICES[:5]]
-    mats += [("cant_like", sprand.banded(62_451, 62_451, 100, 50, seed=602)),
-             ("webbase_like", sprand.power_law(1_000_005, 1_000_005, 4, 1.4,
-                                               seed=601))]
-    for name, m in mats:
+    for name, m in products(MATRICES):
         floprc, _ = oracle.flop_per_row(m, m)
         p = plan.plan_spgemm(m, m, route="esc", use_kernel=True,
                              safety=SAFETY, device=dev)
@@ -362,6 +378,100 @@ def main() -> int:
 
 
 PREDICT_MATRICES = MATRICES[:5]
+SPA_MATRICES = ("band_60k_d16", "fem_30k_d48", "cant_like")
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+
+
+def products(names):
+    """``(name, matrix)`` of ``chip_smoke.py``'s products: the suite members
+    and the two SuiteSparse-sized analogues, built the same way."""
+    from repro_torch.sparse import random as sprand
+    from repro_torch.sparse import suite
+    for name in names:
+        if name == "cant_like":
+            yield name, sprand.banded(62_451, 62_451, 100, 50, seed=602)
+        elif name == "webbase_like":
+            yield name, sprand.power_law(1_000_005, 1_000_005, 4, 1.4,
+                                         seed=601)
+        else:
+            yield name, suite.get_matrix(name)
+
+
+def spa_splits(torch, np, dev, emit) -> None:
+    """``--spa``: kernel 5 on each SPA bucket of the auto plans, by FLOP
+    class and whole, beside the ESC kernel on the same rows; then every SPA
+    bucket of a product in sequence, as ``execute`` launches them."""
+    from repro_torch.core import binning, oracle, plan
+    from repro_torch.kernels import accumulator as acc_k
+    from repro_torch.kernels import spgemm_numeric as num_k
+    for name, m in products(SPA_MATRICES):
+        floprc, _ = oracle.flop_per_row(m, m)
+        p = plan.plan_spgemm(m, m, route="auto", use_kernel=True,
+                             safety=SAFETY, device=dev)
+        ad = p.to_device(m, "a")
+        rnb = torch.diff(ad.rpt)
+        whole = []
+        for bk, cap in zip(p.binning.buckets, p.alloc.bucket_capacities):
+            if bk.route != binning.ROUTE_SPA:
+                continue
+            cls = np.searchsorted(CLASS_EDGES, floprc[bk.rows])
+            groups = [(class_name(int(c)), bk.rows[cls == c])
+                      for c in np.unique(cls)]
+            for label, rows in groups + [("all", bk.rows)]:
+                kw = dict(a=ad, b=ad, rows=torch.from_numpy(rows).to(dev),
+                          max_deg_a=bk.deg_a, max_deg_b=bk.deg_b,
+                          row_capacity=int(cap), rownnz_b=rnb)
+                spa = dict(kw, tile_n=bk.tile_n, n_tiles=bk.n_tiles)
+                esc = dict(kw, max_row_flop=int(floprc[rows].max()))
+                fn = lambda: acc_k.spa_numeric(**spa)
+                own, every = profiled_ms(torch, fn, "spa_numeric", reps=5)
+                esc_fn = lambda: num_k.spgemm_numeric(**esc)
+                emit(dict(phase="spa_split", matrix=name,
+                          bucket=f"{bk.deg_a}x{bk.deg_b}", tile_n=bk.tile_n,
+                          n_tiles=bk.n_tiles, flop_class=label,
+                          rows=int(rows.size),
+                          products=int(floprc[rows].sum()),
+                          row_capacity=int(cap), ms=cuda_ms(torch, fn),
+                          device_ms=own, all_device_ms=every,
+                          host_ms=host_ms(torch, fn),
+                          esc_ms=cuda_ms(torch, esc_fn),
+                          esc_device_ms=profiled_ms(torch, esc_fn,
+                                                    "esc_numeric",
+                                                    reps=5)[0]))
+            whole.append(spa)
+        fn = lambda: [acc_k.spa_numeric(**kw) for kw in whole]
+        own, every = profiled_ms(torch, fn, "spa_numeric", reps=5)
+        emit(dict(phase="spa_whole", matrix=name, calls=len(whole),
+                  ms=cuda_ms(torch, fn), device_ms=own, all_device_ms=every,
+                  host_ms=host_ms(torch, fn)))
+        del p, ad, rnb, whole
+        torch.cuda.empty_cache()
+
+
+def flop_all_splits(torch, np, dev, emit) -> None:
+    """``--flop-all``: kernel 9 over all rows at the product's largest row
+    degree, as the global-pad predictor calls it."""
+    from repro_torch.core import csr, oracle
+    from repro_torch.kernels import flop_per_row as flop_k
+    for name, m in products(MATRICES):
+        ad = csr.to_device(m, device=dev)
+        rnb = torch.diff(ad.rpt)
+        da = int(m.row_nnz.max())
+        fn = lambda: flop_k.flop_per_row(ad, rnb, max_deg_a=da)
+        agrees = bool(np.array_equal(fn().cpu().numpy(),
+                                     oracle.flop_per_row(m, m)[0]))
+        # row pointers, A's column ids, the referenced B row lengths read
+        # once, one int32 written per row (chip_smoke.py's count)
+        n_ref = np.unique(m.col).size
+        nbytes = 4 * (m.nrows + 1) + 4 * m.nnz + 4 * n_ref + 4 * m.nrows
+        own, every = profiled_ms(torch, fn, "flop_", reps=20)
+        emit(dict(phase="flop_all_split", matrix=name, rows=m.nrows,
+                  nnz=m.nnz, max_deg=da, mean_deg=m.nnz / m.nrows,
+                  agrees=agrees, ms=cuda_ms(torch, fn), device_ms=own,
+                  all_device_ms=every, host_ms=host_ms(torch, fn),
+                  bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+        del ad, rnb
+        torch.cuda.empty_cache()
 
 
 def host_profile(torch, emit, name, seqs, calls: int = 200) -> None:
