@@ -17,7 +17,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        ``reassemble`` on the same five and on two paper-scale analogues
        (SuiteSparse cant and webbase-1M sizes);
    (c) the same with the default ``route="auto"``, which puts the banded
-       and FEM products on the SPA route and R-MAT's hub rows on BIN;
+       and FEM products on the SPA route and R-MAT's hub rows on BIN: one
+       launch of the bitmask symbolic kernel a prediction with SPA or BIN
+       samples, none per bucket;
    (d) the paper's predictor at global degree bounds,
        ``predictor.proposed_predict`` and ``reference_predict`` with
        ``use_kernel=True``, on all seven products and (a)'s sampled rows,
@@ -44,14 +46,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    dense oracle;
 3. holds each kernel against its plain version at the path's shapes (the
    bitmask symbolic kernels also against the ESC ones on the same sampled
-   rows; the one-launch FLOP and ESC symbolic entries also against the
-   per-bucket kernels and the host oracles) and times both, with CUDA
-   events (the SPA and all-rows FLOP kernels also by their profiler device
-   time; the latter on ``cant_like``, ``webbase_like`` and ``pl_100k_d4``),
+   rows; the one-launch FLOP, ESC and bitmask symbolic entries also
+   against the per-bucket kernels and the host oracles) and times both,
+   with CUDA events (the SPA, all-rows FLOP and bitmask symbolic kernels
+   also by their profiler device time; the all-rows FLOP kernel on
+   ``cant_like``, ``webbase_like`` and ``pl_100k_d4``),
    beside the bound and a PyTorch yardstick (the BIN and symbolic
    kernels': ``torch.sparse.mm`` of their rows of A by B; attention's:
    ``scaled_dot_product_attention``, also through each of its backends);
-   kernels 1 and 2 as one launch over a whole prediction, their
+   kernels 1, 2 and 4 as one launch over a whole prediction, their
    per-bucket sequence beside it;
 4. launches each numeric kernel twice on every bucket and holds ``val``
    bit for bit (ESC, SPA and BIN all add each column's products in a fixed
@@ -93,7 +96,9 @@ BASELINE = os.path.join("artifacts", "accuracy_subset_baseline.json")
 FLASH_SOURCES = dict(sm90="flash_attention_sm90.cu", simt="flash_attention.cu")
 # kernels whose kernel_time lines also carry their profiler device time, by
 # a part of their CUDA kernels' names
-DEVICE_TIMED = dict(spa_numeric="spa_numeric", flop_per_row="flop_all_rows")
+DEVICE_TIMED = dict(spa_numeric="spa_numeric", flop_per_row="flop_all_rows",
+                    fused_flop_symbolic_bitmask="bitmask_symbolic",
+                    bitmask_symbolic="bitmask_symbolic")
 G1_ACCEPT_MS = 2.0     # the tensor-core redesign's acceptance bar on G1
 
 
@@ -305,7 +310,8 @@ def main() -> int:
                acc_k.bitmask_symbolic, flop_k.flop_per_row,
                fa_k.flash_attention, flop_k.flop_rows_buckets,
                sym_k.fused_flop_symbolic_buckets, fa_k.flash_attention_sm90,
-               fa_k.flash_attention_simt)
+               fa_k.flash_attention_simt,
+               acc_k.fused_flop_symbolic_bitmask_buckets)
     names = [k.__name__ for k in kernels]
     launches = {path: dict.fromkeys(names, 0)
                 for path in ("predict", "plan_esc", "plan_auto",
@@ -473,8 +479,10 @@ def main() -> int:
                                              lambda: run_plan(m, "auto"))
         esc_buckets = [i for i, bk in enumerate(pa.binning.buckets)
                        if bk.route == binning.ROUTE_ESC]
-        auto_runs[name] = (pa.binning.route_rows(), counts, int(np.isin(
-            pa.binning.row_bucket[pa.sample_rows], esc_buckets).sum()))
+        esc_samples = int(np.isin(pa.binning.row_bucket[pa.sample_rows],
+                                  esc_buckets).sum())
+        auto_runs[name] = (pa.binning.route_rows(), counts, esc_samples,
+                           pa.sample_rows.size - esc_samples)
         if (pa.alloc.bucket_capacities != p.alloc.bucket_capacities
                 or not np.array_equal(pa.structure, p.structure)
                 or pa.predicted_nnz != p.predicted_nnz
@@ -774,8 +782,14 @@ def main() -> int:
                  "predictions")
     for path in ("predict", "plan_esc", "plan_auto"):
         if (launches[path]["flop_rows"]
-                or launches[path]["fused_flop_symbolic"]):
-            fail(f"a per-bucket kernel-1 or kernel-2 launch on path {path}")
+                or launches[path]["fused_flop_symbolic"]
+                or launches[path]["fused_flop_symbolic_bitmask"]):
+            fail(f"a per-bucket kernel-1, 2 or 4 launch on path {path}")
+    # kernel 4 counts a prediction's SPA and BIN samples in one launch; the
+    # predict and plan_esc paths route every bucket to ESC
+    for path in ("predict", "plan_esc"):
+        if launches[path]["fused_flop_symbolic_bitmask_buckets"]:
+            fail(f"a kernel-4 launch on the all-ESC path {path}")
     # kernel 7 runs on kernel 2's body, but counts as itself: one launch a
     # global-pad prediction (proposed and reference on each product, one a
     # case of the experiment), and no kernel-2 launch on those paths
@@ -788,7 +802,7 @@ def main() -> int:
             fail(f"path {path}: launches of kernels 7, 2 (per bucket, one "
                  f"launch) {got}, not ({want}, 0, 0)")
     for path, kinds in (("plan_esc", ("spgemm_numeric",)),
-                        ("plan_auto", ("fused_flop_symbolic_bitmask",
+                        ("plan_auto", ("fused_flop_symbolic_bitmask_buckets",
                                        "spa_numeric", "bin_numeric")),
                         ("global_predict", ("sampled_symbolic",
                                             "flop_per_row")),
@@ -801,7 +815,8 @@ def main() -> int:
         for k in kinds:
             if launches[path][k] <= 0:
                 fail(f"kernel {k} was not launched on main path {path}")
-    for name, (routes, counts, esc_samples) in auto_runs.items():
+    for name, (routes, counts, esc_samples, bitmask_samples) in \
+            auto_runs.items():
         for route, k in ((binning.ROUTE_SPA, "spa_numeric"),
                          (binning.ROUTE_BIN, "bin_numeric")):
             if routes[route] and counts[k] <= 0:
@@ -811,6 +826,12 @@ def main() -> int:
         if counts["fused_flop_symbolic_buckets"] != int(esc_samples > 0):
             fail(f"plan_auto {name}: {counts['fused_flop_symbolic_buckets']}"
                  f" kernel-2 launches for {esc_samples} ESC samples")
+        # and one kernel-4 launch when a sampled row lands in a SPA or BIN
+        # bucket, none when none does
+        got = counts["fused_flop_symbolic_bitmask_buckets"]
+        if got != int(bitmask_samples > 0):
+            fail(f"plan_auto {name}: {got} kernel-4 launches for "
+                 f"{bitmask_samples} SPA/BIN samples")
 
     # ---- small products on every route against the dense oracle -------- #
     minis = suite.mini_suite(scale=200)
@@ -961,6 +982,40 @@ def main() -> int:
             bc.append((dict(kw, span=bk.span), sub, bk.deg_a, bk.deg_b))
         if bc:
             calls["fused_flop_symbolic_bitmask", name] = bc
+            # the one launch the predictor makes over all of them: against
+            # its plain version, the per-bucket kernel, the ESC kernel on
+            # the same rows and the host oracle
+            tabs = predictor.plan_tables(binplan, dev)
+            table = predictor.bitmask_sample_table(
+                binplan, tabs, rows, floprc[name][rows], m.ncols, dev)
+            # the SPA and BIN samples in the caller's order
+            in_order = rows[~tabs.esc[binplan.row_bucket[rows]]]
+            kw = dict(a=ad, b=ad, table=table, rownnz_b=rnb)
+            got = acc_k.fused_flop_symbolic_bitmask_buckets(**kw)
+            want = acc_k.fused_flop_symbolic_bitmask_buckets_plain(**kw)
+            sel = np.concatenate([c[1] for c in bc])
+            per_bucket = [acc_k.fused_flop_symbolic_bitmask(**c[0])
+                          for c in bc]
+            esc = [sym_k.fused_flop_symbolic(**{
+                k: v for k, v in c[0].items() if k != "span"}) for c in bc]
+            host = (oracle.exact_sampled_nnz(m, m, sel),
+                    int(floprc[name][sel].sum()))
+            err = max(abs(int(got[0]) - int(want[0])),
+                      abs(int(got[1]) - int(want[1])),
+                      int((got[2] - want[2]).abs().max()))
+            if (err or (int(got[0]), int(got[1])) != host
+                    or any((sum(int(x[0]) for x in xs),
+                            sum(int(x[1]) for x in xs)) != host
+                           for xs in (per_bucket, esc))
+                    or not np.array_equal(got[2].cpu().numpy(),
+                                          floprc[name][in_order])):
+                fail(f"fused_flop_symbolic_bitmask_buckets {name}: kernel "
+                     "!= plain/per-bucket/ESC kernel/host oracle")
+            int_err["fused_flop_symbolic_bitmask"] = max(
+                int_err["fused_flop_symbolic_bitmask"], err)
+            one_launch["fused_flop_symbolic_bitmask", name] = (
+                acc_k.fused_flop_symbolic_bitmask_buckets, kw,
+                acc_k.fused_flop_symbolic_bitmask_buckets_plain)
     # kernels 7-9 at (d)'s global-pad shapes: kernel 9 over all rows at the
     # global max_deg_a, kernels 7 and 8 over (a)'s sampled rows, against
     # their plain versions, the host oracles and each other, and kernel 7
@@ -1192,6 +1247,12 @@ def main() -> int:
             extra = dict(entry=fn1.__name__, per_bucket_calls=len(cs),
                          per_bucket_ms=cuda_ms(
                              torch, lambda: [fn(**c[0]) for c in cs]))
+            if kernel in DEVICE_TIMED:
+                device[kernel] = device_ms(torch, lambda: fn1(**kw1),
+                                           DEVICE_TIMED[kernel])
+                extra["per_bucket_device_ms"] = device_ms(
+                    torch, lambda: [fn(**c[0]) for c in cs],
+                    DEVICE_TIMED[kernel])
         else:
             ms = cuda_ms(torch, lambda: [fn(**c[0]) for c in cs])
             if kernel in DEVICE_TIMED:
@@ -1382,8 +1443,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
-        {k: e[k] for k in keys + (("per_bucket_ms",) if "per_bucket_ms" in e
-                                  else ())} for e in report]}), flush=True)
+        {k: e[k] for k in keys + tuple(x for x in ("entry", "per_bucket_ms",
+                                                   "device_ms") if x in e)}
+        for e in report]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

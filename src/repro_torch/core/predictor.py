@@ -14,9 +14,10 @@ the global degree bounds) count with ESC's sort.  The binned ones count each
 degree bucket on its planned accumulator route: ESC sorts, SPA and BIN set
 bits in a bitmask.  With ``use_kernel`` the counting and Algorithm 1 run in
 the port's hand-written CUDA kernels (``repro_torch.kernels``) on a CUDA
-tensor — Algorithm 1 for all of a plan's rows in one launch, and the ESC
-buckets' sampled rows in one launch, from tables cached with the plan
-(:func:`plan_tables`); without it the plain tensor-op versions below run,
+tensor — Algorithm 1 for all of a plan's rows in one launch, the ESC
+buckets' sampled rows in one launch and the SPA and BIN buckets' in
+another, from tables cached with the plan (:func:`plan_tables`); without
+it the plain tensor-op versions below run,
 and on a CPU tensor the kernel wrappers run theirs.  Integer
 counts are int32 and the eq. 4 chain is float32 in the JAX package's order
 of operations, so both packages predict the same numbers.
@@ -194,6 +195,7 @@ class PlanTables(NamedTuple):
     deg_a: np.ndarray       # int32 (buckets,)
     deg_b: np.ndarray       # int32 (buckets,)
     esc: np.ndarray         # bool (buckets,): the bucket counts on ESC
+    span: np.ndarray        # int64 (buckets,): column-extent bound (0: B's)
 
 
 # id(plan) -> (weak reference to the plan, {device: PlanTables}).  A
@@ -228,7 +230,8 @@ def plan_tables(plan: BinningPlan, device) -> PlanTables:
             flop_tables(plan.row_bucket, deg_a, dev), deg_a,
             np.array([bk.deg_b for bk in plan.buckets], dtype=np.int32),
             np.array([bk.route == ROUTE_ESC for bk in plan.buckets],
-                     dtype=bool))
+                     dtype=bool),
+            np.array([bk.span for bk in plan.buckets], dtype=np.int64))
     return per_device[dev]
 
 
@@ -262,6 +265,27 @@ def esc_sample_table(plan: BinningPlan, tables: PlanTables, rows,
                         device)
 
 
+def bitmask_sample_table(plan: BinningPlan, tables: PlanTables, rows,
+                         row_flop, ncols_b: int, device):
+    """The :class:`~repro_torch.kernels.accumulator.BitmaskTable` of the
+    sampled ``rows`` (host ids, duplicates kept) that fall in ``plan``'s SPA
+    and BIN buckets, each at its bucket's bounds and with the mask words
+    its bucket's span allows over B's ``ncols_b`` columns, sized by
+    ``row_flop`` (floprC at ``rows``), uploaded to ``device``; None when no
+    sampled row falls in such a bucket."""
+    from repro_torch.kernels.accumulator import bitmask_table
+    rows = np.asarray(rows, dtype=np.int64)
+    bk = plan.row_bucket[rows]
+    sel = ~tables.esc[bk]
+    if not sel.any():
+        return None
+    span = tables.span[bk[sel]]
+    lanes = np.where(span > 0, np.minimum(span, ncols_b), ncols_b)
+    return bitmask_table(rows[sel], tables.deg_a[bk[sel]],
+                         tables.deg_b[bk[sel]], -(-lanes // 32),
+                         np.asarray(row_flop)[sel], device)
+
+
 def binned_symbolic_counts(a: CSRDevice, b: CSRDevice, rows,
                            plan: BinningPlan, use_kernel: bool = False,
                            *, floprc: torch.Tensor | None = None
@@ -272,10 +296,11 @@ def binned_symbolic_counts(a: CSRDevice, b: CSRDevice, rows,
     routing.
 
     With ``use_kernel`` every sampled row of an ESC bucket goes to one
-    launch of the fused ESC kernel, each row at its own bucket's bounds and
-    its workspace sized by its FLOP (``floprc``, Algorithm 1's per-row FLOP
-    at the buckets' bounds or above, computed by :func:`_binned_floprc`
-    when not given); SPA and BIN buckets count by bitmask, one call each."""
+    launch of the fused ESC kernel and every one of a SPA or BIN bucket to
+    one launch of the bitmask kernel, each row at its own bucket's bounds
+    and its workspace sized by its FLOP (``floprc``, Algorithm 1's per-row
+    FLOP at the buckets' bounds or above, computed by
+    :func:`_binned_floprc` when not given)."""
     from repro_torch.kernels import ops as kops
     dev = a.rpt.device
     rownnz_b = torch.diff(b.rpt)         # hoisted out of the per-bucket calls
@@ -301,29 +326,20 @@ def binned_symbolic_counts(a: CSRDevice, b: CSRDevice, rows,
             f = f + fb
         return z, f
     tables = plan_tables(plan, dev)
-    row_flop = None
     if floprc is None:
-        rows_h = np.asarray(_host_rows(rows), dtype=np.int64)
-    else:
-        rows_h, row_flop = _rows_and_flop(rows, floprc)
-    bk = plan.row_bucket[rows_h]
-    esc = tables.esc[bk]
+        floprc = _binned_floprc(a, b, plan)
+    rows_h, row_flop = _rows_and_flop(rows, floprc)
+    esc = tables.esc[plan.row_bucket[rows_h]]
     parts = []
     if esc.any():
-        if row_flop is None:
-            rows_h, row_flop = _rows_and_flop(rows_h,
-                                              _binned_floprc(a, b, plan))
         table = esc_sample_table(plan, tables, rows_h, row_flop, dev)
         parts.append(kops.fused_flop_symbolic_buckets(a, b, table,
                                                       rownnz_b=rownnz_b))
     if not esc.all():
-        for i in np.unique(bk[~esc]):
-            bucket = plan.buckets[i]
-            sub = np.ascontiguousarray(rows_h[bk == i], dtype=np.int32)
-            parts.append(kops.fused_flop_symbolic_routed(
-                a, b, torch.from_numpy(sub).to(dev), max_deg_a=bucket.deg_a,
-                max_deg_b=bucket.deg_b, route=bucket.route, span=bucket.span,
-                rownnz_b=rownnz_b))
+        table = bitmask_sample_table(plan, tables, rows_h, row_flop, b.ncols,
+                                     dev)
+        parts.append(kops.fused_flop_symbolic_bitmask_buckets(
+            a, b, table, rownnz_b=rownnz_b))
     if not parts:
         zero = torch.zeros(2, dtype=torch.int32, device=dev)
         return zero[0], zero[1]
@@ -352,7 +368,8 @@ def proposed_predict_binned(a: CSRDevice, b: CSRDevice, rows,
 
     Identical outputs to :func:`proposed_predict`: z*/f* are exact integer
     counts whatever the padding.  With ``use_kernel`` the per-bucket pass
-    is the fused FLOP + symbolic kernel (one launch for the ESC buckets) and
+    is the fused FLOP + symbolic kernels (one launch for the ESC buckets,
+    one for the SPA and BIN buckets) and
     floprC runs through the FLOP kernel (one launch, each bucket at its
     bound).  ``floprc`` (Algorithm 1's per-row FLOP) may be passed in by
     callers that already computed it (the planner)."""

@@ -252,12 +252,6 @@ def align16(n: int) -> int:
     return -(-int(n) // 16) * 16
 
 
-def row_threads(lanes: int) -> int:
-    """Threads of a one-block-per-row kernel whose rows hold up to ``lanes``
-    products (a power of two): two products a thread, 32 to 512."""
-    return min(512, max(32, lanes // 2))
-
-
 def scratch_slices(device, slice_bytes: int, n_rows: int):
     """``(grid, scratch)``: one ``slice_bytes`` slice of a global scratch
     tensor for each of ``grid`` blocks, the grid cut so that scratch stays
@@ -265,24 +259,6 @@ def scratch_slices(device, slice_bytes: int, n_rows: int):
     grid = max(1, min(n_rows, SCRATCH_BYTES // slice_bytes))
     return grid, torch.empty(grid * slice_bytes, dtype=torch.uint8,
                              device=device)
-
-
-def block_workspace(name: str, device, ws_bytes: int, threads: int,
-                    n_rows: int):
-    """Launch shape of a one-block-per-row kernel whose every row takes the
-    same ``ws_bytes`` workspace: ``(grid, threads, smem_bytes, scratch,
-    slice_bytes)``.
-
-    The workspace is ``smem_bytes`` of dynamic shared memory when it fits
-    the card's opt-in limit (``scratch`` is then ``None``), else each
-    resident block's ``slice_bytes`` slice of the global ``scratch`` tensor,
-    with 1024 threads; blocks loop over the rows when the grid is cut to
-    keep scratch within :data:`SCRATCH_BYTES`."""
-    if ws_bytes + STATIC_SMEM_RESERVE <= max_smem(name, device):
-        return n_rows, threads, ws_bytes, None, 0
-    slice_bytes = align16(ws_bytes)
-    grid, scratch = scratch_slices(device, slice_bytes, n_rows)
-    return grid, 1024, 0, scratch, slice_bytes
 
 
 def split_workspace(smem_limit: int, fixed_bytes: int, item_bytes: int,
@@ -430,6 +406,61 @@ def symbolic_shape(smem_limit: int, short_bound: int, long_bound: int,
                        max(1, min(n_long, SCRATCH_BYTES // slice_bytes)))
     return SymbolicShape(warp_keys, smem_keys, max(short_bytes, long_bytes),
                          slice_bytes, long_blocks)
+
+
+# csrc/bitmask_symbolic.cu: a warp takes a row of up to BMS_WARP_MAX products
+# in its own shared memory (a 256-byte staging area, then BMS_WARP_WORDS
+# ints: its mask words or its keys); BMS_WARPS warps a block
+BMS_WARPS = source_define("bitmask_symbolic", "BMS_WARPS")
+BMS_WARP_MAX = source_define("bitmask_symbolic", "BMS_WARP_MAX")
+BMS_WARP_WORDS = source_define("bitmask_symbolic", "BMS_WARP_WORDS")
+
+
+class BitmaskShape(NamedTuple):
+    """Launch shape of the bitmask symbolic kernel (:func:`bitmask_shape`)."""
+
+    smem_words: int     # a block row's mask words that shared memory holds
+    #                     (-1: none, its table is in scratch too)
+    smem_bytes: int     # dynamic shared memory of a block
+    slice_bytes: int    # each block's scratch slice (0: none)
+    long_blocks: int    # blocks that take the long rows (they loop)
+    group_blocks: int   # blocks that take the groups of rows (they loop)
+
+
+@functools.lru_cache(maxsize=256)
+def bitmask_shape(smem_limit: int, n_long: int, n_groups: int, words: int,
+                  max_deg_a: int) -> BitmaskShape:
+    """Kernels 4 and 8's launch shape, on a card with ``smem_limit`` bytes
+    of opt-in shared memory a block, for ``n_long`` long rows (a block
+    each) and ``n_groups`` groups of rows (a warp a row; a row that does
+    not fit its warp goes to its block), whose masks have at most ``words``
+    words and whose bounds on A are at most ``max_deg_a``.  A group block's
+    warps each hold :data:`BMS_WARP_WORDS` ints.  A block row holds its
+    table (product prefix and B-row starts, 8 bytes an A entry) and then
+    ``smem_words`` mask words, as many as ``words``, as far as shared
+    memory goes; a row whose extent passes them ORs into the block's scratch
+    slice of ``words`` words.  When not even the table and 32 words fit,
+    ``smem_words`` is -1 and table and mask live in the slice.  Blocks loop
+    over their rows or groups when the slices would pass
+    :data:`SCRATCH_BYTES`."""
+    short_bytes = BMS_WARPS * (256 + 4 * BMS_WARP_WORDS) if n_groups else 0
+    words = max(1, int(words))
+    table = 2 * align16(4 * (max_deg_a + 1))
+    room = (smem_limit - STATIC_SMEM_RESERVE - table) // 4
+    if room >= 32:
+        smem_words = min(room, words)
+        long_bytes = table + 4 * smem_words
+        slice_bytes = align16(4 * words) if words > smem_words else 0
+    else:
+        smem_words, long_bytes = -1, 0
+        slice_bytes = align16(table + 4 * words)
+    long_blocks, group_blocks = int(n_long), int(n_groups)
+    cap = max(2, SCRATCH_BYTES // slice_bytes) if slice_bytes else 0
+    if slice_bytes and long_blocks + group_blocks > cap:
+        group_blocks = min(group_blocks, max(1, cap // 2))
+        long_blocks = min(long_blocks, max(1, cap - group_blocks))
+    return BitmaskShape(smem_words, max(short_bytes, long_bytes),
+                        slice_bytes, long_blocks, group_blocks)
 
 
 class RowLaunch(NamedTuple):

@@ -1,13 +1,17 @@
 """The accumulator routes' kernels: SPA (dense accumulator) and BIN
 (propagation blocking), and the bitmask symbolic kernel they share.
 
-Four wrappers, each launching its hand-written CUDA kernel on CUDA tensors
+Five wrappers, each launching its hand-written CUDA kernel on CUDA tensors
 and running its plain tensor-op version on CPU tensors:
 
 * :func:`fused_flop_symbolic_bitmask` (``csrc/bitmask_symbolic.cu``) →
-  ``(z*, f*, FLOP per sampled row)``; replaces
+  ``(z*, f*, FLOP per sampled row)`` at one bucket's bounds; replaces
   ``src/repro/kernels/accumulator.py::fused_flop_symbolic_bitmask_pallas``;
-* :func:`bitmask_symbolic` (the second entry of the same source) →
+* :func:`fused_flop_symbolic_bitmask_buckets`: the same outputs for every
+  SPA and BIN sample of a binned prediction in one launch, each row at its
+  own bucket's bounds (a :class:`BitmaskTable`) — what the TPU kernel
+  gives bucket by bucket;
+* :func:`bitmask_symbolic` (the same kernel at the global bounds) →
   ``(z*, f*)``, f* the sum of the referenced B rows' untruncated lengths;
   replaces ``bitmask_symbolic_pallas``;
 * :func:`spa_numeric` (``csrc/spa_numeric.cu``) → ``(col, val, row_nnz,
@@ -29,11 +33,13 @@ row.  On the H100 all three are bound by bytes (see each source).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
-from repro_torch.core.binning import ceil_pow2
 from repro_torch.core.csr import COL_SENTINEL, CSRDevice, row_chunks
-from repro_torch.core.predictor import count_distinct_dense, sampled_counts
+from repro_torch.core.predictor import sampled_counts
 from repro_torch.core.spgemm import (_bin_accumulate_block, blocked_rows,
                                      window_accumulate)
 from . import _build
@@ -86,11 +92,15 @@ def fused_flop_symbolic_bitmask_plain(a: CSRDevice, b: CSRDevice,
                                       rownnz_b: torch.Tensor | None = None):
     """Plain tensor-op version: gather and bitmask-count (z*), and
     Algorithm 1 over the same rows (FLOP per row and f* = its sum)."""
+    return _bitmask_plain(a, b, rows, max_deg_a, max_deg_b,
+                          _n_words(b.ncols, span), rownnz_b)
+
+
+def _bitmask_plain(a, b, rows, max_deg_a, max_deg_b, n_words, rownnz_b):
     if rownnz_b is None:
         rownnz_b = torch.diff(b.rpt)
-    z, _ = sampled_counts(
-        a, b, rows, max_deg_a, max_deg_b, rownnz_b,
-        count=lambda cols: count_distinct_dense(cols, b.ncols, span))
+    z, _ = sampled_counts(a, b, rows, max_deg_a, max_deg_b, rownnz_b,
+                          count=lambda cols: bitmask_distinct(cols, n_words))
     flop = flop_rows_plain(a, rownnz_b, rows, max_deg_a=max_deg_a)
     return z, flop.sum(dtype=torch.int32), flop
 
@@ -102,7 +112,9 @@ def fused_flop_symbolic_bitmask(a: CSRDevice, b: CSRDevice,
     """(z* int32, f* int32, FLOP per sampled row int32 (S,)) for ``rows`` at
     the bucket's degree bounds; ``span`` bounds the rows' product-column
     extent (0 → B's column space) and sizes the bitmask.  B's rows must be
-    sorted (``validate_csr``), as every planned operand's are."""
+    sorted (``validate_csr``), as every planned operand's are.  One launch,
+    each row on a warp or a block by its own products (decided on the
+    card)."""
     if rownnz_b is None:
         rownnz_b = torch.diff(b.rpt)
     dev = _build.kernel_device(_SYM, a.rpt, a.col, b.rpt, b.col, rownnz_b,
@@ -111,14 +123,99 @@ def fused_flop_symbolic_bitmask(a: CSRDevice, b: CSRDevice,
         return fused_flop_symbolic_bitmask_plain(
             a, b, rows, max_deg_a=max_deg_a, max_deg_b=max_deg_b, span=span,
             rownnz_b=rownnz_b)
-    s = rows.shape[0]
-    z_rows = torch.empty(s, dtype=torch.int32, device=dev)
-    flop = torch.empty(s, dtype=torch.int32, device=dev)
-    if s:
-        _bitmask_launch(None, a, b, rows, max_deg_a, max_deg_b, span,
-                        rownnz_b, dev, z_rows, flop)
-        fused_flop_symbolic_bitmask.launches += 1
-    return (z_rows.sum(dtype=torch.int32), flop.sum(dtype=torch.int32), flop)
+    if not rows.shape[0]:
+        return _empty_counts(dev)
+    out = _bitmask_dual(a, b, rows, max_deg_a, max_deg_b,
+                        _n_words(b.ncols, span), rownnz_b, dev, fused=True)
+    fused_flop_symbolic_bitmask.launches += 1
+    return out
+
+
+class BitmaskTable(NamedTuple):
+    """The sampled rows of one :func:`fused_flop_symbolic_bitmask_buckets`
+    launch, on one device (built by :func:`bitmask_table`), long rows
+    first, and the host-side bounds that size the launch."""
+
+    samples: torch.Tensor   # int32 (5, S): each sample's row of A, its
+    #                         bucket's deg_a, deg_b and mask words, and its
+    #                         place in the caller's order
+    n_long: int             # the first n_long rows take a block each
+    words: int              # most mask words of a sample (0: none)
+    max_deg_a: int          # largest deg_a of a sample
+
+
+def bitmask_table(rows, deg_a, deg_b, n_words, row_flop,
+                  device) -> BitmaskTable:
+    """:class:`BitmaskTable` of the sampled ``rows`` (host int arrays, one
+    entry a sample, duplicates kept) at their buckets' bounds ``deg_a``,
+    ``deg_b`` and mask words ``n_words``, with ``row_flop`` each row's FLOP
+    at ``deg_a`` or a bound on it (Algorithm 1's floprC does).  A row whose
+    products, at most ``min(row_flop, deg_a·deg_b)``, pass a warp's
+    :data:`_build.BMS_WARP_MAX` goes first, to a block; the rest to a warp
+    each (one past the FLOP it was given is handed on to a block on the
+    card).  One upload to ``device``."""
+    rows = np.asarray(rows, dtype=np.int32)
+    deg_a = np.asarray(deg_a, dtype=np.int32)
+    deg_b = np.asarray(deg_b, dtype=np.int32)
+    n_words = np.asarray(n_words, dtype=np.int32)
+    bound = np.minimum(np.asarray(row_flop, dtype=np.int64),
+                       deg_a.astype(np.int64) * deg_b)
+    long = bound > _build.BMS_WARP_MAX
+    order = np.argsort(~long, kind="stable")
+    packed = np.stack([rows, deg_a, deg_b, n_words,
+                       np.arange(rows.size, dtype=np.int32)])
+    samples = torch.from_numpy(np.ascontiguousarray(packed[:, order]))
+    peak = lambda x: int(x.max()) if x.size else 0
+    return BitmaskTable(samples.to(device), n_long=int(long.sum()),
+                        words=peak(n_words), max_deg_a=peak(deg_a))
+
+
+def fused_flop_symbolic_bitmask_buckets_plain(
+        a: CSRDevice, b: CSRDevice, table: BitmaskTable, *,
+        rownnz_b: torch.Tensor | None = None):
+    """Plain tensor-op version: the per-bucket plain version over the rows
+    of each ``(deg_a, deg_b, n_words)`` triple, the FLOP put back in the
+    caller's order."""
+    rows, deg_a, deg_b, n_words, out = table.samples
+    flop = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    z = torch.zeros((), dtype=torch.int32, device=rows.device)
+    for da, db, nw in sorted(set(map(tuple,
+                                     table.samples[1:4].T.tolist()))):
+        sel = torch.nonzero((deg_a == da) & (deg_b == db)
+                            & (n_words == nw))[:, 0]
+        zb, _, fl = _bitmask_plain(a, b, rows[sel], da, db, nw, rownnz_b)
+        z = z + zb
+        flop[out[sel].long()] = fl
+    return z, flop.sum(dtype=torch.int32), flop
+
+
+def fused_flop_symbolic_bitmask_buckets(a: CSRDevice, b: CSRDevice,
+                                        table: BitmaskTable, *,
+                                        rownnz_b: torch.Tensor | None = None):
+    """(z* int32, f* int32, FLOP per sample int32 (S,), in the caller's
+    order) for the table's rows, each at its own bucket's bounds and mask
+    words, in one launch: every SPA and BIN sample of a binned prediction
+    (``predictor.bitmask_sample_table``)."""
+    if rownnz_b is None:
+        rownnz_b = torch.diff(b.rpt)
+    dev = _build.kernel_device(_SYM, a.rpt, a.col, b.rpt, b.col, rownnz_b,
+                               table.samples)
+    if dev is None:
+        return fused_flop_symbolic_bitmask_buckets_plain(a, b, table,
+                                                         rownnz_b=rownnz_b)
+    if not table.samples.shape[1]:
+        return _empty_counts(dev)
+    samples = table.samples
+    if (samples.dim() != 2 or samples.shape[0] != 5
+            or samples.dtype != torch.int32 or not samples.is_contiguous()):
+        raise RuntimeError(f"{_SYM}: samples must be a contiguous (5, S) "
+                           f"int32 tensor")
+    s = samples.shape[1]
+    ptrs = [samples.data_ptr() + 4 * s * k for k in range(5)]
+    out = _bitmask_launch(a, b, rownnz_b, dev, ptrs, s, table.n_long, 0, 0,
+                          0, table.words, table.max_deg_a, fused=True)
+    fused_flop_symbolic_bitmask_buckets.launches += 1
+    return out
 
 
 def bitmask_symbolic_plain(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
@@ -141,7 +238,8 @@ def bitmask_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
     sums the referenced B rows' untruncated lengths — unlike
     :func:`repro_torch.kernels.spgemm_symbolic.sampled_symbolic`, whose f*
     counts the products gathered at ``max_deg_b``, as in the JAX
-    package."""
+    package.  One launch; each row takes a warp or a block by its own
+    products, decided on the card, with nothing read back."""
     if rownnz_b is None:
         rownnz_b = torch.diff(b.rpt)
     dev = _build.kernel_device(_SYM, a.rpt, a.col, b.rpt, b.col, rownnz_b,
@@ -150,39 +248,73 @@ def bitmask_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor, *,
         return bitmask_symbolic_plain(a, b, rows, max_deg_a=max_deg_a,
                                       max_deg_b=max_deg_b, span=span,
                                       rownnz_b=rownnz_b)
+    if not rows.shape[0]:
+        return _empty_counts(dev)[:2]
+    out = _bitmask_dual(a, b, rows, max_deg_a, max_deg_b,
+                        _n_words(b.ncols, span), rownnz_b, dev, fused=False)
+    bitmask_symbolic.launches += 1
+    return out[:2]
+
+
+def _bitmask_dual(a, b, rows, max_deg_a, max_deg_b, n_words, rownnz_b, dev,
+                  fused):
+    """One launch over ``rows`` at one pair of bounds, the rows as given:
+    each takes a block when ``max_deg_a·max_deg_b`` passes a warp's
+    products, else a warp, and the row's own products, counted on the
+    card, decide whether one warp or the whole block counts it."""
     s = rows.shape[0]
-    z_rows = torch.empty(s, dtype=torch.int32, device=dev)
-    f_total = torch.zeros(1, dtype=torch.int32, device=dev)
-    if s:
-        _bitmask_launch("bitmask_symbolic_unfused", a, b, rows, max_deg_a,
-                        max_deg_b, span, rownnz_b, dev, z_rows, f_total)
-        bitmask_symbolic.launches += 1
-    return z_rows.sum(dtype=torch.int32), f_total[0]
+    n_long = s if int(max_deg_a) * int(max_deg_b) > _build.BMS_WARP_MAX \
+        else 0
+    return _bitmask_launch(
+        a, b, rownnz_b, dev,
+        [_build.require(_SYM, rows, torch.int32, "rows"), None, None, None,
+         None], s, n_long, max_deg_a, max_deg_b, n_words, n_words,
+        max_deg_a, fused)
 
 
-def _bitmask_launch(entry, a, b, rows, max_deg_a, max_deg_b, span,
-                    rownnz_b, dev, z_rows, flop_out) -> None:
-    """Launch an entry of ``csrc/bitmask_symbolic.cu`` over ``rows``."""
+def _bitmask_launch(a, b, rownnz_b, dev, ptrs, s, n_long, max_deg_a,
+                    max_deg_b, n_words, words, table_deg_a, fused):
+    """One launch of ``csrc/bitmask_symbolic.cu`` over ``s`` samples
+    (``ptrs``: rows, then the table's deg_a, deg_b, n_words and output slot,
+    or None each for the launch's bounds), the first ``n_long`` long.
+    Returns ``(z*, f*, FLOP per sample)``, int32 views of one buffer the
+    kernel fills (no FLOP without ``fused``)."""
     _check_rownnz(_SYM, rownnz_b, b)
-    s = rows.shape[0]
-    n_words = _n_words(b.ncols, span)
-    ws_bytes = _build.align16(4 * (max_deg_a + 1)) + 4 * n_words
-    grid, threads, smem, scratch, slice_bytes = _build.block_workspace(
-        _SYM, dev, ws_bytes,
-        _build.row_threads(ceil_pow2(max_deg_a * max_deg_b)), s)
-    fn = _build.launcher(_SYM, "pipppppiiiiipqiiippip", entry=entry)
-    rc = fn(_build.require(_SYM, rows, torch.int32, "rows"), s,
-            *_build.require_csr(_SYM, a, "a"),
+    res = torch.empty(2 + (s if fused else 0), dtype=torch.int32,
+                      device=dev)
+    # the other rows go to group blocks spread over the SMs, a block an SM,
+    # up to BMS_WARPS rows a block
+    short_rows = s - n_long
+    warp_rows = min(_build.BMS_WARPS,
+                    max(1, -(-short_rows // _build.sm_count(dev))))
+    shape = _build.bitmask_shape(_build.max_smem(_SYM, dev), n_long,
+                                 -(-short_rows // warp_rows), words,
+                                 table_deg_a)
+    scratch = (torch.empty((shape.long_blocks + shape.group_blocks)
+                           * shape.slice_bytes, dtype=torch.uint8,
+                           device=dev)
+               if shape.slice_bytes else None)
+    fn = _build.launcher(_SYM, "pppppiiiiiiiiipppppiiipqippip")
+    rc = fn(*ptrs, s, n_long, shape.long_blocks, warp_rows,
+            shape.group_blocks, int(max_deg_a), int(max_deg_b), int(n_words),
+            int(table_deg_a), *_build.require_csr(_SYM, a, "a"),
             *_build.require_csr(_SYM, b, "b"),
             _build.require(_SYM, rownnz_b, torch.int32, "rownnz_b"),
-            a.nrows, rownnz_b.shape[0], int(max_deg_a), int(max_deg_b),
-            n_words, _ptr(scratch), slice_bytes, grid, threads, smem,
-            z_rows.data_ptr(), flop_out.data_ptr(), dev.index or 0,
+            a.nrows, rownnz_b.shape[0], shape.smem_words, _ptr(scratch),
+            shape.slice_bytes, shape.smem_bytes, res.data_ptr(),
+            res.data_ptr() + 8 if fused else None, dev.index or 0,
             _build.stream_of(dev))
     _build.check(_SYM, rc)
+    return res[0], res[1], res[2:]
+
+
+def _empty_counts(dev):
+    zero = torch.zeros(2, dtype=torch.int32, device=dev)
+    return zero[0], zero[1], zero[2:]
 
 
 fused_flop_symbolic_bitmask.launches = 0
+fused_flop_symbolic_bitmask_buckets.launches = 0
 bitmask_symbolic.launches = 0
 
 

@@ -10,9 +10,10 @@ plain tensor-op version on CPU tensors.  The TPU grid knobs of the SpGEMM
 entry points (``block_rows``, ``block_samples``) size Pallas blocks and mean
 nothing to kernels that give each row its own thread block or warp, so
 they are dropped; flash attention keeps ``block_q`` and ``block_k`` for
-JAX's divisibility checks.  Two entries have no JAX twin of their own:
-:func:`flop_rows_buckets` and :func:`fused_flop_symbolic_buckets` compute
-what :func:`flop_rows` and the ESC branch of
+JAX's divisibility checks.  Three entries have no JAX twin of their own:
+:func:`flop_rows_buckets`, :func:`fused_flop_symbolic_buckets` and
+:func:`fused_flop_symbolic_bitmask_buckets` compute what
+:func:`flop_rows` and the ESC and SPA/BIN branches of
 :func:`fused_flop_symbolic_routed` give bucket by bucket, for a whole
 binned prediction in one launch each.
 """
@@ -85,6 +86,17 @@ def fused_flop_symbolic_buckets(a: CSRDevice, b: CSRDevice,
     prediction's ESC buckets in one launch, each at its bucket's bounds
     (``table`` from ``predictor.esc_sample_table``)."""
     return _sym_k.fused_flop_symbolic_buckets(a, b, table, rownnz_b=rownnz_b)
+
+
+def fused_flop_symbolic_bitmask_buckets(a: CSRDevice, b: CSRDevice,
+                                        table: _acc_k.BitmaskTable, *,
+                                        rownnz_b=None):
+    """(z*, f*, FLOP per sample) for the sampled rows of a binned
+    prediction's SPA and BIN buckets in one launch, each at its bucket's
+    bounds and mask words (``table`` from
+    ``predictor.bitmask_sample_table``)."""
+    return _acc_k.fused_flop_symbolic_bitmask_buckets(a, b, table,
+                                                      rownnz_b=rownnz_b)
 
 
 def bitmask_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,

@@ -273,6 +273,221 @@ def test_accumulator_kernels_on_a_wide_column_space(card):
         _assert_numeric_equal(got, esc)
 
 
+def _row_units(a, b, rows, da, db, n_words):
+    """Per sampled row of host operands: its products at the bounds and the
+    mask words its column extent takes (at most ``n_words``)."""
+    n, used = [], []
+    for r in rows:
+        ks = a.col[a.rpt[r]:a.rpt[r] + min(a.rpt[r + 1] - a.rpt[r], da)]
+        cols = [b.col[b.rpt[k]:b.rpt[k] + min(b.rpt[k + 1] - b.rpt[k], db)]
+                for k in ks]
+        cols = np.concatenate(cols) if cols else np.zeros(0, np.int64)
+        n.append(cols.size)
+        used.append(min(n_words, (int(cols.max()) - int(cols.min())) // 32
+                        + 1) if cols.size else 0)
+    return np.array(n), np.array(used)
+
+
+def _bitmask_unit(n, used):
+    """The unit the bitmask kernel counts a row with, once a warp has
+    counted its products ``n`` and the words ``used`` of its extent."""
+    define = lambda name: _build.source_define("bitmask_symbolic", name)
+    keys, regs = define("BMS_WARP_KEYS"), define("BMS_REG_WORDS")
+    if n > _build.BMS_WARP_MAX or (n > keys and used > _build.BMS_WARP_WORDS):
+        return "block"
+    if n <= keys:
+        return "match"
+    return "regs" if used <= regs else "mask"
+
+
+def _bitmask_case(case):
+    """Host operands, sampled rows, bounds and span of one unit of the
+    bitmask symbolic kernel."""
+    rng = np.random.default_rng(60)
+    wide = lambda deg, seed: (sprand.erdos_renyi(2000, 2000, deg, seed=seed),
+                              sprand.erdos_renyi(2000, 1_000_000, deg,
+                                                 seed=seed + 1))
+    if case == "warp_match":      # few products spread over 10^6 columns
+        a, b = wide(4, 62)
+    elif case == "warp_match2":   # 33 to 64 products: two rounds of keys
+        a, b = wide(7, 66)
+    elif case == "warp_regs":     # 65 to 256 products in a few words
+        a = b = sprand.banded(3000, 3000, 12, 20, seed=61)
+    elif case == "warp_mask":     # 65 to 256 products in up to 512 words
+        a = b = sprand.banded(3000, 3000, 12, 1000, seed=67)
+    elif case == "handed_to_block":   # 65 to 256 products, too wide
+        a, b = wide(12, 68)
+    elif case == "block_smem":    # thousands of products, narrow extent
+        a = b = sprand.banded(2000, 2000, 60, 100, seed=64)
+    elif case == "block_slice":   # B's 4 M columns pass shared memory
+        a, b = _long_row_operands()
+    elif case == "duplicates":    # hub and short rows, each drawn 3 times
+        a = b = sprand.power_law(3000, 3000, 6, 1.2, seed=5)
+    else:                         # 2 words of a ~1,200-column extent
+        a = b = sprand.banded(2000, 2000, 20 if case == "narrow_span_block"
+                              else 8, 300, seed=65)
+    rows = rng.integers(0, a.nrows, 200)
+    if case == "block_slice":
+        rows = np.concatenate([[0, 1, 2, 0], rows, [1]])
+    if case == "duplicates":
+        hubs = np.argsort(a.row_nnz)[-4:]
+        rows = np.concatenate([hubs, rows[:40], hubs, rows[:40], hubs,
+                               rows[:40]])
+    span = 64 if case.startswith("narrow_span") else 0
+    return (a, b, rows.astype(np.int32), int(a.row_nnz.max()),
+            int(b.row_nnz.max()), span)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "warp_match", "warp_match2", "warp_regs", "warp_mask", "handed_to_block",
+    "block_smem", "block_slice", "duplicates", "narrow_span_warp",
+    "narrow_span_block"])
+def test_bitmask_kernel_units_match_plain_versions(card, case):
+    """Each unit of the bitmask symbolic kernel, through its three entries
+    (kernel 4 at one bucket's bounds, kernel 4's one launch over a table,
+    kernel 8), against the plain versions: a row on a warp by a match of
+    its keys (one or two rounds), by presence bits in registers and in the
+    warp's shared memory, a row its warp hands to the block, a long row
+    with its mask in shared memory and in its block's scratch slice,
+    duplicated rows, and a span narrower than the rows' extent (columns
+    past it are not counted).  Where the span covers the extent, z* equals
+    the host oracle and the ESC kernel's."""
+    a, b, rows, da, db, span = _bitmask_case(case)
+    nw = acc_k._n_words(b.ncols, span)
+    n, used = _row_units(a, b, rows, da, db, nw)
+    units = np.array([_bitmask_unit(x, y) for x, y in zip(n, used)])
+    share = lambda unit: (units == unit).mean()
+    if case in ("warp_match", "warp_regs", "warp_mask"):
+        assert share(case[5:]) > 0.7
+    elif case == "warp_match2":
+        assert share("match") > 0.7 and (n > 32).mean() > 0.5
+    elif case == "handed_to_block":
+        assert share("block") > 0.7 and (n <= _build.BMS_WARP_MAX).all()
+    elif case == "block_smem":
+        assert (n > _build.BMS_WARP_MAX).all()
+    elif case == "block_slice":
+        shape = _build.bitmask_shape(_build.max_smem("bitmask_symbolic", card),
+                                     0, rows.size, nw, da)
+        assert 0 <= shape.smem_words < nw and shape.slice_bytes
+        assert (used[units == "block"] > shape.smem_words).sum() >= 3
+    elif case == "duplicates":
+        assert share("block") * rows.size >= 12 and share("match") > 0.3
+    else:
+        assert (used == nw).all() and nw == 2
+        assert share("match" if case == "narrow_span_warp" else "block") > 0.7
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    rows_d = torch.from_numpy(rows).to(card)
+    kw = dict(a=ad, b=bd, rows=rows_d, max_deg_a=da, max_deg_b=db,
+              span=span)
+    want = acc_k.fused_flop_symbolic_bitmask_plain(**kw)
+    flop = want[2].cpu().numpy()
+    table = acc_k.bitmask_table(rows, np.full(rows.size, da),
+                                np.full(rows.size, db),
+                                np.full(rows.size, nw), flop, card)
+    assert table.n_long == int((np.minimum(flop, da * db)
+                                > _build.BMS_WARP_MAX).sum())
+    before = (acc_k.fused_flop_symbolic_bitmask.launches,
+              acc_k.fused_flop_symbolic_bitmask_buckets.launches,
+              acc_k.bitmask_symbolic.launches)
+    for got in (acc_k.fused_flop_symbolic_bitmask(**kw),
+                acc_k.fused_flop_symbolic_bitmask_buckets(ad, bd, table)):
+        assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+        assert torch.equal(got[2], want[2])
+    got = acc_k.bitmask_symbolic(**kw)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+    assert (acc_k.fused_flop_symbolic_bitmask.launches,
+            acc_k.fused_flop_symbolic_bitmask_buckets.launches,
+            acc_k.bitmask_symbolic.launches) == tuple(x + 1 for x in before)
+    if span == 0:
+        assert int(want[0]) == oracle.exact_sampled_nnz(a, b, rows)
+        esc = sym_k.fused_flop_symbolic(ad, bd, rows_d, max_deg_a=da,
+                                        max_deg_b=db)
+        assert int(esc[0]) == int(want[0])
+    else:
+        assert int(want[0]) < oracle.exact_sampled_nnz(a, b, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 300])
+def test_bitmask_rows_past_their_flop_bound(card, cap):
+    """A FLOP below a row's products puts it on a warp it outgrows: with a
+    FLOP of 1 every row goes to a warp, and the warps of the hub rows (past
+    BMS_WARP_MAX products, extents past the warp's words) hand them to
+    their blocks; capped at 300, the hub rows are long, each on a block.
+    Either way z* and the FLOP are exact."""
+    a, b = _long_row_operands()
+    rows = np.concatenate([[0, 1, 2, 0], np.random.default_rng(85).integers(
+        0, a.nrows, 200), [1]]).astype(np.int32)
+    ad, bd = csr.to_device(a, device=card), csr.to_device(b, device=card)
+    da, db = int(a.row_nnz.max()), int(b.row_nnz.max())
+    nw = acc_k._n_words(b.ncols, 0)
+    flop = oracle.flop_per_row(a, b)[0][rows]
+    table = acc_k.bitmask_table(rows, np.full(rows.size, da),
+                                np.full(rows.size, db),
+                                np.full(rows.size, nw),
+                                np.minimum(flop, cap), card)
+    assert table.n_long == (0 if cap == 1 else 6)
+    got = acc_k.fused_flop_symbolic_bitmask_buckets(ad, bd, table)
+    want = acc_k.fused_flop_symbolic_bitmask_buckets_plain(ad, bd, table)
+    assert int(got[0]) == int(want[0]) == oracle.exact_sampled_nnz(a, b,
+                                                                   rows)
+    assert int(got[1]) == int(want[1]) == int(flop.sum())
+    assert np.array_equal(got[2].cpu().numpy(), flop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["spa", "bin", "auto"])
+@pytest.mark.parametrize("alpha", [1.2, 1.6])
+def test_bitmask_one_launch_matches_plain_and_per_bucket(card, alpha, route):
+    """Kernel 4's one launch over every SPA and BIN sample of a plan, each
+    at its own bucket's bounds and words, against its plain version, the
+    per-bucket kernel on every bucket and the host oracle; and the binned
+    prediction launches it once, with no per-bucket launch."""
+    m = sprand.power_law(3000, 3000, 40, alpha, seed=5)
+    bp = binning.build_plan(m, m, route=route)
+    sample = np.random.default_rng(0).integers(0, m.nrows, 300)
+    ad = csr.to_device(m, device=card)
+    rnb = torch.diff(ad.rpt)
+    tabs = predictor.plan_tables(bp, card)
+    floprc = oracle.flop_per_row(m, m)[0]
+    table = predictor.bitmask_sample_table(bp, tabs, sample, floprc[sample],
+                                           m.ncols, card)
+    bitmask_rows = np.concatenate([sub for bk, sub in zip(
+        bp.buckets, bp.subset(sample)) if bk.route != "esc"])
+    if route == "auto" and not bitmask_rows.size:
+        assert table is None
+        return
+    got = acc_k.fused_flop_symbolic_bitmask_buckets(ad, ad, table,
+                                                    rownnz_b=rnb)
+    want = acc_k.fused_flop_symbolic_bitmask_buckets_plain(ad, ad, table,
+                                                           rownnz_b=rnb)
+    z_b = f_b = 0
+    for bk, sub in zip(bp.buckets, bp.subset(sample)):
+        if sub.size and bk.route != "esc":
+            zs, fs, _ = acc_k.fused_flop_symbolic_bitmask(
+                ad, ad, torch.from_numpy(sub).to(card), max_deg_a=bk.deg_a,
+                max_deg_b=bk.deg_b, span=bk.span, rownnz_b=rnb)
+            z_b, f_b = z_b + int(zs), f_b + int(fs)
+    host = (oracle.exact_sampled_nnz(m, m, bitmask_rows),
+            int(floprc[bitmask_rows].sum()))
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1])) \
+        == (z_b, f_b) == host
+    assert torch.equal(got[2], want[2])
+    # the FLOP per sample in the caller's order
+    on_bitmask = ~tabs.esc[bp.row_bucket[sample]]
+    assert np.array_equal(got[2].cpu().numpy(), floprc[sample[on_bitmask]])
+    before = (acc_k.fused_flop_symbolic_bitmask.launches,
+              acc_k.fused_flop_symbolic_bitmask_buckets.launches)
+    pred = predictor.proposed_predict_binned(
+        ad, ad, torch.from_numpy(sample.astype(np.int32)).to(card), bp,
+        use_kernel=True)
+    assert (acc_k.fused_flop_symbolic_bitmask.launches,
+            acc_k.fused_flop_symbolic_bitmask_buckets.launches) == \
+        (before[0], before[1] + 1)
+    assert int(pred.sampled_nnz) == oracle.exact_sampled_nnz(m, m, sample)
+
+
 @pytest.mark.cuda
 def test_auto_route_plan_has_the_esc_plan_structure(card):
     """Routes change no bucket, prediction or capacity, so an auto-routed

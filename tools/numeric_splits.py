@@ -7,7 +7,8 @@ symbolic, kernel 2) split into device and host time.
 
 Run from the repository root::
 
-    python3 tools/numeric_splits.py [--predict] [--src DIR] [--out FILE]
+    python3 tools/numeric_splits.py [--predict] [--bitmask] [--src DIR]
+        [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so one call on one card can time two trees in
@@ -47,6 +48,24 @@ all-rows FLOP kernel (kernel 9) on the seven products at each one's largest
 row degree, as the global-pad predictor calls it: events, device and host
 ms, its bound (bytes over 3.35 TB/s) and whether it equals the host
 oracle.  Both run on a tree with either design of the two kernels.
+
+``--bitmask`` times the bitmask symbolic kernels (``csrc/bitmask_symbolic.cu``)
+on the seven products, each with its ``route="auto"`` bucket plan and
+seed-0 sampled rows: kernel 4 over the SPA and BIN buckets' samples as the
+per-bucket sequence (``fused_flop_symbolic_bitmask``, one call a bucket)
+and, where the tree has it, as one launch
+(``fused_flop_symbolic_bitmask_buckets`` over
+``predictor.bitmask_sample_table``), each by CUDA events, the kernel's own
+device time from ``torch.profiler`` and the host time to issue a call; the
+whole ``binned_symbolic_counts(use_kernel=True)`` and
+``proposed_predict_binned(use_kernel=True)`` calls by synchronised host
+clock (floprC passed as the planner passes it); and kernel 8
+(``bitmask_symbolic``) at the global bounds over the same sampled rows,
+with kernel 7's device time on the same rows beside it.  Every count is
+held to the host oracle.  It runs on a tree with either design; on one
+with the one-launch entry it also splits kernel 8's rows by unit (its
+short and long rows by FLOP alone, and every row on a block or first on
+a warp through a table), by device time.
 
 ``--predict`` takes ``chip_smoke.py``'s five predict products instead, each
 with its ``route="esc"`` bucket plan and seed-0 sampled rows, and times the
@@ -204,6 +223,7 @@ def main() -> int:
     ap.add_argument("--global", dest="global_pad", action="store_true")
     ap.add_argument("--spa", action="store_true")
     ap.add_argument("--flop-all", dest="flop_all", action="store_true")
+    ap.add_argument("--bitmask", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -235,13 +255,16 @@ def main() -> int:
               torch=torch.__version__, build_s=built["seconds"]))
     if args.ptxas:
         names = (("flop_rows", "esc_symbolic") if args.predict
+                 else ("bitmask_symbolic",) if args.bitmask
                  else ("flash_attention_sm90",) if args.attention
                  else ("spa_numeric", "flop_rows") if args.spa or args.flop_all
                  else ("esc_numeric", "bin_numeric"))
         for ln in ptxas(os.path.abspath(args.src), names):
             emit(dict(phase="ptxas", line=ln))
     if (args.predict or args.attention or args.global_pad or args.spa
-            or args.flop_all):
+            or args.flop_all or args.bitmask):
+        if args.bitmask:
+            bitmask_splits(torch, np, dev, emit)
         if args.spa:
             spa_splits(torch, np, dev, emit)
         if args.flop_all:
@@ -379,6 +402,7 @@ def main() -> int:
 
 PREDICT_MATRICES = MATRICES[:5]
 SPA_MATRICES = ("band_60k_d16", "fem_30k_d48", "cant_like")
+WHOLE_RUNS = 101                 # host-clock runs of a whole prediction
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 
 
@@ -594,6 +618,142 @@ def predict_splits(torch, np, dev, emit) -> None:
                       torch, lambda: predictor.proposed_predict_binned(
                           ad, ad, rows_d, bp, use_kernel=True))))
         del ad, rnb, k1, k2, seqs
+        torch.cuda.empty_cache()
+
+
+def bitmask_splits(torch, np, dev, emit) -> None:
+    """``--bitmask``: kernel 4 on each product's SPA and BIN samples, per
+    bucket and, where the tree has it, in one launch; the whole binned
+    symbolic count and prediction; kernel 8 at the global bounds beside
+    kernel 7 on the same rows."""
+    from repro_torch.core import binning, csr, oracle, predictor
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import accumulator as acc_k
+    from repro_torch.kernels import flop_per_row as flop_k
+    from repro_torch.kernels import spgemm_symbolic as sym_k
+    one_launch = hasattr(acc_k, "fused_flop_symbolic_bitmask_buckets")
+    for name, m in products(MATRICES):
+        rows = oracle.sample_rows(m.nrows, seed=0)
+        floprc, _ = oracle.flop_per_row(m, m)
+        host_z = oracle.exact_sampled_nnz(m, m, rows)
+        ad = csr.to_device(m, device=dev)
+        rnb = torch.diff(ad.rpt)
+        rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        bp = binning.build_plan(m, m)
+        calls = [dict(a=ad, b=ad, rows=torch.from_numpy(sub).to(dev),
+                      max_deg_a=bk.deg_a, max_deg_b=bk.deg_b, span=bk.span,
+                      rownnz_b=rnb)
+                 for bk, sub in zip(bp.buckets, bp.subset(rows))
+                 if bk.route != binning.ROUTE_ESC and sub.size]
+        sel = np.concatenate([sub for bk, sub in zip(bp.buckets,
+                                                     bp.subset(rows))
+                              if bk.route != binning.ROUTE_ESC]
+                             ) if calls else np.zeros(0, np.int64)
+        want = (oracle.exact_sampled_nnz(m, m, sel),
+                int(floprc[sel].sum())) if calls else (0, 0)
+        seqs = []
+        if calls:
+            seqs.append(("per_bucket", len(calls), lambda: [
+                acc_k.fused_flop_symbolic_bitmask(**kw) for kw in calls]))
+            got = [acc_k.fused_flop_symbolic_bitmask(**kw) for kw in calls]
+            agrees = (sum(int(g[0]) for g in got),
+                      sum(int(g[1]) for g in got)) == want
+            if one_launch:
+                tabs = predictor.plan_tables(bp, dev)
+                table = predictor.bitmask_sample_table(
+                    bp, tabs, rows, floprc[rows], m.ncols, dev)
+                seqs.append(("one_launch", 1, lambda: (
+                    acc_k.fused_flop_symbolic_bitmask_buckets(
+                        ad, ad, table, rownnz_b=rnb))))
+                got = acc_k.fused_flop_symbolic_bitmask_buckets(
+                    ad, ad, table, rownnz_b=rnb)
+                agrees = agrees and (int(got[0]), int(got[1])) == want
+        for how, n_calls, fn in seqs:
+            own, every = profiled_ms(torch, fn, "bitmask", reps=5)
+            host = host_ms(torch, fn)
+            emit(dict(phase="bitmask_split", matrix=name, kernel=4, how=how,
+                      calls=n_calls, samples=int(sel.size),
+                      products=int(floprc[sel].sum()), agrees=agrees,
+                      ms=cuda_ms(torch, fn), device_ms=own,
+                      all_device_ms=every, host_ms=host,
+                      host_ms_per_call=host / n_calls))
+        # the whole count and prediction, floprC passed as the planner
+        # passes it
+        floprc_d = torch.from_numpy(floprc.astype(np.int32)).to(dev)
+        z, f = predictor.binned_symbolic_counts(ad, ad, rows_d, bp,
+                                                use_kernel=True,
+                                                floprc=floprc_d)
+        counts = lambda: predictor.binned_symbolic_counts(
+            ad, ad, rows_d, bp, use_kernel=True, floprc=floprc_d)
+        emit(dict(phase="bitmask_whole", matrix=name,
+                  buckets=len(bp.buckets), bitmask_calls=len(calls),
+                  samples=int(rows.size),
+                  agrees=(int(z), int(f)) == (host_z,
+                                              int(floprc[rows].sum())),
+                  runs=WHOLE_RUNS,
+                  binned_symbolic_counts_ms=synced_ms(torch, counts,
+                                                      WHOLE_RUNS),
+                  proposed_predict_binned_ms=synced_ms(
+                      torch, lambda: predictor.proposed_predict_binned(
+                          ad, ad, rows_d, bp, use_kernel=True,
+                          floprc=floprc_d), WHOLE_RUNS)))
+        if calls and name in ("band_60k_d16", "cant_like"):
+            host_profile(torch, emit, name, [(
+                "binned_symbolic_counts", "one_launch", "", counts, 1)])
+        # kernel 8 at the global bounds, kernel 7 on the same rows
+        da = int(m.row_nnz.max())
+        kw = dict(a=ad, b=ad, rows=rows_d, max_deg_a=da, max_deg_b=da,
+                  rownnz_b=rnb)
+        fn8 = lambda: acc_k.bitmask_symbolic(**kw)
+        got = fn8()
+        hint = flop_k.flop_per_row(ad, rnb, max_deg_a=da)[rows_d.long()]
+        fn7 = lambda: sym_k.sampled_symbolic(**kw, row_flop=hint)
+        own, every = profiled_ms(torch, fn8, "bitmask", reps=5)
+        emit(dict(phase="bitmask_global", matrix=name, kernel=8,
+                  samples=int(rows.size), max_deg=da,
+                  agrees=(int(got[0]), int(got[1])) == (
+                      host_z, int(floprc[rows].sum())),
+                  ms=cuda_ms(torch, fn8), device_ms=own,
+                  all_device_ms=every, host_ms=host_ms(torch, fn8),
+                  kernel7_ms=cuda_ms(torch, fn7),
+                  kernel7_device_ms=profiled_ms(torch, fn7, "esc_symbolic",
+                                                reps=5)[0]))
+        if one_launch:
+            # kernel 8's rows by the unit that takes them: its short rows
+            # alone and its long rows alone (at the global bounds a row's
+            # products are its FLOP), and every row on a block or on a warp
+            # through a table of the same rows
+            n_products = floprc[rows]
+            warp_max = _build.BMS_WARP_MAX
+            units = {}
+            for unit, sel in (("short_rows", n_products <= warp_max),
+                              ("long_rows", n_products > warp_max)):
+                if sel.any():
+                    sub = dict(kw, rows=rows_d[torch.from_numpy(sel).to(dev)])
+                    units[unit] = profiled_ms(
+                        torch, lambda: acc_k.bitmask_symbolic(**sub),
+                        "bitmask", reps=5)[0]
+            nw = acc_k._n_words(m.ncols, 0)
+            short = n_products <= warp_max
+            for unit, sel, flop in (
+                    ("all_blocks", rows >= 0, np.full(rows.size, 1 << 30)),
+                    ("all_warps", rows >= 0, np.ones(rows.size)),
+                    ("short_rows_table", short, n_products),
+                    ("long_rows_table", ~short, n_products)):
+                if not sel.any():
+                    continue
+                k = int(sel.sum())
+                t = acc_k.bitmask_table(rows[sel], np.full(k, da),
+                                        np.full(k, da), np.full(k, nw),
+                                        flop[sel], dev)
+                units[unit] = profiled_ms(
+                    torch, lambda: acc_k.fused_flop_symbolic_bitmask_buckets(
+                        ad, ad, t, rownnz_b=rnb), "bitmask", reps=5)[0]
+            emit(dict(phase="bitmask_units", matrix=name, kernel=8,
+                      short_rows=int((n_products <= warp_max).sum()),
+                      long_rows=int((n_products > warp_max).sum()),
+                      device_ms=units))
+        del ad, rnb, rows_d, calls, seqs, floprc_d, hint
         torch.cuda.empty_cache()
 
 
