@@ -34,6 +34,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        qwen2.5-32b's and phi3-mini's attention widths over 4096 tokens,
        causal (top-left) and not, in bfloat16 (the tensor-core kernel) and
        float32 (the CUDA-core one), each launch counted under its kernel;
+   (h) re-planning on overflow and plan templates: the seven products
+       planned at ``safety=0`` (every bucket at the 8-slot floor) with
+       ``RetryPolicy()``, with the legacy ``retry_safety=1.5`` and with
+       ``RetryPolicy(rounds=0)`` (the exact-symbolic fallback alone:
+       kernels 2 and 4 count the offending buckets' rows), and with
+       ``pop_quant=True``, each held to (c)'s product (row pointers and
+       ``col`` exactly, ``val`` to tolerance, whether bitwise said), only
+       the overflowing buckets re-launched, the bumped plan run again
+       without a retry; and two families of three members planned through
+       ``template="auto"`` until, after the template's last growth, every
+       member keeps one key, hits the cache and builds nothing, each
+       member's product equal to its direct plan's;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
@@ -56,6 +68,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    ``scaled_dot_product_attention``, also through each of its backends);
    kernels 1, 2 and 4 as one launch over a whole prediction, their
    per-bucket sequence beside it;
+   kernels 2 and 4 in their per-row count mode over the largest bucket
+   (h)'s fallback counted with each;
 4. launches each numeric kernel twice on every bucket and holds ``val``
    bit for bit (ESC, SPA and BIN all add each column's products in a fixed
    order), SPA also on the reference phase's forced ``route="spa"`` plans,
@@ -100,6 +114,18 @@ DEVICE_TIMED = dict(spa_numeric="spa_numeric", flop_per_row="flop_all_rows",
                     fused_flop_symbolic_bitmask="bitmask_symbolic",
                     bitmask_symbolic="bitmask_symbolic")
 G1_ACCEPT_MS = 2.0     # the tensor-core redesign's acceptance bar on G1
+# (h)'s template families, three members each, planned through
+# template="auto"; a pass over the members repeats until one comes after
+# the template's last growth
+TEMPLATE_FAMILIES = (
+    ("power_law", lambda sprand, s: sprand.power_law(100_000, 100_000, 4, 1.8,
+                                                     seed=s), (201, 202, 203)),
+    ("banded", lambda sprand, s: sprand.banded(60_000, 60_000, 16, 24, seed=s),
+     (401, 402, 403)))
+TEMPLATE_PASSES = 4
+# (h)'s pad-row member: the first family's shape, banded, its row 0 a hub
+PAD_ROW_SEED = 405
+PAD_ROW_HUB = 2000
 
 
 def emit(obj) -> None:
@@ -282,7 +308,7 @@ def main() -> int:
     from repro_torch.kernels import spgemm_symbolic as sym_k
     from repro_torch.sparse import random as sprand
     from repro_torch.sparse import suite
-    from repro_torch.sparse.formats import spgemm_dense_oracle
+    from repro_torch.sparse.formats import CSR, spgemm_dense_oracle
 
     # torch.sparse.mm (the numeric kernels' yardstick) warns that CSR
     # support is in beta
@@ -311,11 +337,12 @@ def main() -> int:
                fa_k.flash_attention, flop_k.flop_rows_buckets,
                sym_k.fused_flop_symbolic_buckets, fa_k.flash_attention_sm90,
                fa_k.flash_attention_simt,
-               acc_k.fused_flop_symbolic_bitmask_buckets)
+               acc_k.fused_flop_symbolic_bitmask_buckets,
+               sym_k.exact_row_counts_esc, acc_k.exact_row_counts_bitmask)
     names = [k.__name__ for k in kernels]
     launches = {path: dict.fromkeys(names, 0)
-                for path in ("predict", "plan_esc", "plan_auto",
-                             "global_predict", "global_bitmask",
+                for path in ("predict", "plan_esc", "plan_auto", "replan",
+                             "templates", "global_predict", "global_bitmask",
                              "global_spgemm", "experiment", "attention")}
 
     def drive(path, fn):
@@ -424,6 +451,7 @@ def main() -> int:
     num_err = dict.fromkeys(("spgemm_numeric", "spa_numeric",
                              "bin_numeric"), 0.0)
     auto_runs = {}      # matrix -> (rows per route, launch counts) of (c)
+    auto_csr = {}       # matrix -> (c)'s reassembled host CSR, for (h)
     b_row_nnz = {}      # matrix -> (b)'s row_nnz
     for name, m in mats:
         # (b) every bucket on ESC: the prediction launches the fused ESC
@@ -521,8 +549,302 @@ def main() -> int:
                           if bk.route != binning.ROUTE_ESC],
                   overflow=int(outa.overflow), equals_esc_run=True,
                   launches=counts, **secs))
+        if int(outa.overflow) == 0:     # (h) holds its runs to a whole C
+            auto_csr[name] = ca
         del p, out, pa, outa, ca, ad
         torch.cuda.empty_cache()
+
+    # ---- (h) re-planning on overflow and plan templates.  The seven
+    # products planned at the 8-slot floor (safety 0), so the numeric wave
+    # overflows and execute re-plans: by RetryPolicy()'s ladder, by the
+    # legacy retry_safety=1.5, and by the exact-symbolic fallback alone
+    # (RetryPolicy(rounds=0): kernels 2 and 4 count the offending buckets'
+    # rows); then pop_quant=True at the smoke's safety.  Each result is held
+    # to (c)'s auto run of the same product and sample rows.
+    numeric_kernels = (num_k.spgemm_numeric, acc_k.spa_numeric,
+                       acc_k.bin_numeric)
+
+    def numeric_launches():
+        return sum(k.launches for k in numeric_kernels)
+
+    class CountingCache(plan.PlanCache):
+        """A plan cache that notes at each executor lookup the numeric
+        kernels' launches so far: each call's launches (the wave's, then
+        each re-run bucket's) are the differences."""
+
+        def __init__(self):
+            super().__init__()
+            self.marks = []
+
+        def executor(self, key, build):
+            self.marks.append((key[0], numeric_launches()))
+            return super().executor(key, build)
+
+        def calls(self):
+            ends = [n for _, n in self.marks[1:]] + [numeric_launches()]
+            return [(k, e - n) for (k, n), e in zip(self.marks, ends)]
+
+    def csr_matches(got, want):
+        """(structure equal, val within VAL_RTOL (+ VAL_ATOL_REL × the
+        row's largest |value|), val bitwise) of two host CSRs."""
+        if not (np.array_equal(got.rpt, want.rpt)
+                and np.array_equal(got.col, want.col)):
+            return False, False, False
+        lens = np.diff(want.rpt)
+        vmax = np.zeros(want.nrows, dtype=np.float32)
+        if want.nnz:
+            vmax[lens > 0] = np.maximum.reduceat(np.abs(want.val),
+                                                 want.rpt[:-1][lens > 0])
+        close = bool((np.abs(got.val - want.val)
+                      <= VAL_RTOL * np.abs(want.val)
+                      + VAL_ATOL_REL * np.repeat(vmax, lens)).all())
+        return True, close, np.array_equal(got.val.view(np.int32),
+                                           want.val.view(np.int32))
+
+    def run_replan(m, cache, **opts):
+        """plan → execute (re-planning) → reassemble on the card: the plan,
+        its capacities before the run, the output, the host CSR and
+        host-clock seconds and peak device bytes as run_plan measures
+        them."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        p = plan.plan_spgemm(m, m, use_kernel=True, device=dev, **opts)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t
+        caps0 = list(p.alloc.bucket_capacities)
+        t = time.perf_counter()
+        out = plan.execute(p, m, m, cache=cache)
+        torch.cuda.synchronize()
+        t_exec = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        return p, caps0, out, plan.reassemble(p, out), dict(
+            plan_s=t_plan, execute_s=t_exec, peak_bytes=peak)
+
+    replan_modes = (
+        ("policy", dict(safety=0.0, retry_policy=plan.RetryPolicy())),
+        ("legacy", dict(safety=0.0, retry_safety=1.5)),
+        ("fallback", dict(safety=0.0,
+                          retry_policy=plan.RetryPolicy(rounds=0))),
+        ("pop_quant", dict(safety=SAFETY, pop_quant=True,
+                           retry_policy=plan.RetryPolicy())))
+    largest = {}        # kernel -> (rows, matrix, bucket, FLOP bound) of the
+    #                     largest bucket the fallback counted on the card
+    for name, m in mats:
+        if name not in auto_csr:
+            fail(f"replan {name}: (c)'s auto run overflowed at safety "
+                 f"{SAFETY}, so there is no whole product to hold (h) to")
+        want_c = auto_csr.pop(name)
+        for mode, opts in replan_modes:
+            cache = CountingCache()
+            (p, caps0, out, c, secs), counts = drive(
+                "replan", lambda: run_replan(m, cache, **opts))
+            structure, close, bitwise = csr_matches(c, want_c)
+            if not (structure and close) or int(out.overflow):
+                fail(f"replan {name} {mode}: reassembled CSR != (c)'s auto "
+                     "run")
+            n = out.row_nnz.cpu().numpy().astype(np.int64)
+            buckets = p.binning.buckets
+            over = {i for i, bk in enumerate(buckets)
+                    if bk.n_rows and int(n[bk.rows].max()) > caps0[i]}
+            rerun = ([e["bucket"] for e in p.retry_events]
+                     + [d["bucket"] for d in p.degradations])
+            # the wave launches one numeric kernel a bucket, each re-run
+            # bucket one more: only the overflowing buckets re-launch
+            calls = cache.calls()
+            if (calls[0] != ("spgemm-plan", sum(
+                    1 for t_ in p.host_tables() if t_.size))
+                    or [k for k, _ in calls[1:]]
+                    != ["bucket-retry"] * len(rerun)
+                    or any(x != 1 for _, x in calls[1:])
+                    or sorted(rerun) != sorted(over)):
+                fail(f"replan {name} {mode}: re-launched buckets {rerun} "
+                     f"({calls}) != the overflowing ones {sorted(over)}")
+            rounds = [calls[0][1]] + [
+                sum(1 for e in p.retry_events if e["round"] == r)
+                for r in range(1, p.retries + 1)]
+            if p.degradations:
+                rounds.append(len(p.degradations))
+            line = dict(phase="replan", matrix=name, mode=mode,
+                        buckets=len(buckets), overflowing=sorted(over),
+                        retries=p.retries, retry_events=len(p.retry_events),
+                        degradations=len(p.degradations),
+                        numeric_launches_per_round=rounds,
+                        row_capacity=p.alloc.row_capacity,
+                        equals_auto_run=True, val_bitwise=bitwise,
+                        builds=cache.traces, launches=counts, **secs)
+            if mode == "pop_quant":
+                line["row_padding"] = p.stats()["row_padding"]
+                if line["row_padding"] > 2:
+                    fail(f"replan {name}: row padding "
+                         f"{line['row_padding']} > 2")
+            if mode == "fallback":
+                if not p.degradations or p.retry_events:
+                    fail(f"replan {name}: the fallback alone did not run")
+                # kernels 2 and 4's per-row counts over each offending
+                # bucket against its numeric row_nnz and the plain counts
+                ad = p.to_device(m, "a")
+                for d in p.degradations:
+                    bk = buckets[d["bucket"]]
+                    kw = dict(max_deg_a=bk.deg_a, max_deg_b=bk.deg_b,
+                              route=bk.route, span=bk.span)
+                    got = predictor.exact_row_counts(
+                        ad, ad, bk.rows, use_kernel=True,
+                        row_flop=p.flopr[bk.rows], **kw)
+                    plain_counts = predictor.exact_row_counts(ad, ad, bk.rows,
+                                                              **kw)
+                    if not (np.array_equal(got, n[bk.rows])
+                            and np.array_equal(got, plain_counts)
+                            and int(got.max()) == d["need"]):
+                        fail(f"replan {name}: exact counts of bucket "
+                             f"{d['bucket']} != numeric row_nnz/plain")
+                    mode_of = ("esc" if bk.route == binning.ROUTE_ESC
+                               else "bitmask")
+                    if bk.n_rows > largest.get(mode_of, (0,))[0]:
+                        largest[mode_of] = (bk.n_rows, name, bk,
+                                            p.flopr[bk.rows])
+                line["exact_counts_equal_row_nnz_and_plain"] = True
+                del ad
+            if mode != "pop_quant":
+                # the bumped plan again: right the first time, no retries
+                del out, c
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = plan.execute(p, m, m, cache=cache)
+                torch.cuda.synchronize()
+                line["execute_s_no_retry"] = time.perf_counter() - t
+                if (p.retries or p.degradations or int(out.overflow)
+                        or not np.array_equal(out.row_nnz.cpu().numpy(), n)):
+                    fail(f"replan {name} {mode}: the bumped plan re-planned")
+            emit(line)
+            del p, out
+            torch.cuda.empty_cache()
+        del want_c
+    for k in ("exact_row_counts_esc", "exact_row_counts_bitmask",
+              "spgemm_numeric", "spa_numeric", "bin_numeric"):
+        if launches["replan"][k] <= 0:
+            fail(f"kernel {k} was not launched on main path replan")
+    if any(launches["replan"][k] for k in (
+            "flop_rows", "fused_flop_symbolic", "fused_flop_symbolic_bitmask")):
+        fail("a per-bucket kernel-1, 2 or 4 launch on path replan")
+
+    # templates: two families of three members, each planned through
+    # template="auto" (a registry and a cache of its own) until a pass of
+    # the three after the template's last growth: there every member keeps
+    # one key, hits the cache and builds nothing.  Each member's CSR equals
+    # its direct plan's.
+    for fam, gen, seeds in TEMPLATE_FAMILIES:
+        members = [(s, gen(sprand, s)) for s in seeds]
+        direct = {}
+        for s, m in members:
+            pd = plan.plan_spgemm(m, m, use_kernel=True, device=dev,
+                                  retry_policy=plan.RetryPolicy())
+            direct[s] = plan.reassemble(pd, plan.execute(
+                pd, m, m, cache=plan.PlanCache()))
+            del pd
+        reg, cache = plan.TemplateRegistry(), plan.PlanCache()
+        passes = []
+        for _ in range(TEMPLATE_PASSES):
+            rec = []
+            for s, m in members:
+                tpl = reg.lookup(m, m)
+                g0 = tpl.growths if tpl is not None else 0
+                hits0, builds0 = cache.hits, cache.traces
+                (p, caps0, out, c, secs), counts = drive(
+                    "templates", lambda: run_replan(
+                        m, cache, template="auto", registry=reg,
+                        retry_policy=plan.RetryPolicy()))
+                structure, close, bitwise = csr_matches(c, direct[s])
+                if not (structure and close):
+                    fail(f"templates {fam} seed {s}: CSR != its direct "
+                         "plan's")
+                rec.append(dict(seed=s, key=plan._plan_key_id(p),
+                                hits=cache.hits - hits0,
+                                builds=cache.traces - builds0,
+                                growths=p._template.growths - g0,
+                                retries=p.retries,
+                                degradations=len(p.degradations),
+                                row_padding=p.stats()["row_padding"],
+                                val_bitwise=bitwise, launches=counts,
+                                **secs))
+                del p, out, c
+            passes.append(rec)
+            if (len({r["key"] for r in rec}) == 1
+                    and all(r["hits"] == 1 and r["builds"] == 0
+                            and r["growths"] == 0 for r in rec)):
+                break
+        else:
+            fail(f"templates {fam}: no pass after the last growth shares "
+                 f"one key without a build ({passes})")
+        if reg.stats()["misses"] != 1:
+            fail(f"templates {fam}: members resolved to {reg.stats()}")
+        emit(dict(phase="templates", family=fam, seeds=list(seeds),
+                  registry=reg.stats(), passes=passes, steady_pass=len(passes),
+                  equals_direct_plan=True))
+        del members, direct
+        torch.cuda.empty_cache()
+
+    # pad rows: a banded member with a hub row 0, planned against the
+    # power-law family's template, leaves template buckets empty; each
+    # launches row 0 under its own narrow bounds, at row 0's FLOP.  Every
+    # padded table through its route's kernel against the plain numeric
+    # phase on the same table, and the member's product against its
+    # direct plan's
+    gen, seed = TEMPLATE_FAMILIES[0][1], TEMPLATE_FAMILIES[0][2][0]
+    m0 = gen(sprand, seed)
+    n = m0.nrows
+    band = sprand.banded(n, n, 6, 8, seed=PAD_ROW_SEED)
+    hub = np.random.default_rng(PAD_ROW_SEED).choice(
+        np.arange(1, n), min(PAD_ROW_HUB, n - 1), replace=False)
+    coo_rows = np.concatenate([np.zeros(hub.size, np.int64),
+                               np.repeat(np.arange(n), np.diff(band.rpt))])
+    member = CSR.from_coo(
+        coo_rows, np.concatenate([hub, band.col.astype(np.int64)]),
+        np.random.default_rng(PAD_ROW_SEED).standard_normal(
+            coo_rows.size).astype(np.float32), (n, n))
+    tpl = plan.PlanTemplate.from_plan(plan.plan_spgemm(
+        m0, m0, pop_quant=True, use_kernel=True, device=dev))
+    (p, caps0, out, c, secs), counts = drive(
+        "templates", lambda: run_replan(member, plan.PlanCache(),
+                                        template=tpl,
+                                        retry_policy=plan.RetryPolicy()))
+    pd = plan.plan_spgemm(member, member, use_kernel=True, device=dev,
+                          retry_policy=plan.RetryPolicy())
+    structure, close, bitwise = csr_matches(c, plan.reassemble(
+        pd, plan.execute(pd, member, member, cache=plan.PlanCache())))
+    empty = [i for i, bk in enumerate(p.binning.buckets) if not bk.n_rows]
+    if not (structure and close) or not empty or any(
+            p.flop_bounds()[i] != int(p.flopr[0]) for i in empty):
+        fail(f"pad rows: product != its direct plan's, or no empty bucket "
+             f"({empty}) launched row 0 at its FLOP")
+    ad = p.to_device(member, "a")
+    rnb = torch.diff(ad.rpt)
+    for bk, cap, table, bound in zip(p.binning.buckets,
+                                     p.alloc.bucket_capacities,
+                                     p.device_args(), p.flop_bounds()):
+        kw = dict(row_capacity=cap, deg_a=bk.deg_a, deg_b=bk.deg_b,
+                  route=bk.route, tile_n=bk.tile_n, n_tiles=bk.n_tiles,
+                  span=bk.span)
+        got = spgemm.routed_spgemm_rows(ad, ad, table, use_kernel=True,
+                                        max_row_flop=bound, rownnz_b=rnb,
+                                        **kw)
+        want = spgemm.routed_spgemm_rows(ad, ad, table, **kw)
+        if not (torch.equal(got.col, want.col)
+                and torch.equal(got.row_nnz, want.row_nnz)
+                and int(got.overflow) == int(want.overflow)
+                and vals_close(got.val, want.val)):
+            fail(f"pad rows: a padded {bk.route} table of width "
+                 f"{bk.deg_a}x{bk.deg_b} kernel != plain")
+    emit(dict(phase="pad_rows", rows=n, hub=int(hub.size),
+              buckets=len(p.binning.buckets), empty_buckets=empty,
+              row0_flop=int(p.flopr[0]),
+              populations=list(p.local_populations()),
+              routes=[bk.route for bk in p.binning.buckets],
+              tables_equal_plain=True, equals_direct_plan=True,
+              val_bitwise=bitwise, launches=counts, **secs))
+    del m0, band, member, tpl, p, pd, out, c, ad, rnb, got, want
+    torch.cuda.empty_cache()
 
     # ---- (d) the paper's predictor at global bounds: one pad, no buckets,
     # on (a)'s sampled rows; its integers and nnz equal (a)'s bit for bit
@@ -1429,6 +1751,68 @@ def main() -> int:
         timings[name, case] = e
         emit(dict(phase="kernel_time", **e))
         del q, k, v, want
+    # kernels 2 and 4 in their per-row count mode, over the largest bucket
+    # (h)'s fallback counted with each, against their plain versions and
+    # the ESC run's row nnz
+    exact_report = []
+    for mode_of, (size, name, bk, flop) in sorted(largest.items()):
+        m = dict(mats)[name]
+        ad = csr.to_device(m, device=dev)
+        bounds = (np.full(size, bk.deg_a, np.int32),
+                  np.full(size, bk.deg_b, np.int32))
+        if mode_of == "esc":
+            def make_table():
+                return sym_k.sample_table(bk.rows, *bounds, flop, dev)
+            fn, plain_fn = (sym_k.exact_row_counts_esc,
+                            sym_k.exact_row_counts_esc_plain)
+            source, replaces = "esc_symbolic.cu", "spgemm_symbolic.py:102"
+        else:
+            lanes = min(bk.span, m.ncols) if bk.span else m.ncols
+
+            def make_table():
+                return acc_k.bitmask_table(bk.rows, *bounds,
+                                           np.full(size, -(-lanes // 32)),
+                                           flop, dev)
+            fn, plain_fn = (acc_k.exact_row_counts_bitmask,
+                            acc_k.exact_row_counts_bitmask_plain)
+            source, replaces = "bitmask_symbolic.cu", "accumulator.py:242"
+        # the table's host cost (numpy, then one upload), as the fallback
+        # pays it once a bucket
+        builds = []
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            table = make_table()
+            torch.cuda.synchronize()
+            builds.append((time.perf_counter() - t) * 1e3)
+        kw = dict(a=ad, b=ad, table=table, rownnz_b=torch.diff(ad.rpt))
+        got, want = fn(**kw), plain_fn(**kw)
+        err = int((got - want).abs().max())
+        if err or not np.array_equal(got.cpu().numpy(),
+                                     b_row_nnz[name][bk.rows]):
+            fail(f"{fn.__name__} {name}: kernel != plain/the ESC run's "
+                 "row nnz")
+        nbytes = bytes_symbolic(np, m, bk.rows, bk.deg_a, bk.deg_b)
+        e = dict(name=fn.__name__, route="cuda",
+                 source=f"src/repro_torch/kernels/csrc/{source}",
+                 replaces=f"src/repro/kernels/{replaces}",
+                 counts_for="src/repro/core/predictor.py:204",
+                 launches=sum(launches[p][fn.__name__] for p in launches),
+                 max_abs_err=float(err), ms=cuda_ms(torch, lambda: fn(**kw)),
+                 plain_ms=cuda_ms(torch, lambda: plain_fn(**kw)),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 library_ms=library_rows_ms(name, bk.rows, ones=True),
+                 device_ms=device_ms(torch, lambda: fn(**kw),
+                                     source.split(".")[0]),
+                 table_host_ms=sorted(builds)[len(builds) // 2],
+                 timed_on=name, rows=size, bucket_route=bk.route,
+                 deg_a=bk.deg_a, deg_b=bk.deg_b, calls=1, bytes=nbytes,
+                 operations=0)
+        emit(dict(phase="kernel_time", **e))
+        exact_report.append(e)
+        del ad, table, kw, got, want
+    if len(exact_report) != 2:
+        fail(f"the fallback counted buckets of {sorted(largest)} only")
     report = [timings["flop_rows", "pl_100k_d4"],
               timings["fused_flop_symbolic", "pl_100k_d4"],
               timings["spgemm_numeric", "cant_like"],
@@ -1439,7 +1823,7 @@ def main() -> int:
               timings["bitmask_symbolic", "rmat_80k"],
               timings["flop_per_row", "cant_like"],
               timings["flash_attention_sm90", "G1"],
-              timings["flash_attention_simt", "G2"]]
+              timings["flash_attention_simt", "G2"]] + exact_report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -1448,7 +1832,7 @@ def main() -> int:
         for e in report]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

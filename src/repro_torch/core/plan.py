@@ -10,18 +10,29 @@ The paper's whole point end to end (DESIGN.md §6), single-device subset of
      (``predictor.BinnedAllocationPlan``);
   3. **execute through the binned kernels**: every bucket runs through
      ``spgemm.routed_spgemm_rows`` on its planned accumulator route (ESC,
-     SPA or BIN; with ``use_kernel`` through that route's CUDA kernel).
+     SPA or BIN; with ``use_kernel`` through that route's CUDA kernel);
+  4. **re-plan on overflow** (``retry_safety``/``retry_policy``, DESIGN.md
+     §7, §9): the numeric kernels report each row's true nnz even where its
+     capacity truncates it, so :func:`execute` re-runs ONLY the overflowing
+     buckets at pow2-bumped capacities and splices them into the output on
+     the device; when the ladder runs out it falls back once to an exact
+     symbolic count of the offending buckets
+     (``predictor.exact_row_counts``: kernels 2 and 4 in their per-row
+     count mode).
 
 Executors are built once per *plan key* — matrix shapes, padded device-CSR
 capacities and the ordered per-bucket ``(signature, population, capacity)``
 tuples — so repeated same-structure SpGEMMs reuse one executor;
-``PlanCache.stats()["traces"]`` counts executor builds.
+``PlanCache.stats()["traces"]`` counts executor builds.  **Population
+quantization** (``pop_quant=True``) pow2-pads the populations, degree bounds
+and capacities in the key, so same-family different-seed matrices share
+executors at ≤ 2× row padding; a :class:`PlanTemplate` (``template=...`` or
+``template="auto"``) freezes a family's bucket ladder, and every member
+planned after its last growth lands on one key.
 
 Not ported yet, and refused with :class:`PlanMismatchError` when asked for:
-distributed plans (``mesh``/``num_shards``), column panels (``n_panels``),
-plan templates, population quantization, overflow re-planning
-(``retry_safety``/``retry_policy``) and the straggler watchdog
-(``dispatch_budget``).
+distributed plans (``mesh``/``num_shards``), column panels (``n_panels``)
+and the straggler watchdog (``dispatch_budget``).
 
 Public API::
 
@@ -88,6 +99,48 @@ def plan_cache() -> PlanCache:
     return _DEFAULT_CACHE
 
 
+# --------------------------------------------------------------------------- #
+# Retry escalation policy (DESIGN.md §9)
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded retry escalation for the overflow re-planning loop.
+
+    ``rounds`` pow2-bump ladder rounds (``×growth^attempt``, floored at the
+    observed need) with an optional per-round capacity ceiling
+    ``max_capacity``; when the ladder runs out (no budget, or every bump
+    ceiling-clamped) and ``exact_fallback`` is on, the loop escalates ONCE
+    to an exact symbolic count (``predictor.exact_row_counts``) of only the
+    offending buckets — termination in ≤ ``rounds``+1 re-execute waves with
+    the output of an ample plan, recorded in ``plan.stats()
+    ["degradations"]``.  Residual overflow after that (only possible with
+    the fallback off) follows ``on_exhausted``: ``"raise"`` raises a typed
+    :class:`~repro_torch.core.errors.CapacityExhaustedError`; ``"surface"``
+    leaves the overflow on the result, and :func:`reassemble` raises.
+    """
+
+    rounds: int = 4
+    growth: float = 1.5
+    max_capacity: int | None = None
+    exact_fallback: bool = True
+    on_exhausted: str = "raise"       # "raise" | "surface"
+
+    def __post_init__(self):
+        if self.rounds < 0:
+            raise PlanMismatchError(f"RetryPolicy.rounds must be >= 0, got "
+                                    f"{self.rounds}")
+        if self.on_exhausted not in ("raise", "surface"):
+            raise PlanMismatchError(
+                f"RetryPolicy.on_exhausted must be 'raise' or 'surface', "
+                f"got {self.on_exhausted!r}")
+
+    def clamp(self, cap: int, new_cap: int) -> int:
+        """Apply the per-round ceiling; never shrink below the current cap."""
+        if self.max_capacity is None:
+            return new_cap
+        return min(new_cap, max(int(self.max_capacity), cap))
+
+
 def _plan_key_id(plan) -> str:
     """Short stable fingerprint of ``plan.key`` for error context."""
     return format(hash(plan.key) & 0xFFFFFFFF, "08x")
@@ -111,43 +164,102 @@ class SpgemmPlan:
     safety: float
     use_kernel: bool
     device: torch.device
+    # plan-key quantization + overflow re-planning (DESIGN.md §7, §9)
+    pop_quant: bool = False         # pow2-padded populations/degrees/caps
+    retries: int = 0                # rounds the last execute() needed
+    retry_events: list = dataclasses.field(default_factory=list)  # last execute()
+    retry_policy: RetryPolicy | None = None      # None → re-planning off
+    degradations: list = dataclasses.field(default_factory=list)  # last execute()
     validation: dict = dataclasses.field(
         default_factory=lambda: dict(operands_validated=0))
+    _template: object = None        # PlanTemplate this plan was fit against
+    _pop_override: tuple | None = dataclasses.field(default=None, repr=False)
+    _host_tables: tuple | None = dataclasses.field(default=None, repr=False)
     _device_args: tuple | None = dataclasses.field(default=None, repr=False)
     _flop_bounds: tuple | None = dataclasses.field(default=None, repr=False)
     # ((host_a, host_b), (ad, bd)) from planning — execute() on the planned
     # operands reuses the prediction pass's upload instead of a second copy
     _planned_pair: tuple | None = dataclasses.field(default=None, repr=False)
 
+    @property
+    def retry_safety(self) -> float:
+        """The policy's growth factor (0 when re-planning is off)."""
+        return self.retry_policy.growth if self.retry_policy else 0.0
+
+    @property
+    def max_retries(self) -> int:
+        """The policy's ladder rounds (0 when re-planning is off)."""
+        return self.retry_policy.rounds if self.retry_policy else 0
+
+    def local_populations(self) -> tuple[int, ...]:
+        """Per-bucket rows the executor launches — the exact populations,
+        their pow2 pads under ``pop_quant``, or the template's grown pads
+        when planned against one."""
+        if self._pop_override is not None:
+            return self._pop_override
+        if self.pop_quant:
+            return tuple(binning_mod.ceil_pow2(bk.n_rows)
+                         for bk in self.binning.buckets)
+        return tuple(bk.n_rows for bk in self.binning.buckets)
+
+    def host_tables(self) -> tuple:
+        """Each bucket's row table as launched (int32, host): its rows, and
+        under ``pop_quant`` padded to :meth:`local_populations` by repeating
+        its last row (row 0 for a bucket a template member leaves empty).
+        The validity mask of a padded table is its first ``n_rows`` entries:
+        pad rows come last, so assembly and the overflow count cut them off
+        by length (:meth:`valid_rows`)."""
+        if self._host_tables is None:
+            if not self.pop_quant:
+                self._host_tables = tuple(bk.rows
+                                          for bk in self.binning.buckets)
+            else:
+                tables = []
+                for bk, pop in zip(self.binning.buckets,
+                                   self.local_populations()):
+                    ids = np.empty(pop, dtype=np.int32)
+                    ids[:bk.n_rows] = bk.rows
+                    ids[bk.n_rows:] = bk.rows[-1] if bk.n_rows else 0
+                    tables.append(ids)
+                self._host_tables = tuple(tables)
+        return self._host_tables
+
+    def valid_rows(self) -> tuple[int, ...]:
+        """Real (unpadded) rows at the head of each launched table."""
+        return tuple(bk.n_rows for bk in self.binning.buckets)
+
     def device_args(self) -> tuple:
-        """Executor row tables (one row-id tensor per bucket), uploaded once
-        per plan."""
+        """Executor row tables (:meth:`host_tables`), uploaded once per
+        plan."""
         if self._device_args is None:
             self._device_args = tuple(
-                torch.from_numpy(bk.rows).to(self.device)
-                for bk in self.binning.buckets)
+                torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).to(
+                    self.device) for t in self.host_tables())
         return self._device_args
 
     def flop_bounds(self) -> tuple:
-        """Each bucket's largest row FLOP (``flopr``), the bound the numeric
-        kernels size their workspaces by.  It travels with every call,
-        beside :meth:`device_args`, and never enters :attr:`key`: a cached
-        executor serves same-keyed plans whose rows carry other FLOP."""
+        """Each launched table's largest row FLOP (``flopr``, pad rows
+        included: an empty template bucket launches row 0), the bound the
+        numeric kernels size their workspaces by.  It travels with every
+        call, beside :meth:`device_args`, and never enters :attr:`key`: a
+        cached executor serves same-keyed plans whose rows carry other
+        FLOP."""
         if self._flop_bounds is None:
             self._flop_bounds = tuple(
-                int(self.flopr[bk.rows].max()) if bk.n_rows else 0
-                for bk in self.binning.buckets)
+                int(self.flopr[t].max()) if t.size else 0
+                for t in self.host_tables())
         return self._flop_bounds
 
     @property
     def key(self) -> tuple:
         """The static half of the executor contract, laid out as the JAX
-        package's single-device key (no shards, no quantization)."""
+        package's single-device key (no shards)."""
         buckets = tuple(
-            (bk.signature, bk.n_rows, int(cap))
-            for bk, cap in zip(self.binning.buckets,
-                               self.alloc.bucket_capacities))
-        return ("spgemm-plan", 0, "data", self.use_kernel, False,
+            (bk.signature, pop, int(cap))
+            for bk, pop, cap in zip(self.binning.buckets,
+                                    self.local_populations(),
+                                    self.alloc.bucket_capacities))
+        return ("spgemm-plan", 0, "data", self.use_kernel, self.pop_quant,
                 self.shape_a, self.shape_b, self.cap_a, self.cap_b,
                 self.alloc.row_capacity, buckets)
 
@@ -169,7 +281,7 @@ class SpgemmPlan:
         return csr_mod.to_device(m, capacity=cap, device=self.device)
 
     def stats(self) -> dict:
-        return dict(
+        out = dict(
             predicted_nnz=round(float(self.predicted_nnz), 1),
             compression_ratio=round(float(self.compression_ratio), 4),
             num_buckets=len(self.binning.buckets),
@@ -178,10 +290,294 @@ class SpgemmPlan:
             bucket_capacities=list(self.alloc.bucket_capacities),
             total_capacity=int(self.alloc.total_capacity),
             device=str(self.device),
-            validation=dict(self.validation),
         )
+        if self.pop_quant:
+            real = max(1, sum(bk.n_rows for bk in self.binning.buckets))
+            out.update(pop_quant=True,
+                       row_padding=round(sum(self.local_populations()) / real,
+                                         4))
+        if self.retry_policy is not None:
+            out.update(retry_safety=self.retry_safety, retries=self.retries,
+                       retry_events=list(self.retry_events),
+                       final_capacities=list(self.alloc.bucket_capacities))
+        out.update(retries=int(self.retries),
+                   degradations=[dict(e) for e in self.degradations],
+                   validation=dict(self.validation))
+        return out
 
 
+# --------------------------------------------------------------------------- #
+# Plan templates — the family-level executor contract (DESIGN.md §7).
+#
+# Per-component pow2 rounding cannot make two matrices share a key when the
+# bucket LADDER itself differs (a width band present in one seed's histogram
+# and absent in the other's, or a hub degree crossing a pow2 boundary).  A
+# template freezes one quantized plan's static half — bucket signatures,
+# padded populations, capacities, device-CSR caps — and other same-shape
+# matrices plan AGAINST it: rows are assigned to the first template bucket
+# whose degree bounds dominate them, populations/capacities grow (pow2,
+# monotone, in place) only when a member exceeds the template, and every
+# member planned after the last growth lands on the SAME plan key.
+# --------------------------------------------------------------------------- #
+class PlanTemplate:
+    """Mutable static execution profile shared by a family of matrices.
+
+    Build from a representative plan, then pass to
+    ``plan_spgemm(template=...)``::
+
+        tpl = PlanTemplate.from_plan(plan_spgemm(a0, b0, pop_quant=True))
+        p1  = plan_spgemm(a1, b1, template=tpl)   # same key as a0·b0's plan
+                                                  # unless a1/b1 outgrow it
+
+    Growth events (``tpl.growths``) re-key subsequent plans once; members
+    planned after the last growth all share one executor.
+    """
+
+    def __init__(self, shape_a, shape_b, cap_a, cap_b, sigs, pops, caps):
+        self.shape_a = tuple(shape_a)
+        self.shape_b = tuple(shape_b)
+        self.cap_a = int(cap_a)
+        self.cap_b = int(cap_b)
+        self.sigs = list(sigs)      # per-bucket RowBucket.signature tuples
+        self.pops = list(pops)      # pow2 padded populations
+        self.caps = list(caps)      # pow2 row capacities
+        self.growths = 0
+
+    @staticmethod
+    def from_plan(plan: SpgemmPlan) -> "PlanTemplate":
+        if not plan.pop_quant:
+            raise PlanMismatchError("templates require a pop_quant=True plan",
+                                    plan_key=_plan_key_id(plan))
+        return PlanTemplate(
+            plan.shape_a, plan.shape_b, plan.cap_a, plan.cap_b,
+            sigs=[bk.signature for bk in plan.binning.buckets],
+            pops=list(plan.local_populations()),
+            caps=list(plan.alloc.bucket_capacities))
+
+    def _grow_sig(self, i: int, da: int, db: int, span: int,
+                  lane_budget: int = binning_mod.DEFAULT_LANE_BUDGET) -> None:
+        """Raise bucket ``i``'s static bounds to dominate (da, db, span)."""
+        da0, db0, _, route, _, span0 = self.sigs[i]
+        da = max(da0, binning_mod.ceil_pow2(da))
+        db = max(db0, binning_mod.ceil_pow2(db))
+        span = max(span0, binning_mod.ceil_pow2(span))
+        blk = binning_mod._pick_block_rows(da * db, lane_budget,
+                                           binning_mod.DEFAULT_MAX_BLOCK_ROWS)
+        if route == binning_mod.ROUTE_SPA:
+            tile, _ = binning_mod.spa_tile(span, lane_budget)
+            blk = int(max(1, min(blk, binning_mod.floor_pow2(
+                max(1, lane_budget // tile)))))
+            self.sigs[i] = (da, db, blk, route, tile, span)
+        elif route == binning_mod.ROUTE_BIN:
+            tile, ntiles = binning_mod.bin_tile(span, lane_budget)
+            blk = int(max(1, min(blk, binning_mod.floor_pow2(
+                max(1, lane_budget // (tile * ntiles))))))
+            self.sigs[i] = (da, db, blk, route, tile, span)
+        else:
+            self.sigs[i] = (da, db, blk, route, 0, 0)
+        self.growths += 1
+
+    def assign(self, deg_a: np.ndarray, dbmax: np.ndarray,
+               spans: np.ndarray | None) -> np.ndarray:
+        """Row → bucket index under degree-bound dominance (first/narrowest
+        dominating bucket wins; -1 when no bucket covers the row)."""
+        m = deg_a.size
+        out = np.full(m, -1, dtype=np.int32)
+        for i, (da, db, _blk, route, _tile, span) in enumerate(self.sigs):
+            ok = (out < 0) & (deg_a <= da) & (dbmax <= db)
+            if (route in (binning_mod.ROUTE_SPA, binning_mod.ROUTE_BIN)
+                    and spans is not None):
+                ok &= spans <= span
+            out[ok] = i
+        return out
+
+    def fit(self, a, b) -> binning_mod.BinningPlan:
+        """Assign every row of ``a·b`` to a template bucket, growing the
+        template (monotone, pow2) where the member exceeds it, and return
+        the member's :class:`~repro_torch.core.binning.BinningPlan` carrying
+        the template's static bounds."""
+        if a.shape != self.shape_a or b.shape != self.shape_b:
+            raise PlanMismatchError(
+                f"member shapes {a.shape}/{b.shape} do not match template "
+                f"{self.shape_a}/{self.shape_b}",
+                observed=[list(a.shape), list(b.shape)],
+                planned=[list(self.shape_a), list(self.shape_b)])
+        a_rpt = np.asarray(a.rpt)
+        a_col = np.asarray(a.col)
+        b_rpt = np.asarray(b.rpt)
+        rownnz_b = np.diff(b_rpt.astype(np.int64))
+        deg_a, dbmax, _width = binning_mod.row_widths(a_rpt, a_col, rownnz_b)
+        need_spans = any(s[3] in (binning_mod.ROUTE_SPA,
+                                  binning_mod.ROUTE_BIN) for s in self.sigs)
+        spans = (binning_mod.row_spans(a_rpt, a_col, b_rpt,
+                                       np.asarray(b.col))
+                 if need_spans else None)
+        which = self.assign(deg_a, dbmax, spans)
+        if (which < 0).any():
+            # grow the widest bucket to cover the escapees, then re-assign
+            left = which < 0
+            self._grow_sig(len(self.sigs) - 1,
+                           int(deg_a[left].max(initial=1)),
+                           int(dbmax[left].max(initial=1)),
+                           int(spans[left].max(initial=1))
+                           if spans is not None else 1)
+            which = self.assign(deg_a, dbmax, spans)
+            assert (which >= 0).all()
+        buckets = []
+        row_bucket = np.zeros(deg_a.size, dtype=np.int32)
+        for i, sig in enumerate(self.sigs):
+            ids = np.ascontiguousarray(
+                np.flatnonzero(which == i).astype(np.int32))
+            da, db, blk, route, tile, span = sig
+            n_tiles = (-(-binning_mod.ceil_pow2(max(1, span)) // tile)
+                       if route in (binning_mod.ROUTE_SPA,
+                                    binning_mod.ROUTE_BIN) and tile else 0)
+            buckets.append(binning_mod.RowBucket(
+                rows=ids, deg_a=da, deg_b=db, block_rows=blk, route=route,
+                tile_n=tile, n_tiles=n_tiles, span=span))
+            row_bucket[ids] = i
+            if ids.size > self.pops[i]:
+                self.pops[i] = binning_mod.ceil_pow2(ids.size)
+                self.growths += 1
+        gda = int(deg_a.max()) if deg_a.size else 1
+        gdb = int(rownnz_b.max()) if rownnz_b.size else 1
+        return binning_mod.BinningPlan(
+            buckets=tuple(buckets), nrows=deg_a.size,
+            global_deg_a=max(1, gda), global_deg_b=max(1, gdb),
+            row_bucket=row_bucket)
+
+    def grow_caps(self, member_caps) -> None:
+        for i, c in enumerate(member_caps):
+            if int(c) > self.caps[i]:
+                self.caps[i] = binning_mod.ceil_pow2(int(c))
+                self.growths += 1
+
+    def dist_profile(self, num_shards: int) -> dict:
+        """Per-mesh-size static shard profile: pow2 ``rows_pb`` and per-shard
+        capacities per bucket, grown monotonically like the local half
+        (first use seeds from the member without counting growth).  Kept
+        for the distributed plans, which the port does not carry yet."""
+        if not hasattr(self, "_dist"):
+            self._dist = {}
+        return self._dist.setdefault(
+            int(num_shards), dict(rows_pb=[0] * len(self.sigs),
+                                  caps=[0] * len(self.sigs)))
+
+    def grow_dist(self, num_shards: int, rows_pb, caps) -> tuple[list, list]:
+        d = self.dist_profile(num_shards)
+        fresh = not any(d["rows_pb"])
+        for i, (r, c) in enumerate(zip(rows_pb, caps)):
+            if int(r) > d["rows_pb"][i]:
+                d["rows_pb"][i] = binning_mod.ceil_pow2(int(r))
+                self.growths += 0 if fresh else 1
+            if int(c) > d["caps"][i]:
+                d["caps"][i] = binning_mod.ceil_pow2(int(c))
+                self.growths += 0 if fresh else 1
+        return list(d["rows_pb"]), list(d["caps"])
+
+    def grow_device_caps(self, nnz_a: int, nnz_b: int) -> None:
+        if nnz_a > self.cap_a:
+            self.cap_a = _device_capacity(nnz_a)
+            self.growths += 1
+        if nnz_b > self.cap_b:
+            self.cap_b = _device_capacity(nnz_b)
+            self.growths += 1
+
+    def stats(self) -> dict:
+        return dict(buckets=len(self.sigs), sigs=[list(s) for s in self.sigs],
+                    pops=list(self.pops), caps=list(self.caps),
+                    cap_a=self.cap_a, cap_b=self.cap_b, growths=self.growths)
+
+
+# --------------------------------------------------------------------------- #
+# Automatic template selection — a session registry keyed on a cheap
+# structural sketch, so callers get template-level executor sharing without
+# holding the PlanTemplate handle (``plan_spgemm(template="auto")``).
+# --------------------------------------------------------------------------- #
+def _structural_sketch(a, b) -> tuple:
+    """Cheap structural fingerprint of an operand pair: exact shapes plus a
+    vector of log2 degree-regime statistics (mean/median gather width, mean
+    A degree, mean referenced-B degree).
+
+    The shapes match EXACTLY (templates require it); the statistics are
+    matched with a tolerance by :class:`TemplateRegistry` — any hard
+    quantization boundary would split a family whose seed-to-seed jitter
+    straddles it, which is exactly the fragmentation templates exist to
+    remove.  Genuinely different degree regimes differ by ≥ 1 in these
+    log2 stats and never match at the default tolerance."""
+    rownnz_b = np.diff(np.asarray(b.rpt, dtype=np.int64))
+    deg_a, dbmax, width = binning_mod.row_widths(
+        np.asarray(a.rpt), np.asarray(a.col), rownnz_b)
+    if width.size:
+        vec = (float(np.log2(max(1.0, width.mean()))),
+               float(np.log2(max(1.0, np.median(width)))),
+               float(np.log2(max(1.0, deg_a.mean()))),
+               float(np.log2(1.0 + dbmax.mean())))
+    else:
+        vec = (0.0, 0.0, 0.0, 0.0)
+    return (tuple(a.shape), tuple(b.shape)), vec
+
+
+# How far (in log2 space) a member's sketch statistics may sit from a
+# family's and still resolve to its template.
+_SKETCH_TOL = 0.75
+
+
+class TemplateRegistry:
+    """Session-level structural-sketch → :class:`PlanTemplate` map.
+
+    ``plan_spgemm(template="auto")`` resolves the member's sketch here: a
+    hit plans against the family's existing template (growing it if the
+    member exceeds it), a miss seeds a fresh template from the member's own
+    quantized plan.  Matching is shape-exact and TOLERANT on the degree
+    statistics (within ``_SKETCH_TOL`` in log2 space), so same-family
+    different-seed members resolve to one template even when a statistic
+    sits on a quantization boundary.
+    """
+
+    def __init__(self) -> None:
+        self._families: dict = {}    # shapes → [(stats_vec, PlanTemplate)]
+        self.hits = 0
+        self.misses = 0
+
+    def _match(self, shapes, vec) -> PlanTemplate | None:
+        for ref, tpl in self._families.get(shapes, ()):
+            if max(abs(x - y) for x, y in zip(vec, ref)) <= _SKETCH_TOL:
+                return tpl
+        return None
+
+    def lookup(self, a, b) -> PlanTemplate | None:
+        return self._match(*_structural_sketch(a, b))
+
+    def get_or_create(self, a, b, build) -> PlanTemplate:
+        # sketch ONCE per call — it is an O(nnz) host pass over A
+        shapes, vec = _structural_sketch(a, b)
+        tpl = self._match(shapes, vec)
+        if tpl is None:
+            self.misses += 1
+            tpl = build()
+            self._families.setdefault(shapes, []).append((vec, tpl))
+        else:
+            self.hits += 1
+        return tpl
+
+    def stats(self) -> dict:
+        tpls = [t for fam in self._families.values() for _, t in fam]
+        return dict(size=len(tpls), hits=self.hits, misses=self.misses,
+                    growths=sum(t.growths for t in tpls))
+
+
+_DEFAULT_REGISTRY = TemplateRegistry()
+
+
+def template_registry() -> TemplateRegistry:
+    """The session-level default template registry."""
+    return _DEFAULT_REGISTRY
+
+
+# --------------------------------------------------------------------------- #
+# Planning
+# --------------------------------------------------------------------------- #
 def _device_capacity(nnz: int) -> int:
     """pow2-padded device-CSR capacity: same-family matrices land on the
     same padded capacity and so on the same executor key."""
@@ -190,16 +586,19 @@ def _device_capacity(nnz: int) -> int:
 
 # The JAX planner's options this port does not carry yet, with the value
 # that leaves each one off.
-_UNPORTED = dict(mesh=None, num_shards=None, n_panels=0, template=None,
-                 pop_quant=False, retry_safety=0.0, retry_policy=None,
-                 dispatch_budget=None)
+_UNPORTED = dict(mesh=None, num_shards=None, n_panels=0, dispatch_budget=None)
 
 
 def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
                 route: str = "auto", use_kernel: bool = False,
                 sample_rows: np.ndarray | None = None,
                 min_rows: int = binning_mod.DEFAULT_MIN_ROWS,
-                deg_align: int = 1, validate: bool = True, device=None,
+                deg_align: int = 1, pop_quant: bool = False,
+                retry_safety: float = 0.0, max_retries: int = 4,
+                retry_policy: RetryPolicy | None = None,
+                validate: bool = True,
+                template: "PlanTemplate | str | None" = None,
+                registry: TemplateRegistry | None = None, device=None,
                 **unported) -> SpgemmPlan:
     """Plan ``C = A·B``: sample → predict (binned) → per-bucket capacities.
 
@@ -208,9 +607,21 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
     none present this raises unless ``device="cpu"`` is given).  ``route``
     picks each bucket's accumulator: ``"auto"`` by the analytic cost model,
     or ``"esc"``/``"spa"``/``"bin"`` for every bucket; the plan's buckets,
-    prediction and capacities do not depend on it.  Any of the JAX
-    planner's distributed, panel, template, quantization, retry or watchdog
-    options raises :class:`PlanMismatchError` (not ported yet).
+    prediction and capacities do not depend on it.
+
+    ``pop_quant`` pow2-pads bucket populations, degree bounds and
+    capacities, so same-family different-seed matrices share executors at
+    ≤ 2× row padding.  ``retry_safety`` > 0 arms the overflow re-planning
+    loop of :func:`execute` (``×retry_safety^n`` pow2-rounded capacity
+    bumps of only the overflowing buckets, ≤ ``max_retries`` rounds, the
+    overflow surfaced after that); ``retry_policy`` arms it with a
+    :class:`RetryPolicy` (by default an exact-symbolic fallback when the
+    ladder runs out).  ``template`` (implies ``pop_quant``) plans against a
+    :class:`PlanTemplate`'s frozen bucket ladder instead of the member's own
+    width histogram; ``template="auto"`` resolves it from ``registry``
+    (default: the session registry) by a structural sketch.  The JAX
+    planner's distributed, panel and watchdog options raise
+    :class:`PlanMismatchError` (not ported yet).
     """
     for name, value in unported.items():
         if name not in _UNPORTED:
@@ -229,16 +640,37 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
         raise OperandValidationError(
             f"operand shapes {a.shape} and {b.shape} are incompatible "
             f"for A·B", observed=int(b.nrows), planned=int(a.ncols))
-    binplan = binning_mod.build_plan(a, b, route=route, min_rows=min_rows,
-                                     deg_align=deg_align)
+    retry_policy = _policy_of(retry_policy, retry_safety, max_retries)
+    if isinstance(template, str):
+        if template != "auto":
+            raise PlanMismatchError(f"unknown template mode {template!r}")
+        reg = registry if registry is not None else _DEFAULT_REGISTRY
+        template = reg.get_or_create(a, b, lambda: PlanTemplate.from_plan(
+            plan_spgemm(a, b, seed=seed, safety=safety, route=route,
+                        use_kernel=use_kernel, sample_rows=sample_rows,
+                        min_rows=min_rows, pop_quant=True, device=dev)))
+    if template is not None:
+        pop_quant = True
+        template.grow_device_caps(a.nnz, b.nnz)
+        binplan = template.fit(a, b)
+    else:
+        if pop_quant and deg_align <= 1:
+            # quantized plans need quantized degree bounds, or the per-bucket
+            # signatures (exact degree maxima) would fragment the key anyway
+            deg_align = binning_mod.POW2_DEG_ALIGN
+        binplan = binning_mod.build_plan(a, b, route=route, min_rows=min_rows,
+                                         deg_align=deg_align)
     flopr, total_flop = oracle.flop_per_row(a, b)
     if sample_rows is None:
         sample_rows = (oracle.sample_rows(a.nrows, seed) if a.nrows
                        else np.zeros(0, dtype=np.int64))
     sample_rows = np.asarray(sample_rows, dtype=np.int64)
 
-    cap_a = _device_capacity(a.nnz)
-    cap_b = _device_capacity(b.nnz)
+    if template is not None:
+        cap_a, cap_b = template.cap_a, template.cap_b
+    else:
+        cap_a = _device_capacity(a.nnz)
+        cap_b = _device_capacity(b.nnz)
     devpair = None
     if total_flop > 0 and sample_rows.size:
         ad = csr_mod.to_device(a, capacity=cap_a, device=dev)
@@ -264,14 +696,27 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
         cr = 1.0
 
     alloc = predictor_mod.BinnedAllocationPlan.from_prediction(
-        binplan, structure, flopr, safety=safety)
+        binplan, structure, flopr, safety=safety, pow2=pop_quant)
+    if template is not None:
+        # the family's grown capacities dominate the member's prediction
+        template.grow_caps(alloc.bucket_capacities)
+        caps = tuple(template.caps)
+        alloc = predictor_mod.BinnedAllocationPlan(
+            bucket_capacities=caps,
+            row_capacity=max(caps) if caps else 8,
+            total_capacity=sum(bk.n_rows * c
+                               for bk, c in zip(binplan.buckets, caps)),
+            safety=safety)
     plan = SpgemmPlan(
         binning=binplan, alloc=alloc, structure=structure, flopr=flopr,
         predicted_nnz=predicted_nnz, compression_ratio=cr,
         sample_rows=sample_rows, shape_a=a.shape, shape_b=b.shape,
         cap_a=cap_a, cap_b=cap_b, safety=safety, use_kernel=use_kernel,
-        device=dev)
+        device=dev, pop_quant=pop_quant, retry_policy=retry_policy)
     plan.validation["operands_validated"] = operands_validated
+    if template is not None:
+        plan._template = template
+        plan._pop_override = tuple(template.pops)
     if devpair is not None:
         plan._planned_pair = ((a, b), devpair)
     return plan
@@ -297,21 +742,53 @@ def _run_bucket(ad: CSRDevice, bd: CSRDevice, rows: torch.Tensor, meta: tuple,
         rownnz_b=rownnz_b)
 
 
+def _real_rows(out: SpGEMMOut, n_valid: int, cap: int) -> SpGEMMOut:
+    """A padded table's result cut to its first ``n_valid`` (real) rows,
+    its overflow counted over those rows only — the validity mask of the
+    JAX package's masked executor, whose pad rows come last."""
+    n = out.row_nnz[:n_valid]
+    return SpGEMMOut(out.col[:n_valid], out.val[:n_valid], n,
+                     torch.clamp(n - cap, min=0).sum(dtype=torch.int32))
+
+
 def _build_local_executor(metas: tuple, nrows: int, cap_out: int,
-                          use_kernel: bool):
+                          use_kernel: bool, masked: bool = False):
     """Single-device executor: per-bucket routed passes written in place
     into one ``(nrows, cap_out)`` output — the
     :func:`repro_torch.core.spgemm.spgemm_binned` dataflow, with the row
-    tables and the buckets' FLOP bounds passed in so one executor serves
-    every same-keyed plan."""
+    tables, their real row counts and the buckets' FLOP bounds passed in so
+    one executor serves every same-keyed plan.
 
-    def run(ad, bd, tables, flop_bounds):
+    ``masked`` is the ``pop_quant`` variant: tables arrive pow2-padded
+    (repeat-last fill, pad rows last); each bucket's result is cut to its
+    real rows before it is written (a pad row repeats a real row's id) and
+    pad rows never count as overflow."""
+
+    def run(ad, bd, tables, flop_bounds, valid):
         rownnz_b = torch.diff(bd.rpt)
-        return assemble(nrows, cap_out, (
-            (rows, _run_bucket(ad, bd, rows, meta, use_kernel, bound,
-                               rownnz_b))
-            for meta, rows, bound in zip(metas, tables, flop_bounds)),
-            ad.device)
+
+        def parts():
+            for meta, rows, bound, n_valid in zip(metas, tables, flop_bounds,
+                                                  valid):
+                out = _run_bucket(ad, bd, rows, meta, use_kernel, bound,
+                                  rownnz_b)
+                if masked:
+                    out, rows = _real_rows(out, n_valid, meta[-1]), \
+                        rows[:n_valid]
+                yield rows, out
+
+        return assemble(nrows, cap_out, parts(), ad.device)
+
+    return run
+
+
+def _build_bucket_executor(meta: tuple, use_kernel: bool):
+    """One bucket's standalone executor — the re-planning loop's unit of
+    re-execution (build-counted like the full executors)."""
+
+    def run(ad, bd, rows, bound):
+        return _run_bucket(ad, bd, rows, meta, use_kernel, bound,
+                           torch.diff(bd.rpt))
 
     return run
 
@@ -339,6 +816,159 @@ def _coerce_one(plan: SpgemmPlan, m, which: str, idx: int) -> CSRDevice:
     return plan.to_device(m, which)
 
 
+# --------------------------------------------------------------------------- #
+# Overflow re-planning (DESIGN.md §7) + retry escalation (§9): bump ONLY the
+# overflowing buckets' capacities and re-execute them — the realloc half of
+# the paper's story; when the ladder runs out, escalate once to an exact
+# symbolic count of the offending buckets.
+# --------------------------------------------------------------------------- #
+def _bumped_capacity(cap: int, need: int, retry_safety: float,
+                     attempt: int) -> int:
+    """Safety-factor schedule ``×retry_safety^attempt``, floored at the
+    observed need (``row_nnz`` is exact, so one round converges) and
+    pow2-rounded so retry capacities stay cache-quantized."""
+    sched = int(np.ceil(cap * (retry_safety ** attempt)))
+    return binning_mod.ceil_pow2(max(need, sched, cap + 1))
+
+
+def _policy_of(retry_policy: RetryPolicy | None, retry_safety: float,
+               max_retries: int) -> RetryPolicy | None:
+    """The plan's escalation policy: ``retry_policy`` when given, else the
+    legacy ``retry_safety``/``max_retries`` pair as a ladder-only policy
+    that surfaces what overflow is left, as before the policy existed
+    (None, re-planning off, when neither is set)."""
+    if retry_policy is not None or retry_safety <= 0:
+        return retry_policy
+    return RetryPolicy(rounds=int(max_retries), growth=float(retry_safety),
+                       exact_fallback=False, on_exhausted="surface")
+
+
+def _exact_capacity(need: int, cap: int) -> int:
+    """Guaranteed-sufficient pow2 capacity for the exact-symbolic fallback
+    (never below the current cap — splicing only widens buffers)."""
+    return binning_mod.ceil_pow2(max(8, int(need), int(cap)))
+
+
+def _replan_local(plan: SpgemmPlan, ad, bd, out: SpGEMMOut,
+                  cache: PlanCache) -> SpGEMMOut:
+    """The re-planning loop over a finished wave, on the device.  The true
+    ``row_nnz`` is read back once (the fast path's only cost); each round
+    widens the output once, to its widest new capacity, and each re-run
+    bucket's real rows are written into it in place."""
+    policy = plan.retry_policy
+    buckets = plan.binning.buckets
+    caps = list(plan.alloc.bucket_capacities)
+    n = out.row_nnz.cpu().numpy().astype(np.int64)
+    need_of = [int(n[bk.rows].max()) if bk.n_rows else 0 for bk in buckets]
+    tables = plan.device_args()
+    bounds = plan.flop_bounds()
+    col, val = out.col, out.val
+    spliced = False
+    plan.retries = 0
+    plan.retry_events = []             # observability covers the LAST execute
+    plan.degradations = []
+
+    def widen(new_caps) -> None:
+        nonlocal col, val
+        width = max(new_caps)
+        if width > col.shape[1]:
+            grown = torch.full((col.shape[0], width), COL_SENTINEL,
+                               dtype=col.dtype, device=col.device)
+            grown[:, :col.shape[1]] = col
+            col = grown
+            grown = torch.zeros((val.shape[0], width), dtype=val.dtype,
+                                device=val.device)
+            grown[:, :val.shape[1]] = val
+            val = grown
+
+    def rerun(i, new_cap) -> None:
+        bk = buckets[i]
+        meta = _bucket_meta(bk, new_cap)
+        pop = int(tables[i].shape[0])
+        run = cache.executor(
+            ("bucket-retry", plan.shape_a, plan.shape_b, plan.cap_a,
+             plan.cap_b, plan.use_kernel, meta, pop),
+            lambda m=meta: _build_bucket_executor(m, plan.use_kernel))
+        c2, v2, _, _ = run(ad, bd, tables[i], bounds[i])
+        rows = tables[i][:bk.n_rows].long()
+        col[rows, :new_cap] = c2[:bk.n_rows]
+        val[rows, :new_cap] = v2[:bk.n_rows]
+
+    for attempt in range(1, policy.rounds + 1):
+        bumps = []
+        for i, bk in enumerate(buckets):
+            if not bk.n_rows or need_of[i] <= caps[i]:
+                continue
+            new_cap = policy.clamp(
+                caps[i], _bumped_capacity(caps[i], need_of[i], policy.growth,
+                                          attempt))
+            if new_cap > caps[i]:      # ceiling-clamped buckets wait for
+                bumps.append((i, new_cap))   # the exact fallback instead
+        if not bumps:
+            break
+        plan.retries = attempt
+        spliced = True
+        widen([c for _, c in bumps])
+        for i, new_cap in bumps:
+            rerun(i, new_cap)
+            plan.retry_events.append(dict(
+                round=attempt, bucket=i, old_cap=caps[i], new_cap=new_cap,
+                need=need_of[i]))
+            caps[i] = new_cap
+    # ladder exhausted (no rounds left, or every bump ceiling-clamped):
+    # escalate ONCE to an exact symbolic count of the offending buckets
+    over = [i for i, bk in enumerate(buckets)
+            if bk.n_rows and need_of[i] > caps[i]]
+    if over and policy.exact_fallback:
+        spliced = True
+        exact = []
+        for i in over:
+            bk = buckets[i]
+            counts = predictor_mod.exact_row_counts(
+                ad, bd, bk.rows, max_deg_a=bk.deg_a, max_deg_b=bk.deg_b,
+                route=bk.route, span=bk.span, use_kernel=plan.use_kernel,
+                row_flop=plan.flopr[bk.rows])
+            need = int(counts.max(initial=1))
+            exact.append((i, need, _exact_capacity(need, caps[i] + 1)))
+        widen([c for _, _, c in exact])
+        for i, need, new_cap in exact:
+            rerun(i, new_cap)
+            plan.degradations.append(dict(
+                kind="exact_symbolic", bucket=i, old_cap=int(caps[i]),
+                new_cap=int(new_cap), need=int(need)))
+            caps[i] = new_cap
+    if not spliced:
+        if over and policy.on_exhausted == "raise":
+            raise CapacityExhaustedError(
+                f"retry escalation exhausted with {int(out.overflow)} "
+                f"entries still dropped (buckets {over})", buckets=over,
+                observed=int(out.overflow),
+                planned=[int(caps[i]) for i in over],
+                plan_key=_plan_key_id(plan))
+        return out                     # fast path: nothing overflowed
+    # final capacities + overflow recomputed against the bumped plan
+    capv = np.zeros(n.shape[0], dtype=np.int64)
+    for bk, cap in zip(buckets, caps):
+        capv[bk.rows] = cap
+    overflow = int(np.maximum(n - capv, 0).sum())
+    plan.alloc = predictor_mod.BinnedAllocationPlan(
+        bucket_capacities=tuple(caps), row_capacity=max(caps),
+        total_capacity=sum(bk.n_rows * c for bk, c in zip(buckets, caps)),
+        safety=plan.alloc.safety)
+    if plan._template is not None:
+        plan._template.grow_caps(caps)   # the family learns from the miss
+    if overflow and policy.on_exhausted == "raise":
+        bad = [i for i, bk in enumerate(buckets)
+               if bk.n_rows and need_of[i] > caps[i]]
+        raise CapacityExhaustedError(
+            f"retry escalation exhausted with {overflow} entries still "
+            f"dropped (buckets {bad})", buckets=bad, observed=int(overflow),
+            planned=[int(caps[i]) for i in bad], plan_key=_plan_key_id(plan))
+    return SpGEMMOut(col, val, out.row_nnz,
+                     torch.tensor(overflow, dtype=torch.int32,
+                                  device=col.device))
+
+
 def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None
             ) -> SpGEMMOut:
     """Run the planned numeric phase on the plan's device.
@@ -346,7 +976,13 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None
     ``a``/``b`` may be host ``CSR`` (converted at the plan's padded
     capacities) or pre-converted ``CSRDevice``.  Executors are served from
     ``cache`` (default: the session cache) keyed on the plan's static
-    signature — a second same-keyed plan reuses the executor."""
+    signature — a second same-keyed plan reuses the executor.
+
+    Plans armed with ``retry_safety`` or ``retry_policy`` run the overflow
+    re-planning loop: a bucket whose true ``row_nnz`` passed its capacity is
+    re-executed at a bumped (pow2-rounded) capacity and spliced back — the
+    plan's capacities are updated in place, so a second :func:`execute` of
+    the same plan allocates right the first time."""
     cache = cache if cache is not None else _DEFAULT_CACHE
     ad = _coerce_one(plan, a, "a", 0)
     bd = _coerce_one(plan, b, "b", 1)
@@ -356,8 +992,12 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None
     run = cache.executor(
         plan.key, lambda: _build_local_executor(
             metas, plan.shape_a[0], plan.alloc.row_capacity,
-            plan.use_kernel))
-    return run(ad, bd, plan.device_args(), plan.flop_bounds())
+            plan.use_kernel, masked=plan.pop_quant))
+    out = run(ad, bd, plan.device_args(), plan.flop_bounds(),
+              plan.valid_rows())
+    if plan.retry_policy is not None:
+        out = _replan_local(plan, ad, bd, out, cache)
+    return out
 
 
 def reassemble(plan: SpgemmPlan, out: SpGEMMOut, ncols: int | None = None, *,
@@ -379,12 +1019,27 @@ def reassemble(plan: SpgemmPlan, out: SpGEMMOut, ncols: int | None = None, *,
             f"SpGEMM overflow: {overflow} entries dropped; re-plan with a "
             "higher safety factor or pass on_overflow='ignore'",
             observed=overflow)
-    keep = out.col != COL_SENTINEL          # compacted on the device
+    # each row keeps its first min(row_nnz, its bucket's capacity) slots,
+    # columns ascending (every route writes them so), so the kept entries,
+    # read row by row, are already in CSR order: the row pointers are the
+    # clamped counts' running sum and nothing is sorted.  One flat gather
+    # compacts them on the device (a row sum of the whole (M, W) mask would
+    # take 8 bytes a slot)
+    caps = torch.tensor(plan.alloc.bucket_capacities, dtype=torch.int32)
+    counts = torch.minimum(
+        out.row_nnz.cpu(),
+        caps[torch.from_numpy(plan.binning.row_bucket).long()])
     rpt = np.zeros(nrows + 1, dtype=np.int64)
-    np.cumsum(keep.sum(dim=1).cpu().numpy(), out=rpt[1:])
-    # every route writes a row's columns ascending into its first slots, so
-    # the kept entries, read row by row, are already in CSR order: the row
-    # pointers are the counts' running sum and nothing is sorted
-    return CSR(rpt=rpt, col=out.col[keep].cpu().numpy().astype(np.int32),
-               val=out.val[keep].cpu().numpy().astype(np.float32),
+    np.cumsum(counts.numpy(), out=rpt[1:])
+    col = out.col.reshape(-1)
+    kept = torch.nonzero(col != COL_SENTINEL).squeeze(1)
+    if kept.numel() != rpt[-1]:
+        raise RuntimeError(
+            f"reassemble: {kept.numel()} entries kept in the output but its "
+            f"row counts clamped to the plan's capacities sum to {rpt[-1]}")
+    # the copies back are int32 and float32 already: no second host copy
+    return CSR(rpt=rpt, col=col[kept].cpu().numpy().astype(np.int32,
+                                                            copy=False),
+               val=out.val.reshape(-1)[kept].cpu().numpy().astype(
+                   np.float32, copy=False),
                shape=(nrows, ncols))

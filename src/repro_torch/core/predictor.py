@@ -126,6 +126,21 @@ def sampled_counts(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
     return z, f
 
 
+def distinct_per_row(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
+                     max_deg_a: int, max_deg_b: int,
+                     rownnz_b: torch.Tensor | None = None,
+                     count=count_distinct_sorted) -> torch.Tensor:
+    """Each row's distinct product columns (int32 ``(S,)``) at the given
+    degree bounds, expanded in chunks as :func:`sampled_counts` expands
+    them; ``count`` as there."""
+    out = [torch.zeros(0, dtype=torch.int32, device=a.rpt.device)]
+    for lo, hi in row_chunks(rows.shape[0], max_deg_a * max_deg_b):
+        cols, _ = gather_sampled_products(a, b, rows[lo:hi], max_deg_a,
+                                          max_deg_b, rownnz_b=rownnz_b)
+        out.append(count(cols).to(torch.int32))
+    return torch.cat(out)
+
+
 def _eq4(floprc: torch.Tensor, total_flop: torch.Tensor, z_star: torch.Tensor,
          f_star: torch.Tensor) -> PredictionDev:
     r_star = (f_star.to(torch.float32)
@@ -347,6 +362,59 @@ def binned_symbolic_counts(a: CSRDevice, b: CSRDevice, rows,
     for zb, fb, _ in parts[1:]:
         z, f = z + zb, f + fb
     return z, f
+
+
+def exact_row_counts(a: CSRDevice, b: CSRDevice, rows, *, max_deg_a: int,
+                     max_deg_b: int, route: str = "", span: int = 0,
+                     use_kernel: bool = False, row_flop=None) -> np.ndarray:
+    """EXACT output nnz per listed row — no sampling, no estimate.
+
+    The same symbolic machinery as :func:`binned_symbolic_counts` (gather →
+    distinct-count at the bucket's degree bounds, on the bucket's planned
+    route) run over EVERY listed row instead of the sample, returning the
+    per-row counts (int64) instead of the totals: the guaranteed-sufficient
+    capacity source of the re-planning loop's exact fallback (DESIGN.md §9).
+
+    Without ``use_kernel`` the plain gather and count run over the rows in
+    chunks of bounded lanes (:func:`distinct_per_row`; the JAX package's
+    fixed pow2 chunks bound its jit retraces, which the port does not
+    have).  With ``use_kernel`` all the rows go to one
+    launch in the per-row count mode of the route's symbolic kernel: ESC's
+    (kernel 2, :func:`~repro_torch.kernels.spgemm_symbolic.
+    exact_row_counts_esc`) or the bitmask one (kernel 4, SPA and BIN), each
+    row's workspace sized by ``row_flop`` (host ints, each row's FLOP or a
+    bound on it; default ``max_deg_a·max_deg_b``); on a CPU tensor the
+    wrappers run their plain versions."""
+    rows = np.asarray(_host_rows(rows), dtype=np.int64)
+    if rows.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    dev = a.rpt.device
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels.accumulator import bitmask_table
+        from repro_torch.kernels.spgemm_symbolic import sample_table
+        kops.check_route(route or ROUTE_ESC)
+        da = np.full(rows.size, int(max_deg_a), dtype=np.int32)
+        db = np.full(rows.size, int(max_deg_b), dtype=np.int32)
+        if row_flop is None:
+            row_flop = np.full(rows.size, int(max_deg_a) * int(max_deg_b),
+                               dtype=np.int64)
+        if route in (ROUTE_SPA, ROUTE_BIN):
+            lanes = min(int(span), b.ncols) if span else b.ncols
+            table = bitmask_table(rows, da, db,
+                                  np.full(rows.size, -(-lanes // 32)),
+                                  row_flop, dev)
+            z = kops.exact_row_counts_bitmask(a, b, table)
+        else:
+            table = sample_table(rows, da, db, row_flop, dev)
+            z = kops.exact_row_counts_esc(a, b, table)
+        return z.cpu().numpy().astype(np.int64)
+    count = (count_distinct_sorted if route not in (ROUTE_SPA, ROUTE_BIN)
+             else lambda cols: count_distinct_dense(cols, b.ncols, span))
+    z = distinct_per_row(a, b, torch.from_numpy(rows.astype(np.int32)).to(dev),
+                         int(max_deg_a), int(max_deg_b), torch.diff(b.rpt),
+                         count)
+    return z.cpu().numpy().astype(np.int64)
 
 
 def _binned_floprc(a: CSRDevice, b: CSRDevice,

@@ -1,7 +1,7 @@
 """The accumulator routes' kernels: SPA (dense accumulator) and BIN
 (propagation blocking), and the bitmask symbolic kernel they share.
 
-Five wrappers, each launching its hand-written CUDA kernel on CUDA tensors
+Six wrappers, each launching its hand-written CUDA kernel on CUDA tensors
 and running its plain tensor-op version on CPU tensors:
 
 * :func:`fused_flop_symbolic_bitmask` (``csrc/bitmask_symbolic.cu``) →
@@ -11,6 +11,10 @@ and running its plain tensor-op version on CPU tensors:
   SPA and BIN sample of a binned prediction in one launch, each row at its
   own bucket's bounds (a :class:`BitmaskTable`) — what the TPU kernel
   gives bucket by bucket;
+* :func:`exact_row_counts_bitmask`: the same launch over every row of a SPA
+  or BIN bucket in its per-row count mode → each row's distinct columns,
+  the re-planning loop's exact-symbolic fallback (counted outside Pallas
+  in the JAX package);
 * :func:`bitmask_symbolic` (the same kernel at the global bounds) →
   ``(z*, f*)``, f* the sum of the referenced B rows' untruncated lengths;
   replaces ``bitmask_symbolic_pallas``;
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.csr import COL_SENTINEL, CSRDevice, row_chunks
-from repro_torch.core.predictor import sampled_counts
+from repro_torch.core.predictor import distinct_per_row, sampled_counts
 from repro_torch.core.spgemm import (_bin_accumulate_block, blocked_rows,
                                      window_accumulate)
 from . import _build
@@ -203,19 +207,71 @@ def fused_flop_symbolic_bitmask_buckets(a: CSRDevice, b: CSRDevice,
     if dev is None:
         return fused_flop_symbolic_bitmask_buckets_plain(a, b, table,
                                                          rownnz_b=rownnz_b)
-    if not table.samples.shape[1]:
+    s = table.samples.shape[1]
+    if not s:
         return _empty_counts(dev)
+    out = _bitmask_launch(a, b, rownnz_b, dev, _table_ptrs(table), s,
+                          table.n_long, 0, 0, 0, table.words,
+                          table.max_deg_a, fused=True)
+    fused_flop_symbolic_bitmask_buckets.launches += 1
+    return out
+
+
+def _table_ptrs(table: BitmaskTable) -> list:
     samples = table.samples
     if (samples.dim() != 2 or samples.shape[0] != 5
             or samples.dtype != torch.int32 or not samples.is_contiguous()):
         raise RuntimeError(f"{_SYM}: samples must be a contiguous (5, S) "
                            f"int32 tensor")
     s = samples.shape[1]
-    ptrs = [samples.data_ptr() + 4 * s * k for k in range(5)]
-    out = _bitmask_launch(a, b, rownnz_b, dev, ptrs, s, table.n_long, 0, 0,
-                          0, table.words, table.max_deg_a, fused=True)
-    fused_flop_symbolic_bitmask_buckets.launches += 1
-    return out
+    return [samples.data_ptr() + 4 * s * k for k in range(5)]
+
+
+def exact_row_counts_bitmask_plain(a: CSRDevice, b: CSRDevice,
+                                   table: BitmaskTable, *,
+                                   rownnz_b: torch.Tensor | None = None):
+    """Plain tensor-op version: gather and bitmask-count each row over the
+    rows of each ``(deg_a, deg_b, n_words)`` triple
+    (``predictor.distinct_per_row``), the counts put back in the caller's
+    order."""
+    if rownnz_b is None:
+        rownnz_b = torch.diff(b.rpt)
+    rows, deg_a, deg_b, n_words, out = table.samples
+    z = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    for da, db, nw in sorted(set(map(tuple,
+                                     table.samples[1:4].T.tolist()))):
+        sel = torch.nonzero((deg_a == da) & (deg_b == db)
+                            & (n_words == nw))[:, 0]
+        z[out[sel].long()] = distinct_per_row(
+            a, b, rows[sel], da, db, rownnz_b,
+            lambda cols, nw=nw: bitmask_distinct(cols, nw))
+    return z
+
+
+def exact_row_counts_bitmask(a: CSRDevice, b: CSRDevice,
+                             table: BitmaskTable, *,
+                             rownnz_b: torch.Tensor | None = None):
+    """Each listed row's distinct product columns, int32 ``(S,)`` in the
+    caller's order, at its own bounds and mask words: kernel 4's launch of
+    :func:`fused_flop_symbolic_bitmask_buckets` in its per-row count mode,
+    over every row of a SPA or BIN bucket (the re-planning loop's
+    exact-symbolic fallback, ``predictor.exact_row_counts``) instead of a
+    sample."""
+    if rownnz_b is None:
+        rownnz_b = torch.diff(b.rpt)
+    dev = _build.kernel_device(_SYM, a.rpt, a.col, b.rpt, b.col, rownnz_b,
+                               table.samples)
+    if dev is None:
+        return exact_row_counts_bitmask_plain(a, b, table, rownnz_b=rownnz_b)
+    s = table.samples.shape[1]
+    z = torch.empty(s, dtype=torch.int32, device=dev)
+    if not s:
+        return z
+    _bitmask_launch(a, b, rownnz_b, dev, _table_ptrs(table), s, table.n_long,
+                    0, 0, 0, table.words, table.max_deg_a, fused=True,
+                    z_out=z)
+    exact_row_counts_bitmask.launches += 1
+    return z
 
 
 def bitmask_symbolic_plain(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
@@ -273,12 +329,15 @@ def _bitmask_dual(a, b, rows, max_deg_a, max_deg_b, n_words, rownnz_b, dev,
 
 
 def _bitmask_launch(a, b, rownnz_b, dev, ptrs, s, n_long, max_deg_a,
-                    max_deg_b, n_words, words, table_deg_a, fused):
+                    max_deg_b, n_words, words, table_deg_a, fused,
+                    z_out=None):
     """One launch of ``csrc/bitmask_symbolic.cu`` over ``s`` samples
     (``ptrs``: rows, then the table's deg_a, deg_b, n_words and output slot,
     or None each for the launch's bounds), the first ``n_long`` long.
     Returns ``(z*, f*, FLOP per sample)``, int32 views of one buffer the
-    kernel fills (no FLOP without ``fused``)."""
+    kernel fills (no FLOP without ``fused``); with ``z_out`` (int32
+    ``(s,)``) the kernel also writes each sample's distinct columns there,
+    in its output slot (the per-row count mode)."""
     _check_rownnz(_SYM, rownnz_b, b)
     res = torch.empty(2 + (s if fused else 0), dtype=torch.int32,
                       device=dev)
@@ -294,7 +353,7 @@ def _bitmask_launch(a, b, rownnz_b, dev, ptrs, s, n_long, max_deg_a,
                            * shape.slice_bytes, dtype=torch.uint8,
                            device=dev)
                if shape.slice_bytes else None)
-    fn = _build.launcher(_SYM, "pppppiiiiiiiiipppppiiipqippip")
+    fn = _build.launcher(_SYM, "pppppiiiiiiiiipppppiiipqipppip")
     rc = fn(*ptrs, s, n_long, shape.long_blocks, warp_rows,
             shape.group_blocks, int(max_deg_a), int(max_deg_b), int(n_words),
             int(table_deg_a), *_build.require_csr(_SYM, a, "a"),
@@ -302,8 +361,10 @@ def _bitmask_launch(a, b, rownnz_b, dev, ptrs, s, n_long, max_deg_a,
             _build.require(_SYM, rownnz_b, torch.int32, "rownnz_b"),
             a.nrows, rownnz_b.shape[0], shape.smem_words, _ptr(scratch),
             shape.slice_bytes, shape.smem_bytes, res.data_ptr(),
-            res.data_ptr() + 8 if fused else None, dev.index or 0,
-            _build.stream_of(dev))
+            res.data_ptr() + 8 if fused else None,
+            None if z_out is None else _build.require(_SYM, z_out,
+                                                      torch.int32, "z_out"),
+            dev.index or 0, _build.stream_of(dev))
     _build.check(_SYM, rc)
     return res[0], res[1], res[2:]
 
@@ -315,6 +376,7 @@ def _empty_counts(dev):
 
 fused_flop_symbolic_bitmask.launches = 0
 fused_flop_symbolic_bitmask_buckets.launches = 0
+exact_row_counts_bitmask.launches = 0
 bitmask_symbolic.launches = 0
 
 

@@ -12,6 +12,14 @@
 //     Replaces: src/repro/kernels/accumulator.py::bitmask_symbolic_pallas
 //     (_bitmask_kernel).
 //
+// The exact-symbolic fallback of the re-planning loop (DESIGN.md §9) takes
+// the first way over every row of an offending SPA or BIN bucket, not a
+// sample, and asks for each row's own count: z_out, one int a row at its
+// output slot, zeroed by the launcher and added to by each unit that counts
+// part of the row (a block row's warps add their shares).  The mode is a
+// template parameter (kRowCounts), so the prediction's instantiations
+// carry no code of it: with z_out null the launcher runs those.
+//
 // Both TPU kernels (via _symbolic_call) OR every gathered product column's
 // bit into n_words = ceil(min(span, ncols_b)/32) uint32 words addressed
 // relative to the row's smallest product column, and popcount; a column
@@ -215,11 +223,12 @@ __device__ __forceinline__ void bms_warp_walk(
 // A row by one warp (every lane calls it; s_off/s_e0 staging, region its
 // keys or mask words), if the row fits a warp: returns false, having
 // counted nothing, for a row its block is to count.
+template <bool kRowCounts>
 __device__ __forceinline__ bool bms_warp_row(
     BmsRow row, const int* __restrict__ a_rpt, const int* __restrict__ a_col,
     const int* __restrict__ b_rpt, const int* __restrict__ b_col,
     const int* __restrict__ rownnz_b, int m, int k_rows, int* s_off,
-    int* s_e0, int* region, int* totals, int* flop_out) {
+    int* s_e0, int* region, int* totals, int* flop_out, int* z_out) {
   const int lane = threadIdx.x & 31;
   int start = 0, deg = 0;
   if (row.r >= 0 && row.r < m) {
@@ -310,6 +319,7 @@ __device__ __forceinline__ bool bms_warp_row(
     if (z) atomicAdd(&totals[0], z);
     if (flop) atomicAdd(&totals[1], flop);
     if (flop_out) flop_out[row.out] = flop;
+    if (kRowCounts) z_out[row.out] = z;
   }
   return true;
 }
@@ -468,13 +478,13 @@ __device__ __forceinline__ void bms_block_totals(int n_loc, int flop_loc,
 // kTableSmem (smem_words mask words there), else both in the block's
 // slice; a row whose words pass smem_words ORs into the slice.  Ends with
 // a barrier, so the next row may rewrite the workspace.
-template <bool kTableSmem>
+template <bool kTableSmem, bool kRowCounts>
 __device__ __forceinline__ void bms_block_row(
     BmsRow row, int table_deg_a, const int* __restrict__ a_rpt,
     const int* __restrict__ a_col, const int* __restrict__ b_rpt,
     const int* __restrict__ b_col, const int* __restrict__ rownnz_b, int m,
     int k_rows, int smem_words, char* smem, char* slice, int* totals,
-    int* flop_out) {
+    int* flop_out, int* z_out) {
   const long long pre_bytes = repro_align16(4LL * (table_deg_a + 1));
   int* prefix = reinterpret_cast<int*>(kTableSmem ? smem : slice);
   int* e0 = prefix + pre_bytes / 4;
@@ -529,6 +539,7 @@ __device__ __forceinline__ void bms_block_row(
         if (z) atomicAdd(&totals[0], z);
         if (flop) atomicAdd(&totals[1], flop);
         if (flop_out) flop_out[row.out] = flop;
+        if (kRowCounts) z_out[row.out] = z;
       }
     }
     __syncthreads();   // the next row rewrites the table
@@ -545,7 +556,10 @@ __device__ __forceinline__ void bms_block_row(
         reinterpret_cast<unsigned*>(slice + (kTableSmem ? 0
                                                         : 2 * pre_bytes)));
   z = __reduce_add_sync(REPRO_FULL_MASK, z);
-  if ((threadIdx.x & 31) == 0 && z) atomicAdd(&totals[0], z);
+  if ((threadIdx.x & 31) == 0 && z) {
+    atomicAdd(&totals[0], z);
+    if (kRowCounts) atomicAdd(&z_out[row.out], z);
+  }
   if (threadIdx.x == 0) {
     if (flop) atomicAdd(&totals[1], flop);
     if (flop_out) flop_out[row.out] = flop;
@@ -559,7 +573,7 @@ __device__ __forceinline__ void bms_block_row(
 // looping; the rest go in groups of warp_rows consecutive samples to the
 // next group_blocks blocks, looping over the groups: a warp a row, then
 // the whole block for each row its warp handed back.
-template <bool kTableSmem>
+template <bool kTableSmem, bool kRowCounts>
 __device__ __forceinline__ void bms_blocks(
     const int* rows, const int* row_da, const int* row_db, const int* row_nw,
     const int* out_idx, int n_rows, int n_long, int long_blocks,
@@ -568,7 +582,7 @@ __device__ __forceinline__ void bms_blocks(
     const int* __restrict__ a_col, const int* __restrict__ b_rpt,
     const int* __restrict__ b_col, const int* __restrict__ rownnz_b, int m,
     int k_rows, int smem_words, char* smem, char* slice, int* totals,
-    int* flop_out) {
+    int* flop_out, int* z_out) {
   const auto row_of = [&](int ri) {
     return bms_row(ri, rows, row_da, row_db, row_nw, out_idx, max_deg_a,
                    max_deg_b, n_words);
@@ -576,9 +590,9 @@ __device__ __forceinline__ void bms_blocks(
   const int b = blockIdx.x;
   if (b < long_blocks) {
     for (int ri = b; ri < n_long; ri += long_blocks)
-      bms_block_row<kTableSmem>(row_of(ri), table_deg_a, a_rpt, a_col,
-                                b_rpt, b_col, rownnz_b, m, k_rows,
-                                smem_words, smem, slice, totals, flop_out);
+      bms_block_row<kTableSmem, kRowCounts>(
+          row_of(ri), table_deg_a, a_rpt, a_col, b_rpt, b_col, rownnz_b, m,
+          k_rows, smem_words, smem, slice, totals, flop_out, z_out);
     return;
   }
   __shared__ int handed[BMS_WARPS];
@@ -589,25 +603,27 @@ __device__ __forceinline__ void bms_blocks(
     const int ri = n_long + g * warp_rows + w;
     bool kept = true;
     if (w < warp_rows && ri < n_rows)
-      kept = bms_warp_row(row_of(ri), a_rpt, a_col, b_rpt, b_col, rownnz_b,
-                          m, k_rows, reinterpret_cast<int*>(region),
-                          reinterpret_cast<int*>(region) + 32,
-                          reinterpret_cast<int*>(region + 256), totals,
-                          flop_out);
+      kept = bms_warp_row<kRowCounts>(
+          row_of(ri), a_rpt, a_col, b_rpt, b_col, rownnz_b, m, k_rows,
+          reinterpret_cast<int*>(region),
+          reinterpret_cast<int*>(region) + 32,
+          reinterpret_cast<int*>(region + 256), totals, flop_out, z_out);
     if ((threadIdx.x & 31) == 0) handed[w] = kept ? -1 : ri;
     __syncthreads();   // the warps are done with their regions
     for (int v = 0; v < warp_rows; ++v)
       if (handed[v] >= 0)
-        bms_block_row<kTableSmem>(row_of(handed[v]), table_deg_a, a_rpt,
-                                  a_col, b_rpt, b_col, rownnz_b, m, k_rows,
-                                  smem_words, smem, slice, totals, flop_out);
+        bms_block_row<kTableSmem, kRowCounts>(
+            row_of(handed[v]), table_deg_a, a_rpt, a_col, b_rpt, b_col,
+            rownnz_b, m, k_rows, smem_words, smem, slice, totals, flop_out,
+            z_out);
     __syncthreads();   // the next group rewrites `handed` and the regions
   }
 }
 
 // kMinBlocks: the blocks an SM must hold at once, which caps the registers
-// a thread may take (64 for two, 40 for three)
-template <int kMinBlocks>
+// a thread may take (64 for two, 40 for three); kRowCounts: the per-row
+// count mode (z_out written)
+template <int kMinBlocks, bool kRowCounts>
 __global__ void __launch_bounds__(BMS_THREADS, kMinBlocks)
 bitmask_symbolic_kernel(
     const int* __restrict__ rows, const int* __restrict__ row_da,
@@ -619,36 +635,37 @@ bitmask_symbolic_kernel(
     const int* __restrict__ b_rpt, const int* __restrict__ b_col,
     const int* __restrict__ rownnz_b, int m, int k_rows, int smem_words,
     char* scratch, long long slice_bytes, int* __restrict__ totals,
-    int* __restrict__ flop_out) {
+    int* __restrict__ flop_out, int* __restrict__ z_out) {
   extern __shared__ __align__(16) char smem[];
   char* slice = scratch ? scratch + blockIdx.x * slice_bytes : nullptr;
   if (smem_words >= 0)
-    bms_blocks<true>(rows, row_da, row_db, row_nw, out_idx, n_rows, n_long,
-                     long_blocks, warp_rows, group_blocks, max_deg_a,
-                     max_deg_b, n_words, table_deg_a, a_rpt, a_col, b_rpt,
-                     b_col, rownnz_b, m, k_rows, smem_words, smem, slice,
-                     totals, flop_out);
+    bms_blocks<true, kRowCounts>(
+        rows, row_da, row_db, row_nw, out_idx, n_rows, n_long, long_blocks,
+        warp_rows, group_blocks, max_deg_a, max_deg_b, n_words, table_deg_a,
+        a_rpt, a_col, b_rpt, b_col, rownnz_b, m, k_rows, smem_words, smem,
+        slice, totals, flop_out, z_out);
   else
-    bms_blocks<false>(rows, row_da, row_db, row_nw, out_idx, n_rows, n_long,
-                      long_blocks, warp_rows, group_blocks, max_deg_a,
-                      max_deg_b, n_words, table_deg_a, a_rpt, a_col, b_rpt,
-                      b_col, rownnz_b, m, k_rows, smem_words, smem, slice,
-                      totals, flop_out);
+    bms_blocks<false, kRowCounts>(
+        rows, row_da, row_db, row_nw, out_idx, n_rows, n_long, long_blocks,
+        warp_rows, group_blocks, max_deg_a, max_deg_b, n_words, table_deg_a,
+        a_rpt, a_col, b_rpt, b_col, rownnz_b, m, k_rows, smem_words, smem,
+        slice, totals, flop_out, z_out);
 }
 
 // Shared memory above the 48 KB default needs the attribute: set once per
-// device for both instantiations, to the card's opt-in limit less the
+// device for every instantiation, to the card's opt-in limit less the
 // kernel's static shared memory, so no later call sets it again; *sms gets
 // the card's SM count.
-template <int kMinBlocks>
+template <int kMinBlocks, bool kRowCounts>
 static cudaError_t bms_smem_attr_one(int limit) {
   cudaFuncAttributes attr;
-  cudaError_t err =
-      cudaFuncGetAttributes(&attr, bitmask_symbolic_kernel<kMinBlocks>);
+  cudaError_t err = cudaFuncGetAttributes(
+      &attr, bitmask_symbolic_kernel<kMinBlocks, kRowCounts>);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(bitmask_symbolic_kernel<kMinBlocks>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              limit - static_cast<int>(attr.sharedSizeBytes));
+  return cudaFuncSetAttribute(
+      bitmask_symbolic_kernel<kMinBlocks, kRowCounts>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      limit - static_cast<int>(attr.sharedSizeBytes));
 }
 
 static cudaError_t bms_device_setup(int device, int* sms) {
@@ -661,8 +678,10 @@ static cudaError_t bms_device_setup(int device, int* sms) {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sm_count[device],
                                    cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess) err = bms_smem_attr_one<2>(limit);
-    if (err == cudaSuccess) err = bms_smem_attr_one<3>(limit);
+    if (err == cudaSuccess) err = bms_smem_attr_one<2, false>(limit);
+    if (err == cudaSuccess) err = bms_smem_attr_one<3, false>(limit);
+    if (err == cudaSuccess) err = bms_smem_attr_one<2, true>(limit);
+    if (err == cudaSuccess) err = bms_smem_attr_one<3, true>(limit);
     if (err != cudaSuccess) return err;
     done[device] = 1;
   }
@@ -673,7 +692,8 @@ static cudaError_t bms_device_setup(int device, int* sms) {
 // The samples and their blocks as bitmask_symbolic_kernel takes them;
 // table_deg_a bounds every sample's deg_a (it sizes the block's table).
 // totals (2 ints, zeroed here) gets z* and f*; flop_out (one int a sample,
-// in the slots of out_idx, or null) each row's FLOP.  scratch: one slice
+// in the slots of out_idx, or null) each row's FLOP, and z_out (the same,
+// zeroed here when not null) each row's distinct columns.  scratch: one slice
 // of slice_bytes a block (null when no row needs one).
 extern "C" int bitmask_symbolic_launch(
     const void* rows, const void* row_da, const void* row_db,
@@ -683,7 +703,7 @@ extern "C" int bitmask_symbolic_launch(
     const void* a_col, const void* b_rpt, const void* b_col,
     const void* rownnz_b, int m, int k_rows, int smem_words, void* scratch,
     long long slice_bytes, int smem_bytes, void* totals, void* flop_out,
-    int device, void* stream) {
+    void* z_out, int device, void* stream) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -699,12 +719,20 @@ extern "C" int bitmask_symbolic_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(totals, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (z_out) {
+    err = cudaMemsetAsync(z_out, 0, static_cast<size_t>(n_rows) * sizeof(int),
+                          s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int grid = long_blocks + group_blocks;
   if (grid <= 0) return 0;
   // a grid that two blocks an SM would not hold at once runs the
   // instantiation that holds three, with fewer registers a thread
-  auto kernel = grid > 2 * sms ? bitmask_symbolic_kernel<3>
-                               : bitmask_symbolic_kernel<2>;
+  const bool three = grid > 2 * sms;
+  auto kernel = z_out ? (three ? bitmask_symbolic_kernel<3, true>
+                               : bitmask_symbolic_kernel<2, true>)
+                      : (three ? bitmask_symbolic_kernel<3, false>
+                               : bitmask_symbolic_kernel<2, false>);
   kernel<<<grid, BMS_THREADS, smem_bytes, s>>>(
       static_cast<const int*>(rows), static_cast<const int*>(row_da),
       static_cast<const int*>(row_db), static_cast<const int*>(row_nw),
@@ -714,7 +742,7 @@ extern "C" int bitmask_symbolic_launch(
       static_cast<const int*>(b_rpt), static_cast<const int*>(b_col),
       static_cast<const int*>(rownnz_b), m, k_rows, smem_words,
       static_cast<char*>(scratch), slice_bytes, static_cast<int*>(totals),
-      static_cast<int*>(flop_out));
+      static_cast<int*>(flop_out), static_cast<int*>(z_out));
   return static_cast<int>(cudaGetLastError());
 }
 

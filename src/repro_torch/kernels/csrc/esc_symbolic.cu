@@ -21,6 +21,12 @@
 // f* (totals[1]) sums the rows' FLOP, or with `gathered` their gathered
 // products (each B row read to at most DB entries): the two agree when DB
 // reaches B's widest row.
+// The exact-symbolic fallback of the re-planning loop (DESIGN.md §9) takes
+// the first way over every row of an offending ESC bucket, not a sample,
+// and asks for each row's own count: z_out, one int a row written at its
+// out_idx slot beside its FLOP.  The mode is a template parameter
+// (kRowCounts), so the prediction's instantiation carries no code of it:
+// with z_out null the launcher runs that one.
 //
 // What held the per-bucket launches back on the H100 was not the card: a
 // prediction made 8 to 17 of them, each with its host work (an upload of the
@@ -137,6 +143,7 @@ __device__ int sym_warp_spill(int start, int deg, int db_bound,
 
 // One short row by one warp: its keys in keys[0, warp_keys), the staging of
 // 32 A entries in s_off/s_e0; a row past warp_keys counts in the spill.
+template <bool kRowCounts>
 __device__ void sym_warp_row(SymRow row, const int* __restrict__ a_rpt,
                              const int* __restrict__ a_col,
                              const int* __restrict__ b_rpt,
@@ -145,7 +152,7 @@ __device__ void sym_warp_row(SymRow row, const int* __restrict__ a_rpt,
                              int k_rows, int warp_keys, int* s_off,
                              int* s_e0, int* keys, int* totals,
                              unsigned* spill, int spill_words, int gathered,
-                             int* flop_out) {
+                             int* flop_out, int* z_out) {
   const int lane = threadIdx.x & 31;
   int start = 0, deg = 0;
   if (row.r >= 0 && row.r < m) {
@@ -197,6 +204,7 @@ __device__ void sym_warp_row(SymRow row, const int* __restrict__ a_rpt,
     atomicAdd(&totals[0], z);
     atomicAdd(&totals[1], gathered ? n : flop);
     flop_out[row.out] = flop;
+    if (kRowCounts) z_out[row.out] = z;
   }
 }
 
@@ -260,6 +268,8 @@ __device__ inline bool sym_long(int ri, const int* row_flop, int max_deg_a,
   return min(static_cast<long long>(row_flop[ri]), cap) > warp_keys;
 }
 
+// kRowCounts: the per-row count mode (z_out written)
+template <bool kRowCounts>
 __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
     const int* __restrict__ rows, const int* __restrict__ row_da,
     const int* __restrict__ row_db, const int* __restrict__ out_idx,
@@ -270,7 +280,7 @@ __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
     const int* __restrict__ b_col, const int* __restrict__ rownnz_b, int m,
     int k_rows, int warp_keys, int smem_keys, char* scratch,
     long long slice_bytes, int* __restrict__ totals, int spill_words,
-    int gathered, int* __restrict__ flop_out) {
+    int gathered, int* __restrict__ flop_out, int* __restrict__ z_out) {
   extern __shared__ __align__(16) char smem[];
   unsigned* spill = reinterpret_cast<unsigned*>(totals + 3);
   if (static_cast<int>(blockIdx.x) >= long_blocks) {
@@ -286,11 +296,11 @@ __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
     char* region = smem + static_cast<long long>(w) *
                               (256 + repro_align16(4LL * warp_keys));
     int* s_off = reinterpret_cast<int*>(region);
-    sym_warp_row(sym_row(ri, rows, row_da, row_db, out_idx, max_deg_a,
-                         max_deg_b),
-                 a_rpt, a_col, b_rpt, b_col, rownnz_b, m, k_rows, warp_keys,
-                 s_off, s_off + 32, reinterpret_cast<int*>(region + 256),
-                 totals, spill, spill_words, gathered, flop_out);
+    sym_warp_row<kRowCounts>(
+        sym_row(ri, rows, row_da, row_db, out_idx, max_deg_a, max_deg_b),
+        a_rpt, a_col, b_rpt, b_col, rownnz_b, m, k_rows, warp_keys, s_off,
+        s_off + 32, reinterpret_cast<int*>(region + 256), totals, spill,
+        spill_words, gathered, flop_out, z_out);
     return;
   }
   // long rows, a block each: the table (product prefix, then each A
@@ -364,14 +374,27 @@ __global__ void __launch_bounds__(SYM_THREADS) esc_symbolic_kernel(
       atomicAdd(&totals[0], z);
       atomicAdd(&totals[1], gathered ? n : flop);
       flop_out[row.out] = flop;
+      if (kRowCounts) z_out[row.out] = z;
     }
     __syncthreads();   // the next row rewrites the table and the keys
   }
 }
 
 // Shared memory above the 48 KB default needs the attribute: set once per
-// device, to the card's opt-in limit less the kernel's static shared
-// memory, so no later call sets it again.
+// device for both instantiations, to the card's opt-in limit less the
+// kernel's static shared memory, so no later call sets it again.
+template <bool kRowCounts>
+static cudaError_t sym_smem_attr_one(int limit) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, esc_symbolic_kernel<kRowCounts>);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      esc_symbolic_kernel<kRowCounts>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      limit - static_cast<int>(attr.sharedSizeBytes));
+}
+
 static cudaError_t sym_smem_attr(int device) {
   static int done[64];
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
@@ -379,13 +402,8 @@ static cudaError_t sym_smem_attr(int device) {
   int limit = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, esc_symbolic_kernel);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      esc_symbolic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      limit - static_cast<int>(attr.sharedSizeBytes));
+  if (err == cudaSuccess) err = sym_smem_attr_one<false>(limit);
+  if (err == cudaSuccess) err = sym_smem_attr_one<true>(limit);
   if (err == cudaSuccess) done[device] = 1;
   return err;
 }
@@ -397,7 +415,8 @@ static cudaError_t sym_smem_attr(int device) {
 // totals (3 + spill_words ints, zeroed here: z*, f*, the spill lock, then
 // the spill bitmask of ceil(B's columns / 32) words) gets z* and f* (the
 // gathered products with `gathered`, else the FLOP), flop_out one int per
-// row.
+// row and, where z_out is not null (the per-row count mode), z_out each
+// row's distinct columns, both in the row's out_idx slot.
 extern "C" int esc_symbolic_launch(
     const void* rows, const void* row_da, const void* row_db,
     const void* out_idx, const void* row_flop, int n_rows, int n_long,
@@ -405,7 +424,7 @@ extern "C" int esc_symbolic_launch(
     const void* a_rpt, const void* a_col, const void* b_rpt, const void* b_col,
     const void* rownnz_b, int m, int k_rows, int warp_keys, int smem_keys,
     void* scratch, long long slice_bytes, int smem_bytes, void* totals,
-    int spill_words, int gathered, void* flop_out, int device,
+    int spill_words, int gathered, void* flop_out, void* z_out, int device,
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -418,8 +437,9 @@ extern "C" int esc_symbolic_launch(
   const int short_blocks = (short_rows + SYM_WARPS - 1) / SYM_WARPS;
   const int grid = long_blocks + short_blocks;
   if (grid <= 0) return 0;
-  esc_symbolic_kernel<<<grid, SYM_THREADS, smem_bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = z_out ? esc_symbolic_kernel<true> : esc_symbolic_kernel<false>;
+  kernel<<<grid, SYM_THREADS, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rows), static_cast<const int*>(row_da),
       static_cast<const int*>(row_db), static_cast<const int*>(out_idx),
       static_cast<const int*>(row_flop), n_rows, n_long, long_blocks,
@@ -428,7 +448,8 @@ extern "C" int esc_symbolic_launch(
       static_cast<const int*>(b_rpt), static_cast<const int*>(b_col),
       static_cast<const int*>(rownnz_b), m, k_rows, warp_keys, smem_keys,
       static_cast<char*>(scratch), slice_bytes, static_cast<int*>(totals),
-      spill_words, gathered, static_cast<int*>(flop_out));
+      spill_words, gathered, static_cast<int*>(flop_out),
+      static_cast<int*>(z_out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,12 +10,14 @@ plain tensor-op version on CPU tensors.  The TPU grid knobs of the SpGEMM
 entry points (``block_rows``, ``block_samples``) size Pallas blocks and mean
 nothing to kernels that give each row its own thread block or warp, so
 they are dropped; flash attention keeps ``block_q`` and ``block_k`` for
-JAX's divisibility checks.  Three entries have no JAX twin of their own:
+JAX's divisibility checks.  Five entries have no JAX twin of their own:
 :func:`flop_rows_buckets`, :func:`fused_flop_symbolic_buckets` and
 :func:`fused_flop_symbolic_bitmask_buckets` compute what
 :func:`flop_rows` and the ESC and SPA/BIN branches of
 :func:`fused_flop_symbolic_routed` give bucket by bucket, for a whole
-binned prediction in one launch each.
+binned prediction in one launch each; :func:`exact_row_counts_esc` and
+:func:`exact_row_counts_bitmask` give the per-row distinct counts that the
+JAX package computes outside Pallas (``core.predictor.exact_row_counts``).
 """
 from __future__ import annotations
 
@@ -97,6 +99,23 @@ def fused_flop_symbolic_bitmask_buckets(a: CSRDevice, b: CSRDevice,
     ``predictor.bitmask_sample_table``)."""
     return _acc_k.fused_flop_symbolic_bitmask_buckets(a, b, table,
                                                       rownnz_b=rownnz_b)
+
+
+def exact_row_counts_esc(a: CSRDevice, b: CSRDevice,
+                         table: _sym_k.SampleTable, *, rownnz_b=None):
+    """Each listed row's distinct product columns (int32, the caller's
+    order) in one launch of the fused ESC kernel's per-row count mode: the
+    exact-symbolic fallback over an ESC bucket's rows (``table`` from
+    ``spgemm_symbolic.sample_table`` at the bucket's bounds)."""
+    return _sym_k.exact_row_counts_esc(a, b, table, rownnz_b=rownnz_b)
+
+
+def exact_row_counts_bitmask(a: CSRDevice, b: CSRDevice,
+                             table: _acc_k.BitmaskTable, *, rownnz_b=None):
+    """The same by the bitmask kernel's per-row count mode, over a SPA or
+    BIN bucket's rows (``table`` from ``accumulator.bitmask_table`` at the
+    bucket's bounds and mask words)."""
+    return _acc_k.exact_row_counts_bitmask(a, b, table, rownnz_b=rownnz_b)
 
 
 def bitmask_symbolic(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,

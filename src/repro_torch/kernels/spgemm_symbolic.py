@@ -1,5 +1,5 @@
 """Algorithm 2 (ESC symbolic) over sampled rows: one hand-written CUDA
-kernel, ``csrc/esc_symbolic.cu``, behind three wrappers.
+kernel, ``csrc/esc_symbolic.cu``, behind four wrappers.
 
 Each wrapper launches the kernel on CUDA tensors and runs its plain version
 on CPU tensors:
@@ -13,6 +13,10 @@ on CPU tensors:
   rows of every ESC bucket of a binned prediction in one launch, each row
   at its own bucket's bounds (a :class:`SampleTable`) — what the TPU kernel
   gives bucket by bucket;
+* :func:`exact_row_counts_esc`: the same launch over every row of an ESC
+  bucket in its per-row count mode → each row's distinct columns, the
+  re-planning loop's exact-symbolic fallback (the JAX package counts them
+  outside Pallas, ``repro.core.predictor.exact_row_counts``);
 * :func:`sampled_symbolic` → ``(z*, f*)`` with f* the count of *gathered*
   products (each B row read to at most ``max_deg_b`` entries), at the
   global degree bounds of the paper's predictor: one launch over the
@@ -39,7 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.csr import CSRDevice
-from repro_torch.core.predictor import sampled_counts
+from repro_torch.core.predictor import (count_distinct_sorted,
+                                        distinct_per_row, sampled_counts)
 from . import _build
 from .flop_per_row import flop_rows_plain
 
@@ -62,7 +67,8 @@ def _fused_launch(a: CSRDevice, b: CSRDevice, rownnz_b: torch.Tensor, dev,
                   rows: torch.Tensor, n_long: int, max_deg_a: int,
                   max_deg_b: int, short_bound: int, long_bound: int,
                   max_deg_a_long: int, gathered: bool = False,
-                  row_flop: torch.Tensor | None = None):
+                  row_flop: torch.Tensor | None = None,
+                  z_out: torch.Tensor | None = None):
     """One launch of ``csrc/esc_symbolic.cu`` over ``rows`` (its first
     ``n_long`` the long rows): an int32 ``(S,)`` tensor of row ids, every
     row at ``max_deg_a``/``max_deg_b`` and in place, or a
@@ -73,7 +79,9 @@ def _fused_launch(a: CSRDevice, b: CSRDevice, rownnz_b: torch.Tensor, dev,
     f*, FLOP per row in the caller's order)``, int32 views of one buffer
     that the kernel fills, f* the rows' FLOP or, with ``gathered``, their
     gathered products; the buffer also holds the spill lock and bitmask
-    (one word per 32 of B's columns) of rows past their bound."""
+    (one word per 32 of B's columns) of rows past their bound.  With
+    ``z_out`` (int32 ``(S,)``) the kernel also writes each row's distinct
+    columns there, in the caller's order (the per-row count mode)."""
     s = rows.shape[-1]
     spill_words = max(1, -(-b.ncols // 32))
     res = torch.empty(3 + spill_words + s, dtype=torch.int32, device=dev)
@@ -97,7 +105,7 @@ def _fused_launch(a: CSRDevice, b: CSRDevice, rownnz_b: torch.Tensor, dev,
         ptrs = [_build.require(_LIB, rows, i32, "rows"), None, None, None]
     flop_ptr = (None if row_flop is None else
                 _build.require(_LIB, row_flop, i32, "row_flop"))
-    fn = _build.launcher(_LIB, "pppppiiiiiipppppiiiipqipiipip")
+    fn = _build.launcher(_LIB, "pppppiiiiiipppppiiiipqipiippip")
     rc = fn(*ptrs, flop_ptr, s, n_long,
             shape.long_blocks, int(max_deg_a), int(max_deg_b),
             int(max_deg_a_long), *_build.require_csr(_LIB, a, "a"),
@@ -108,6 +116,8 @@ def _fused_launch(a: CSRDevice, b: CSRDevice, rownnz_b: torch.Tensor, dev,
             shape.slice_bytes, shape.smem_bytes, res.data_ptr(),
             spill_words, int(gathered),
             res.data_ptr() + 4 * (3 + spill_words),
+            None if z_out is None else _build.require(_LIB, z_out, i32,
+                                                      "z_out"),
             dev.index or 0, _build.stream_of(dev))
     _build.check(_LIB, rc)
     return res[0], res[1], res[3 + spill_words:]
@@ -230,6 +240,50 @@ def fused_flop_symbolic_buckets(a: CSRDevice, b: CSRDevice,
 
 
 fused_flop_symbolic_buckets.launches = 0
+
+
+def exact_row_counts_esc_plain(a: CSRDevice, b: CSRDevice,
+                               table: SampleTable, *,
+                               rownnz_b: torch.Tensor | None = None):
+    """Plain tensor-op version: gather, sort and count each row over the
+    rows of each ``(deg_a, deg_b)`` pair (``predictor.distinct_per_row``),
+    the counts put back in the caller's order."""
+    if rownnz_b is None:
+        rownnz_b = torch.diff(b.rpt)
+    rows, deg_a, deg_b, out = table.samples
+    z = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    for da, db in sorted(set(map(tuple, table.samples[1:3].T.tolist()))):
+        sel = torch.nonzero((deg_a == da) & (deg_b == db))[:, 0]
+        z[out[sel].long()] = distinct_per_row(
+            a, b, rows[sel], da, db, rownnz_b, count_distinct_sorted)
+    return z
+
+
+def exact_row_counts_esc(a: CSRDevice, b: CSRDevice, table: SampleTable, *,
+                         rownnz_b: torch.Tensor | None = None):
+    """Each listed row's distinct product columns, int32 ``(S,)`` in the
+    caller's order, at its own bounds: kernel 2's launch of
+    :func:`fused_flop_symbolic_buckets` in its per-row count mode, over
+    every row of an ESC bucket (the re-planning loop's exact-symbolic
+    fallback, ``predictor.exact_row_counts``) instead of a sample."""
+    if rownnz_b is None:
+        rownnz_b = torch.diff(b.rpt)
+    dev = _build.kernel_device(_LIB, a.rpt, a.col, b.rpt, b.col, rownnz_b,
+                               table.samples)
+    if dev is None:
+        return exact_row_counts_esc_plain(a, b, table, rownnz_b=rownnz_b)
+    s = table.samples.shape[1]
+    z = torch.empty(s, dtype=torch.int32, device=dev)
+    if not s:
+        return z
+    _fused_launch(a, b, rownnz_b, dev, table.samples, table.n_long, 0, 0,
+                  table.short_bound, table.long_bound, table.max_deg_a_long,
+                  z_out=z)
+    exact_row_counts_esc.launches += 1
+    return z
+
+
+exact_row_counts_esc.launches = 0
 
 
 def sampled_symbolic_plain(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,

@@ -1004,3 +1004,221 @@ def test_flash_attention_kernel_takes_strided_inputs_and_refuses_wide_heads(
     wide = torch.zeros(1, 2, 64, 320, device=card)
     with pytest.raises(ValueError, match="head dim 320"):
         fa_k.flash_attention(wide, wide, wide, block_q=64, block_k=64)
+
+
+# --------------------------------------------------------------------------- #
+# Re-planning on overflow and plan templates: kernels 2 and 4 in their
+# per-row count mode over whole buckets, the numeric kernels over padded
+# tables, and retried and template-planned plans against the plain path
+# --------------------------------------------------------------------------- #
+def _count_tables(m, bk, flop, card):
+    """The whole bucket's kernel-2 or kernel-4 table at its bounds, with
+    the count entry and its plain version."""
+    da = np.full(bk.n_rows, bk.deg_a, np.int32)
+    db = np.full(bk.n_rows, bk.deg_b, np.int32)
+    if bk.route == binning.ROUTE_ESC:
+        return (sym_k.sample_table(bk.rows, da, db, flop, card),
+                sym_k.exact_row_counts_esc, sym_k.exact_row_counts_esc_plain)
+    lanes = min(bk.span, m.ncols) if bk.span else m.ncols
+    return (acc_k.bitmask_table(bk.rows, da, db,
+                                np.full(bk.n_rows, -(-lanes // 32)), flop,
+                                card),
+            acc_k.exact_row_counts_bitmask,
+            acc_k.exact_row_counts_bitmask_plain)
+
+
+_COUNT_CASES = [(name, route) for name in ("mini_er", "mini_pl", "mini_rmat",
+                                           "mini_band", "mini_fem")
+                for route in ("esc", "spa", "auto")] + [
+    ("power_law_1.2", "esc"), ("power_law_1.2", "bin")]
+
+
+def _count_matrix(name):
+    if name == "power_law_1.2":
+        return sprand.power_law(3000, 3000, 40, 1.2, seed=5)
+    return dict(suite.mini_suite(scale=200))[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,route", _COUNT_CASES)
+def test_exact_row_counts_kernels_over_whole_buckets(card, name, route):
+    """Every row of every bucket, in one launch of kernel 2 (ESC buckets)
+    or kernel 4 (SPA and BIN) in per-row count mode: equal to the plain
+    versions, to the host's exact structure and to predictor.
+    exact_row_counts on the card with and without the kernels; with a FLOP
+    of 1 a row (every workspace too small) the counts stay exact."""
+    m = _count_matrix(name)
+    bp = binning.build_plan(m, m, route=route)
+    ad = csr.to_device(m, device=card)
+    rnb = torch.diff(ad.rpt)
+    floprc, _ = oracle.flop_per_row(m, m)
+    exact, _ = oracle.exact_structure(m, m)
+    for bk in bp.buckets:
+        for flop in (floprc[bk.rows], np.ones(bk.n_rows, np.int64)):
+            table, fn, plain = _count_tables(m, bk, flop, card)
+            kw = dict(a=ad, b=ad, table=table, rownnz_b=rnb)
+            before = fn.launches
+            got = fn(**kw)
+            assert fn.launches == before + 1
+            assert torch.equal(got, plain(**kw))
+            np.testing.assert_array_equal(got.cpu().numpy(), exact[bk.rows])
+        kw = dict(max_deg_a=bk.deg_a, max_deg_b=bk.deg_b, route=bk.route,
+                  span=bk.span)
+        for use_kernel in (False, True):
+            got = predictor.exact_row_counts(ad, ad, bk.rows,
+                                             use_kernel=use_kernel,
+                                             row_flop=floprc[bk.rows], **kw)
+            np.testing.assert_array_equal(got, exact[bk.rows])
+
+
+@pytest.mark.cuda
+def test_count_mode_leaves_the_prediction_launches_alone(card):
+    """The sampled launches of kernels 2 and 4 (z_out null) give the same
+    z*, f* and FLOP as before the count mode, and a count-mode launch over
+    the same table sums to z*."""
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=8), 9)
+    ad = csr.to_device(m, device=card)
+    rnb = torch.diff(ad.rpt)
+    floprc, _ = oracle.flop_per_row(m, m)
+    rows = np.random.default_rng(4).integers(0, m.nrows, 300)
+    for route in ("esc", "bin"):
+        bp = binning.build_plan(m, m, route=route)
+        tabs = predictor.plan_tables(bp, card)
+        if route == "esc":
+            table = predictor.esc_sample_table(bp, tabs, rows, floprc[rows],
+                                               card)
+            fn, count = (sym_k.fused_flop_symbolic_buckets,
+                         sym_k.exact_row_counts_esc)
+        else:
+            table = predictor.bitmask_sample_table(bp, tabs, rows,
+                                                   floprc[rows], m.ncols,
+                                                   card)
+            fn, count = (acc_k.fused_flop_symbolic_bitmask_buckets,
+                         acc_k.exact_row_counts_bitmask)
+        z, f, fl = fn(ad, ad, table, rownnz_b=rnb)
+        assert int(z) == oracle.exact_sampled_nnz(m, m, rows)
+        assert int(f) == int(floprc[rows].sum())
+        np.testing.assert_array_equal(fl.cpu().numpy(), floprc[rows])
+        assert int(count(ad, ad, table, rownnz_b=rnb).sum()) == int(z)
+
+
+def _pad_row_plan(card):
+    """A banded member, its row 0 made a hub of 300 entries, planned
+    against a power-law template: some template buckets are empty and
+    launch row 0 under their narrow bounds."""
+    pl = _valued(sprand.power_law(500, 500, 5, 1.5, seed=21), 22)
+    band = sprand.banded(500, 500, 6, 8, seed=3)
+    hub = np.random.default_rng(1).choice(np.arange(1, 500), 300,
+                                          replace=False)
+    rows = np.concatenate([np.zeros(hub.size, np.int64),
+                           np.repeat(np.arange(500), np.diff(band.rpt))])
+    cols = np.concatenate([hub, band.col.astype(np.int64)])
+    m = _valued(CSR.from_coo(rows, cols, np.ones(rows.size, np.float32),
+                             (500, 500)), 23)
+    sample = np.random.default_rng(2).integers(0, 500, 40)
+    tpl = plan.PlanTemplate.from_plan(plan.plan_spgemm(
+        pl, pl, pop_quant=True, sample_rows=sample, use_kernel=True,
+        device=card))
+    return m, plan.plan_spgemm(m, m, template=tpl, sample_rows=sample,
+                               use_kernel=True, device=card)
+
+
+@pytest.mark.cuda
+def test_numeric_kernels_over_padded_tables_and_the_empty_bucket_row(card):
+    """Kernels 3, 5 and 6 over every padded table of a template member
+    (pad rows and the row 0 of empty buckets included), each at the bound
+    the plan passes, against the plain numeric phase on the same table."""
+    m, p = _pad_row_plan(card)
+    empty = [i for i, bk in enumerate(p.binning.buckets) if not bk.n_rows]
+    assert empty and all(p.flop_bounds()[i] == int(p.flopr[0]) > 1000
+                         for i in empty)
+    ad = p.to_device(m, "a")
+    rnb = torch.diff(ad.rpt)
+    for route in ("esc", "spa", "bin"):
+        for bk, cap, table, bound in zip(p.binning.buckets,
+                                         p.alloc.bucket_capacities,
+                                         p.device_args(), p.flop_bounds()):
+            # the bucket's own layout on its route; on another, tiles
+            # derived from B's columns (outputs do not depend on routes)
+            own = route == bk.route
+            kw = dict(row_capacity=cap, deg_a=bk.deg_a, deg_b=bk.deg_b,
+                      route=route, tile_n=bk.tile_n if own else 0,
+                      n_tiles=bk.n_tiles if own else 0,
+                      span=bk.span if own else 0)
+            got = spgemm.routed_spgemm_rows(ad, ad, table, use_kernel=True,
+                                            max_row_flop=bound, rownnz_b=rnb,
+                                            **kw)
+            want = spgemm.routed_spgemm_rows(ad, ad, table, **kw)
+            _assert_numeric_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+@pytest.mark.parametrize("policy", ["ladder", "fallback"])
+def test_retried_plan_matches_the_plain_path(card, route, policy):
+    """A plan at the 8-slot floor re-planned on the card (numeric kernels,
+    and for the fallback kernels 2 and 4's per-row counts) against the
+    same plan run plain on the host: events, capacities and output."""
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=61), 62)
+    sample = np.random.default_rng(6).integers(0, m.nrows, 200)
+    outs, plans = [], []
+    for dev, use_kernel in ((card, True), ("cpu", False)):
+        p = plan.plan_spgemm(
+            m, m, route=route, safety=0.0, sample_rows=sample,
+            use_kernel=use_kernel, device=dev,
+            retry_policy=plan.RetryPolicy(rounds=int(policy == "ladder")))
+        outs.append(plan.execute(p, m, m, cache=plan.PlanCache()))
+        plans.append(p)
+    assert plans[0].retry_events == plans[1].retry_events
+    assert plans[0].degradations == plans[1].degradations
+    assert (plans[0].retry_events if policy == "ladder"
+            else plans[0].degradations)
+    assert plans[0].alloc.bucket_capacities == plans[1].alloc.bucket_capacities
+    got, want = outs
+    assert torch.equal(got.col.cpu(), want.col)
+    assert torch.equal(got.row_nnz.cpu(), want.row_nnz)
+    assert int(got.overflow) == int(want.overflow) == 0
+    np.testing.assert_allclose(got.val.cpu().numpy(), want.val.numpy(),
+                               rtol=VAL_RTOL, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+def test_template_member_matches_the_plain_path(card, route):
+    """A template member, its tables padded, run through the kernels and
+    re-planned on the card against the same member run plain on the
+    host; a second member of the same key reuses the executor."""
+    gen = lambda s: _valued(sprand.power_law(2000, 2000, 8, 1.5, seed=s),
+                            s + 1)
+    sample = np.random.default_rng(3).integers(0, 2000, 60)
+    outs = []
+    for dev, use_kernel in ((card, True), ("cpu", False)):
+        tpl = plan.PlanTemplate.from_plan(plan.plan_spgemm(
+            gen(10), gen(10), route=route, pop_quant=True,
+            sample_rows=sample, use_kernel=use_kernel, device=dev))
+        cache = plan.PlanCache()
+        for s in (20, 30, 20):
+            m = gen(s)
+            p = plan.plan_spgemm(m, m, template=tpl, sample_rows=sample,
+                                 use_kernel=use_kernel, device=dev,
+                                 retry_policy=plan.RetryPolicy())
+            outs.append(plan.execute(p, m, m, cache=cache))
+    for got, want in zip(outs[:3], outs[3:]):
+        assert torch.equal(got.col.cpu(), want.col)
+        assert torch.equal(got.row_nnz.cpu(), want.row_nnz)
+        assert int(got.overflow) == int(want.overflow) == 0
+        np.testing.assert_allclose(got.val.cpu().numpy(), want.val.numpy(),
+                                   rtol=VAL_RTOL, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_retry_splices_on_the_card_and_widens_once_a_round(card):
+    """The re-planned output stays on the card, one buffer a round: its
+    width is the round's widest new capacity."""
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=63), 64)
+    p = plan.plan_spgemm(m, m, safety=0.0, use_kernel=True, device=card,
+                         retry_policy=plan.RetryPolicy())
+    out = plan.execute(p, m, m, cache=plan.PlanCache())
+    assert out.col.is_cuda and out.val.is_cuda
+    assert out.col.shape[1] == max(e["new_cap"] for e in p.retry_events) \
+        == p.alloc.row_capacity

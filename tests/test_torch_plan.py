@@ -2,7 +2,8 @@
 the port against the JAX package on all five mini families (same operands,
 same sample rows), with the default ``route="auto"``, and forced ESC, SPA
 and BIN, and against the dense oracle;
-plus the executor cache, the options the port refuses, and the rule that
+plus the executor cache, the options the port still refuses (distributed
+plans, column panels, the straggler watchdog), and the rule that
 the plan runs on the CUDA card unless the CPU is asked for."""
 import numpy as np
 import pytest
@@ -135,8 +136,7 @@ def test_overflow_is_counted_like_jax_and_refused_by_reassemble():
 
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("num_shards", 4), ("n_panels", 2),
-    ("template", "auto"), ("pop_quant", True), ("retry_safety", 1.5),
-    ("retry_policy", object()), ("dispatch_budget", object())])
+    ("dispatch_budget", object())])
 def test_unported_options_are_refused(option, value):
     tm = _host(_MINI["mini_er"])
     with pytest.raises(PlanMismatchError, match="not ported yet"):

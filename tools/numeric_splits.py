@@ -7,8 +7,8 @@ symbolic, kernel 2) split into device and host time.
 
 Run from the repository root::
 
-    python3 tools/numeric_splits.py [--predict] [--bitmask] [--src DIR]
-        [--out FILE]
+    python3 tools/numeric_splits.py [--predict] [--bitmask] [--reassemble]
+        [--matrices NAMES] [--src DIR] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so one call on one card can time two trees in
@@ -66,6 +66,15 @@ held to the host oracle.  It runs on a tree with either design; on one
 with the one-launch entry it also splits kernel 8's rows by unit (its
 short and long rows by FLOP alone, and every row on a block or first on
 a warp through a table), by device time.
+
+``--reassemble`` times ``plan.reassemble`` (host clock, ended by a
+synchronise, median of 5 after 2 warm-ups) on the executed
+``route="esc"`` and ``route="auto"`` plans of ``rmat_80k`` and
+``cant_like`` squared at safety 1.3, with the device memory it peaks at
+over the executed output and a checksum of the CSR it builds, so two trees
+timed in turns can be held to the same result.  ``--matrices`` (names,
+comma-separated) keeps only those products in ``--predict``,
+``--bitmask`` and ``--reassemble``.
 
 ``--predict`` takes ``chip_smoke.py``'s five predict products instead, each
 with its ``route="esc"`` bucket plan and seed-0 sampled rows, and times the
@@ -224,7 +233,11 @@ def main() -> int:
     ap.add_argument("--spa", action="store_true")
     ap.add_argument("--flop-all", dest="flop_all", action="store_true")
     ap.add_argument("--bitmask", action="store_true")
+    ap.add_argument("--reassemble", action="store_true")
+    ap.add_argument("--matrices", default=None)
     args = ap.parse_args()
+    global ONLY
+    ONLY = tuple(args.matrices.split(",")) if args.matrices else None
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -262,7 +275,9 @@ def main() -> int:
         for ln in ptxas(os.path.abspath(args.src), names):
             emit(dict(phase="ptxas", line=ln))
     if (args.predict or args.attention or args.global_pad or args.spa
-            or args.flop_all or args.bitmask):
+            or args.flop_all or args.bitmask or args.reassemble):
+        if args.reassemble:
+            reassemble_splits(torch, np, dev, emit)
         if args.bitmask:
             bitmask_splits(torch, np, dev, emit)
         if args.spa:
@@ -402,6 +417,13 @@ def main() -> int:
 
 PREDICT_MATRICES = MATRICES[:5]
 SPA_MATRICES = ("band_60k_d16", "fem_30k_d48", "cant_like")
+REASSEMBLE_MATRICES = ("rmat_80k", "cant_like")
+ONLY = None                      # --matrices
+
+
+def chosen(names) -> tuple:
+    """``names`` less those that ``--matrices`` leaves out."""
+    return tuple(n for n in names if ONLY is None or n in ONLY)
 WHOLE_RUNS = 101                 # host-clock runs of a whole prediction
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 
@@ -419,6 +441,33 @@ def products(names):
                                          seed=601)
         else:
             yield name, suite.get_matrix(name)
+
+
+def reassemble_splits(torch, np, dev, emit) -> None:
+    """``--reassemble``: ``plan.reassemble`` of one executed plan a route,
+    host clock, with its peak device memory and a checksum of its CSR."""
+    import zlib
+
+    from repro_torch.core import plan
+    for name, m in products(chosen(REASSEMBLE_MATRICES)):
+        for route in ("esc", "auto"):
+            p = plan.plan_spgemm(m, m, route=route, use_kernel=True,
+                                 safety=SAFETY, device=dev)
+            out = plan.execute(p, m, m)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            c = plan.reassemble(p, out)
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = synced_ms(torch, lambda: plan.reassemble(p, out))
+            emit(dict(phase="reassemble", matrix=name, route=route,
+                      output_bytes=int(out.col.numel() * 8),
+                      nnz=int(c.rpt[-1]), reassemble_ms=ms,
+                      peak_bytes_over_output=int(peak),
+                      crc=zlib.crc32(np.ascontiguousarray(c.rpt).tobytes()
+                                     + c.col.tobytes() + c.val.tobytes())))
+            del out, c
+            torch.cuda.empty_cache()
 
 
 def spa_splits(torch, np, dev, emit) -> None:
@@ -529,7 +578,7 @@ def predict_splits(torch, np, dev, emit) -> None:
     from repro_torch.kernels import spgemm_symbolic as sym_k
     from repro_torch.sparse import suite
     one_launch = hasattr(flop_k, "flop_rows_buckets")
-    for name in PREDICT_MATRICES:
+    for name in chosen(PREDICT_MATRICES):
         m = suite.get_matrix(name)
         bp = binning.build_plan(m, m, route="esc")
         rows = oracle.sample_rows(m.nrows, seed=0)
@@ -632,7 +681,7 @@ def bitmask_splits(torch, np, dev, emit) -> None:
     from repro_torch.kernels import flop_per_row as flop_k
     from repro_torch.kernels import spgemm_symbolic as sym_k
     one_launch = hasattr(acc_k, "fused_flop_symbolic_bitmask_buckets")
-    for name, m in products(MATRICES):
+    for name, m in products(chosen(MATRICES)):
         rows = oracle.sample_rows(m.nrows, seed=0)
         floprc, _ = oracle.flop_per_row(m, m)
         host_z = oracle.exact_sampled_nnz(m, m, rows)
