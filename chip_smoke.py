@@ -46,6 +46,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        ``template="auto"`` until, after the template's last growth, every
        member keeps one key, hits the cache and builds nothing, each
        member's product equal to its direct plan's;
+   (i) column-partitioned B and fault injection: the seven products
+       planned with ``n_panels=4`` (and 2 on ``rmat_80k`` and
+       ``band_60k_d16``), one numeric launch a (bucket × panel) unit with
+       products, each block held to the plain numeric phase on the same
+       panel operand and the reassembled CSR to (c)'s; re-planning per unit
+       at 4 panels (``safety=0`` with ``RetryPolicy()`` and
+       ``RetryPolicy(rounds=0)``, and ``pop_quant=True``), exactly the
+       overflowing units re-launched; then on ``pl_100k_d4`` (ESC) and
+       ``band_60k_d16`` (SPA) starved capacities and a corrupted sketch
+       (held to (c)'s CSR), a starved panel operand
+       (``CapacityExhaustedError`` naming the panel) and a failed executor
+       (``ShardFailureError`` from ``InjectedFault``), wave and panel wave;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
@@ -342,8 +354,9 @@ def main() -> int:
     names = [k.__name__ for k in kernels]
     launches = {path: dict.fromkeys(names, 0)
                 for path in ("predict", "plan_esc", "plan_auto", "replan",
-                             "templates", "global_predict", "global_bitmask",
-                             "global_spgemm", "experiment", "attention")}
+                             "templates", "panels", "global_predict",
+                             "global_bitmask", "global_spgemm", "experiment",
+                             "attention")}
 
     def drive(path, fn):
         """One call of a main path, every launch count set to 0 just before
@@ -451,7 +464,8 @@ def main() -> int:
     num_err = dict.fromkeys(("spgemm_numeric", "spa_numeric",
                              "bin_numeric"), 0.0)
     auto_runs = {}      # matrix -> (rows per route, launch counts) of (c)
-    auto_csr = {}       # matrix -> (c)'s reassembled host CSR, for (h)
+    auto_csr = {}       # matrix -> (c)'s reassembled host CSR, for (h), (i)
+    auto_secs = {}      # matrix -> (c)'s seconds and peak bytes, for (i)
     b_row_nnz = {}      # matrix -> (b)'s row_nnz
     for name, m in mats:
         # (b) every bucket on ESC: the prediction launches the fused ESC
@@ -551,6 +565,7 @@ def main() -> int:
                   launches=counts, **secs))
         if int(outa.overflow) == 0:     # (h) holds its runs to a whole C
             auto_csr[name] = ca
+        auto_secs[name] = secs
         del p, out, pa, outa, ca, ad
         torch.cuda.empty_cache()
 
@@ -635,7 +650,7 @@ def main() -> int:
         if name not in auto_csr:
             fail(f"replan {name}: (c)'s auto run overflowed at safety "
                  f"{SAFETY}, so there is no whole product to hold (h) to")
-        want_c = auto_csr.pop(name)
+        want_c = auto_csr[name]
         for mode, opts in replan_modes:
             cache = CountingCache()
             (p, caps0, out, c, secs), counts = drive(
@@ -845,6 +860,285 @@ def main() -> int:
               val_bitwise=bitwise, launches=counts, **secs))
     del m0, band, member, tpl, p, pd, out, c, ad, rnb, got, want
     torch.cuda.empty_cache()
+
+    # ---- (i) column panels and fault injection.  Each product planned with
+    # n_panels=4 (and 2 on rmat_80k and band_60k_d16): every (bucket ×
+    # panel) unit one launch of its bucket's numeric kernel against that
+    # panel's operand, each block held to the plain numeric phase on the
+    # same operand, the reassembled CSR to (c)'s.  Then re-planning per unit
+    # at n_panels=4, and the fault classes on an ESC and a SPA product
+    from repro_torch.core import faults
+    from repro_torch.core.errors import (CapacityExhaustedError,
+                                         ShardFailureError)
+    predict_kernels = ("flop_rows_buckets", "fused_flop_symbolic_buckets",
+                       "fused_flop_symbolic_bitmask_buckets")
+
+    def run_panels(m, n_panels, cache, **opts):
+        """plan → execute → reassemble of a panel plan on the card, as
+        run_plan measures them, with the panel caps before the run."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        p = plan.plan_spgemm(m, m, use_kernel=True, device=dev,
+                             n_panels=n_panels, **opts)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t
+        caps0 = p.panel_caps.copy()
+        t = time.perf_counter()
+        out = plan.execute(p, m, m, cache=cache)
+        torch.cuda.synchronize()
+        t_exec = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        t = time.perf_counter()
+        c = plan.reassemble(p, out)
+        t_reasm = time.perf_counter() - t
+        return p, caps0, out, c, dict(plan_s=t_plan, execute_s=t_exec,
+                                      reassemble_s=t_reasm, peak_bytes=peak)
+
+    def launched_units(p):
+        """The (bucket × panel) units the wave launches: real rows and
+        products in the panel."""
+        bounds = p.panel_flop_bounds()
+        return [(i, q) for i, bk in enumerate(p.binning.buckets)
+                for q in range(p.n_panels)
+                if p.host_tables()[i].size and bounds[i][q]]
+
+    def hold_blocks(p, m, out, what):
+        """Every block against the plain numeric phase of its bucket's
+        route on the same panel operand, on the card: the largest |val|
+        difference by numeric kernel."""
+        ad = p.to_device(m, "a")
+        bps = plan._panel_operands_local(p, m)
+        err = {}
+        for i, (bk, table) in enumerate(zip(p.binning.buckets,
+                                            p.device_args())):
+            rows = table[:bk.n_rows]
+            for q, bp in enumerate(bps):
+                cap = int(p.panel_caps[i, q])
+                meta = plan._panel_meta(bk, p.panel_deg_b[i], cap)
+                want = spgemm.routed_spgemm_rows(
+                    ad, bp, rows, row_capacity=cap, deg_a=meta[0],
+                    deg_b=meta[1], route=bk.route, tile_n=bk.tile_n,
+                    n_tiles=bk.n_tiles, span=bk.span)
+                got_v = out.vals[i][q]
+                if not (torch.equal(out.cols[i][q], want.col)
+                        and torch.equal(out.row_nnz[i][q], want.row_nnz)
+                        and vals_close(got_v, want.val)):
+                    fail(f"{what}: bucket {i} ({bk.route}) panel {q} block "
+                         "!= the plain numeric phase on the panel operand")
+                k = ("spgemm_numeric" if bk.route == binning.ROUTE_ESC
+                     else f"{bk.route}_numeric")
+                err[k] = max(err.get(k, 0.0), float(
+                    (got_v - want.val).abs().max()) if got_v.numel() else 0.0)
+                del want, got_v
+        del ad, bps
+        return err
+
+    def block_bytes(p):
+        """Bytes of the panel blocks (col and val, 8 a slot)."""
+        return int(sum(bk.n_rows * int(p.panel_caps[i, q]) * 8
+                       for i, bk in enumerate(p.binning.buckets)
+                       for q in range(p.n_panels)))
+
+    panel_err = {}
+    for name, m in mats:
+        want_c = auto_csr[name]
+        for n_panels in (4, 2) if name in ("rmat_80k", "band_60k_d16") \
+                else (4,):
+            cache = CountingCache()
+            (p, caps0, out, c, secs), counts = drive(
+                "panels", lambda: run_panels(m, n_panels, cache,
+                                             safety=SAFETY))
+            structure, close, bitwise = csr_matches(c, want_c)
+            if not (structure and close) or int(out.overflow):
+                fail(f"panels {name} P={n_panels}: CSR != (c)'s auto run")
+            units = launched_units(p)
+            calls = cache.calls()
+            if calls != [("spgemm-plan-panels", len(units))]:
+                fail(f"panels {name} P={n_panels}: numeric launches {calls}, "
+                     f"not one for each of the {len(units)} units")
+            want_pred = {k: auto_runs[name][1][k] for k in predict_kernels}
+            if {k: counts[k] for k in predict_kernels} != want_pred:
+                fail(f"panels {name} P={n_panels}: prediction launches "
+                     f"{counts} != (c)'s {want_pred}")
+            for k, v in hold_blocks(p, m, out, f"panels {name}").items():
+                panel_err[k] = max(panel_err.get(k, 0.0), v)
+            # the same plan again: the panel structure is on the card
+            # already and the FLOP bounds are cached, as a serving pair
+            # finds them
+            del out
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, again = drive("panels", lambda: plan.execute(p, m, m,
+                                                              cache=cache))
+            torch.cuda.synchronize()
+            secs["execute_s_again"] = time.perf_counter() - t
+            if (sum(again[k] for k in ("spgemm_numeric", "spa_numeric",
+                                       "bin_numeric")) != len(units)
+                    or cache.traces != 1):
+                fail(f"panels {name} P={n_panels}: the plan again launched "
+                     f"{again} with {cache.traces} builds")
+            csec = auto_secs[name]
+            emit(dict(phase="panels", matrix=name, n_panels=n_panels,
+                      edges=[int(e) for e in p.panels.edges],
+                      buckets=len(p.binning.buckets), units=len(units),
+                      units_without_products=len(p.binning.buckets)
+                      * n_panels - len(units),
+                      panel_block_bytes=block_bytes(p),
+                      c_execute_s=csec["execute_s"],
+                      c_peak_bytes=csec["peak_bytes"],
+                      c_output_bytes=m.nrows * 8 * p.alloc.row_capacity,
+                      equals_auto_run=True, val_bitwise=bitwise,
+                      blocks_equal_plain=True, builds=cache.traces,
+                      launches=counts, **secs))
+            del p, out, c
+            torch.cuda.empty_cache()
+
+        # re-planning per (bucket × panel) unit, at 4 panels
+        for mode, opts in (
+                ("policy", dict(safety=0.0,
+                                retry_policy=plan.RetryPolicy())),
+                ("fallback", dict(safety=0.0,
+                                  retry_policy=plan.RetryPolicy(rounds=0))),
+                ("pop_quant", dict(safety=SAFETY, pop_quant=True,
+                                   retry_policy=plan.RetryPolicy()))):
+            cache = CountingCache()
+            (p, caps0, out, c, secs), counts = drive(
+                "panels", lambda: run_panels(m, 4, cache, **opts))
+            structure, close, bitwise = csr_matches(c, want_c)
+            if not (structure and close) or int(out.overflow):
+                fail(f"panels {name} {mode}: CSR != (c)'s auto run")
+            n = [[x.cpu().numpy() for x in bn] for bn in out.row_nnz]
+            over = sorted((i, q) for i, bk in enumerate(p.binning.buckets)
+                          if bk.n_rows for q in range(4)
+                          if int(n[i][q].max()) > caps0[i, q])
+            rerun = sorted([(e["bucket"], e["panel"]) for e in p.retry_events]
+                           + [(d["bucket"], d["panel"])
+                              for d in p.degradations])
+            calls = cache.calls()
+            if (calls[0] != ("spgemm-plan-panels", len(launched_units(p)))
+                    or calls[1:] != [("bucket-retry-panel", 1)] * len(rerun)
+                    or rerun != over):
+                fail(f"panels {name} {mode}: re-launched units {rerun} "
+                     f"({calls}) != the overflowing ones {over}")
+            line = dict(phase="panels_replan", matrix=name, mode=mode,
+                        n_panels=4, units=len(launched_units(p)),
+                        overflowing=len(over), retries=p.retries,
+                        retry_events=len(p.retry_events),
+                        degradations=len(p.degradations),
+                        panel_block_bytes=block_bytes(p),
+                        equals_auto_run=True, val_bitwise=bitwise,
+                        builds=cache.traces, launches=counts, **secs)
+            if mode == "fallback":
+                # one count launch (kernel 2 or 4) a starved unit
+                n_counts = (counts["exact_row_counts_esc"]
+                            + counts["exact_row_counts_bitmask"])
+                if (not p.degradations or p.retry_events
+                        or n_counts != len(p.degradations)):
+                    fail(f"panels {name} fallback: {n_counts} count launches "
+                         f"for {len(p.degradations)} starved units")
+                # kernels 2 and 4's per-row counts over each starved unit,
+                # on its panel operand at the panel deg_b and FLOP, against
+                # the unit's numeric row_nnz and the plain counts: an
+                # over-count would only widen the capacity, so the CSR
+                # check above cannot see it
+                ad = p.to_device(m, "a")
+                bps = plan._panel_operands_local(p, m)
+                for d in p.degradations:
+                    i, q = d["bucket"], d["panel"]
+                    bk = p.binning.buckets[i]
+                    kw = dict(max_deg_a=bk.deg_a,
+                              max_deg_b=p.panel_deg_b[i], route=bk.route,
+                              span=bk.span)
+                    got = predictor.exact_row_counts(
+                        ad, bps[q], bk.rows, use_kernel=True,
+                        row_flop=p._panel_flopr[q][bk.rows], **kw)
+                    plain_counts = predictor.exact_row_counts(
+                        ad, bps[q], bk.rows, **kw)
+                    if not (np.array_equal(got, n[i][q])
+                            and np.array_equal(got, plain_counts)
+                            and int(got.max()) == d["need"]):
+                        fail(f"panels {name} fallback: exact counts of unit "
+                             f"({i}, {q}) != its numeric row_nnz/plain")
+                line["exact_counts_equal_row_nnz_and_plain"] = True
+                del ad, bps
+            if mode == "pop_quant":
+                line["row_padding"] = p.stats()["row_padding"]
+            emit(line)
+            del p, out, c
+            torch.cuda.empty_cache()
+    for k in ("spgemm_numeric", "spa_numeric", "bin_numeric",
+              "exact_row_counts_esc", "exact_row_counts_bitmask"):
+        if launches["panels"][k] <= 0:
+            fail(f"kernel {k} was not launched on main path panels")
+    if any(launches["panels"][k] for k in (
+            "flop_rows", "fused_flop_symbolic", "fused_flop_symbolic_bitmask")):
+        fail("a per-bucket kernel-1, 2 or 4 launch on path panels")
+
+    # faults: each class on an ESC product and a SPA one, the expected
+    # outcome or the run fails
+    fault_cases = (
+        ("capacity", dict(capacity_scale=0.2),
+         dict(retry_policy=plan.RetryPolicy(rounds=2)), None),
+        ("sketch", dict(sketch_scale=0.05),
+         dict(retry_policy=plan.RetryPolicy(rounds=2)), None),
+        ("gather", dict(gather_scale=0.25), dict(n_panels=2),
+         CapacityExhaustedError),
+        ("executor", dict(fail_executor={"unit": "local"}), {},
+         ShardFailureError),
+        ("executor_panels", dict(fail_executor={"unit": "local-panels"}),
+         dict(n_panels=4), ShardFailureError))
+
+    def run_fault(m, inj, opts):
+        with faults.inject(**inj):
+            p = plan.plan_spgemm(m, m, use_kernel=True, device=dev,
+                                 safety=SAFETY, **opts)
+            out = plan.execute(p, m, m, cache=plan.PlanCache())
+            return p, out, plan.reassemble(p, out)
+
+    for name in ("pl_100k_d4", "band_60k_d16"):
+        m = dict(mats)[name]
+        for fault, inj, opts, err in fault_cases:
+            line = dict(phase="faults", matrix=name, fault=fault)
+            t = time.perf_counter()
+            try:
+                (p, out, c), counts = drive(
+                    "panels", lambda: run_fault(m, inj, opts))
+            except Exception as exc:     # the typed error is the outcome
+                if err is None or type(exc) is not err:
+                    raise
+                ctx = exc.context
+                if err is CapacityExhaustedError and not (
+                        "panel" in ctx and ctx["observed"] > ctx["planned"]):
+                    fail(f"faults {name} {fault}: context {ctx}")
+                if err is ShardFailureError and not (
+                        isinstance(exc.__cause__, faults.InjectedFault)
+                        and ctx == inj["fail_executor"]):
+                    fail(f"faults {name} {fault}: {exc!r} from "
+                         f"{exc.__cause__!r}")
+                line.update(outcome=type(exc).__name__, context=ctx,
+                            cause=type(exc.__cause__).__name__
+                            if exc.__cause__ else None)
+            else:
+                if err is not None:
+                    fail(f"faults {name} {fault}: no {err.__name__}")
+                structure, close, bitwise = csr_matches(c, auto_csr[name])
+                if not (structure and close) or int(out.overflow):
+                    fail(f"faults {name} {fault}: CSR != (c)'s auto run")
+                line.update(outcome="equals_auto_run", val_bitwise=bitwise,
+                            retries=p.retries,
+                            retry_events=len(p.retry_events),
+                            degradations=len(p.degradations),
+                            launches=counts)
+                del p, out, c
+            if faults.armed():
+                fail(f"faults {name} {fault}: a fault stayed armed")
+            line["seconds"] = time.perf_counter() - t
+            emit(line)
+            torch.cuda.empty_cache()
+    emit(dict(phase="panels_checked", max_abs_err=panel_err))
+    auto_csr.clear()
 
     # ---- (d) the paper's predictor at global bounds: one pad, no buckets,
     # on (a)'s sampled rows; its integers and nnz equal (a)'s bit for bit

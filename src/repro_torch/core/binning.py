@@ -352,6 +352,43 @@ def row_widths(a_rpt: np.ndarray, a_col: np.ndarray,
     return deg_a, dbmax, width
 
 
+
+def panel_row_tables(a_rpt: np.ndarray, a_col: np.ndarray,
+                     panel_rpts) -> tuple[np.ndarray, np.ndarray]:
+    """Per-panel per-output-row degree tables for column-partitioned B.
+
+    ``panel_rpts`` is one CSR row-pointer array per column panel of B (the
+    panel slices share B's row ids; only the entries are split).  Returns
+    ``(dbmax, flopr)``, each ``(n_panels, m)``:
+
+      * ``dbmax[p, i]`` — the largest *panel-p* degree among the B rows that
+        output row ``i`` references: the per-panel gather bound that
+        replaces the full-row ``dbmax`` of :func:`row_widths`;
+      * ``flopr[p, i]`` — row ``i``'s FLOP restricted to panel ``p``
+        (Algorithm 1 per panel); panels partition B's entries, so
+        ``flopr.sum(axis=0)`` equals the full-row FLOP exactly.
+
+    Computed once from the panel slices and reused by capacity planning,
+    the numeric kernels' FLOP bounds and the exact fallback (DESIGN.md §8).
+    """
+    a_rpt = np.asarray(a_rpt, dtype=np.int64)
+    a_col = np.asarray(a_col, dtype=np.int64)
+    m = a_rpt.size - 1
+    nnz = int(a_rpt[-1])
+    n_panels = len(panel_rpts)
+    dbmax = np.zeros((n_panels, m), dtype=np.int64)
+    flopr = np.zeros((n_panels, m), dtype=np.int64)
+    nonempty = np.diff(a_rpt) > 0
+    starts = a_rpt[:-1][nonempty]
+    for p, prpt in enumerate(panel_rpts):
+        rownnz_p = np.diff(np.asarray(prpt, dtype=np.int64))
+        if not nnz:
+            continue
+        per = rownnz_p[np.clip(a_col[:nnz], 0, rownnz_p.size - 1)]
+        dbmax[p, nonempty] = np.maximum.reduceat(per, starts)
+        flopr[p, nonempty] = np.add.reduceat(per, starts)
+    return dbmax, flopr
+
 def build_plan(a, b, *, lane_budget: int = DEFAULT_LANE_BUDGET,
                max_block_rows: int = DEFAULT_MAX_BLOCK_ROWS,
                min_rows: int = DEFAULT_MIN_ROWS,

@@ -30,15 +30,31 @@ executors at ≤ 2× row padding; a :class:`PlanTemplate` (``template=...`` or
 ``template="auto"``) freezes a family's bucket ladder, and every member
 planned after its last growth lands on one key.
 
+**Column-partitioned B** (``n_panels=P``, DESIGN.md §8): B is split into
+``P`` contiguous column panels (``partition.column_panels``), each bucket's
+capacity is sized per panel from the per-panel FLOP table
+(``binning.panel_row_tables``), and :func:`execute` runs one launch of the
+bucket's numeric kernel per (bucket × panel) unit against that panel's
+operand, each into its own block (:class:`~repro_torch.core.spgemm.
+PanelSpgemmOut`) — no ``(M, row_capacity)`` output exists.  Re-planning's
+unit is then (bucket × panel).
+
+**Failure containment** (DESIGN.md §9): every executor dispatch goes
+through :func:`_invoke_executor`, which fires the fault-injection hook
+(``core.faults``) and turns any failure inside the executor into a typed
+:class:`~repro_torch.core.errors.ShardFailureError` naming the unit.
+
 Not ported yet, and refused with :class:`PlanMismatchError` when asked for:
-distributed plans (``mesh``/``num_shards``), column panels (``n_panels``)
-and the straggler watchdog (``dispatch_budget``).
+distributed plans (``mesh``/``num_shards``) and the straggler watchdog
+(``dispatch_budget``).
 
 Public API::
 
     plan = plan_spgemm(a, b, use_kernel=True)   # route="auto"
     out  = execute(plan, a, b)                  # SpGEMMOut
     c    = reassemble(plan, out, ncols=b.ncols) # host CSR
+    plan = plan_spgemm(a, b, n_panels=4)        # column panels
+    out  = execute(plan, a, b)                  # PanelSpgemmOut
 """
 from __future__ import annotations
 
@@ -50,13 +66,16 @@ import torch
 from repro_torch.sparse.formats import CSR
 from . import binning as binning_mod
 from . import csr as csr_mod
+from . import faults as faults_mod
 from . import oracle
+from . import partition as part_mod
 from . import predictor as predictor_mod
 from . import validate as validate_mod
 from .csr import COL_SENTINEL, CSRDevice
 from .errors import (CapacityExhaustedError, OperandValidationError,
-                     PlanMismatchError)
-from .spgemm import SpGEMMOut, assemble, routed_spgemm_rows
+                     PlanMismatchError, ShardFailureError, SpgemmError)
+from .spgemm import (PanelSpgemmOut, SpGEMMOut, assemble,
+                     routed_spgemm_rows)
 
 
 class PlanCache:
@@ -171,7 +190,29 @@ class SpgemmPlan:
     retry_policy: RetryPolicy | None = None      # None → re-planning off
     degradations: list = dataclasses.field(default_factory=list)  # last execute()
     validation: dict = dataclasses.field(
-        default_factory=lambda: dict(operands_validated=0))
+        default_factory=lambda: dict(operands_validated=0,
+                                     fingerprint_checks=0))
+    # column-partitioned B (DESIGN.md §8); n_panels == 0 → whole-B mode
+    n_panels: int = 0
+    panels: part_mod.PanelPartition | None = None
+    panel_deg_b: tuple = ()         # per-bucket panel deg_b bound (≤ full deg_b)
+    panel_caps: np.ndarray | None = None   # (buckets, n_panels) current caps
+    _panel_host: tuple | None = dataclasses.field(default=None, repr=False)
+    _panel_caps_dev: tuple = ()     # per-panel operand capacities
+    # (n_panels, M) FLOP of each row restricted to each panel (host)
+    _panel_flopr: np.ndarray | None = dataclasses.field(default=None,
+                                                        repr=False)
+    _panel_bounds: tuple | None = dataclasses.field(default=None, repr=False)
+    # per-panel operand structure (rpt, col, entry index into b.val),
+    # uploaded once per plan
+    _panel_dev: tuple | None = dataclasses.field(default=None, repr=False)
+    # the PLANNED B's (nnz, col-sum) fingerprint and its (rpt, col) copy:
+    # the panel slices bake B's structure in, so execute() rejects an
+    # operand of another structure instead of silently pairing its values
+    # with the wrong entries
+    _panel_b_fp: tuple | None = None
+    _panel_b_structure: tuple | None = dataclasses.field(default=None,
+                                                         repr=False)
     _template: object = None        # PlanTemplate this plan was fit against
     _pop_override: tuple | None = dataclasses.field(default=None, repr=False)
     _host_tables: tuple | None = dataclasses.field(default=None, repr=False)
@@ -250,10 +291,37 @@ class SpgemmPlan:
                 for t in self.host_tables())
         return self._flop_bounds
 
+    def panel_flop_bounds(self) -> tuple:
+        """Per bucket, per panel: the launched table's largest row FLOP
+        restricted to that panel — each (bucket × panel) unit's own bound,
+        which sizes the ESC and BIN kernels' workspaces (a row's panel
+        products are a subset of its products, so it never passes
+        :meth:`flop_bounds`).  Like :meth:`flop_bounds`, never in
+        :attr:`key`."""
+        if self._panel_bounds is None:
+            self._panel_bounds = tuple(
+                tuple(int(fp[t].max()) if t.size else 0
+                      for fp in self._panel_flopr)
+                for t in self.host_tables())
+        return self._panel_bounds
+
     @property
     def key(self) -> tuple:
         """The static half of the executor contract, laid out as the JAX
         package's single-device key (no shards)."""
+        if self.n_panels:
+            # panel plans key on the panel layout (quantized edges), the
+            # per-panel operand capacities, and per-bucket panel degree
+            # bounds and capacities — the whole numeric contract of §8
+            buckets = tuple(
+                (bk.signature, db, pop,
+                 tuple(int(c) for c in self.panel_caps[i]))
+                for i, (bk, db, pop) in enumerate(
+                    zip(self.binning.buckets, self.panel_deg_b,
+                        self.local_populations())))
+            return ("spgemm-plan-panels", 0, "data", self.use_kernel,
+                    self.pop_quant, self.shape_a, self.shape_b, self.cap_a,
+                    buckets, (self.panels.key, self._panel_caps_dev))
         buckets = tuple(
             (bk.signature, pop, int(cap))
             for bk, pop, cap in zip(self.binning.buckets,
@@ -299,7 +367,14 @@ class SpgemmPlan:
         if self.retry_policy is not None:
             out.update(retry_safety=self.retry_safety, retries=self.retries,
                        retry_events=list(self.retry_events),
-                       final_capacities=list(self.alloc.bucket_capacities))
+                       final_capacities=(
+                           [[int(c) for c in row] for row in self.panel_caps]
+                           if self.n_panels else
+                           list(self.alloc.bucket_capacities)))
+        if self.n_panels:
+            out.update(n_panels=self.n_panels,
+                       panel_edges=[int(e) for e in self.panels.edges],
+                       panel_nnz=[int(n) for n in self.panels.panel_nnz])
         out.update(retries=int(self.retries),
                    degradations=[dict(e) for e in self.degradations],
                    validation=dict(self.validation))
@@ -586,7 +661,7 @@ def _device_capacity(nnz: int) -> int:
 
 # The JAX planner's options this port does not carry yet, with the value
 # that leaves each one off.
-_UNPORTED = dict(mesh=None, num_shards=None, n_panels=0, dispatch_budget=None)
+_UNPORTED = dict(mesh=None, num_shards=None, dispatch_budget=None)
 
 
 def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
@@ -598,8 +673,8 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
                 retry_policy: RetryPolicy | None = None,
                 validate: bool = True,
                 template: "PlanTemplate | str | None" = None,
-                registry: TemplateRegistry | None = None, device=None,
-                **unported) -> SpgemmPlan:
+                registry: TemplateRegistry | None = None,
+                n_panels: int = 0, device=None, **unported) -> SpgemmPlan:
     """Plan ``C = A·B``: sample → predict (binned) → per-bucket capacities.
 
     ``a``/``b`` are host ``CSR``; planning is a launch-time host step, and
@@ -619,9 +694,15 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
     ladder runs out).  ``template`` (implies ``pop_quant``) plans against a
     :class:`PlanTemplate`'s frozen bucket ladder instead of the member's own
     width histogram; ``template="auto"`` resolves it from ``registry``
-    (default: the session registry) by a structural sketch.  The JAX
-    planner's distributed, panel and watchdog options raise
-    :class:`PlanMismatchError` (not ported yet).
+    (default: the session registry) by a structural sketch.
+
+    ``n_panels`` > 0 selects **column-partitioned B** (DESIGN.md §8): B is
+    split into ``n_panels`` contiguous column panels with about equal
+    entries (edges snapped to a pow2 grid under ``pop_quant``), each bucket
+    is sized per panel, and :func:`execute` runs one (bucket × panel) unit
+    at a time against that panel's operand.  The JAX planner's distributed
+    and watchdog options (``mesh``, ``num_shards``, ``dispatch_budget``)
+    raise :class:`PlanMismatchError` (not ported yet).
     """
     for name, value in unported.items():
         if name not in _UNPORTED:
@@ -690,6 +771,10 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
             structure = flopr.astype(np.float64)
             predicted_nnz = float(total_flop)
             cr = 1.0
+        # fault-injection hook (core.faults): no-op unless a test armed
+        # sketch corruption — models an unlucky sample end to end
+        structure, predicted_nnz, cr = faults_mod.corrupt_sketch(
+            structure, predicted_nnz, cr)
     else:
         structure = np.zeros(a.nrows, dtype=np.float64)
         predicted_nnz = 0.0
@@ -718,8 +803,82 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
         plan._template = template
         plan._pop_override = tuple(template.pops)
     if devpair is not None:
-        plan._planned_pair = ((a, b), devpair)
+        # a panel execute never reads a whole device B: keep only A's
+        # upload (and the host references, which gate the fingerprint check)
+        plan._planned_pair = ((a, b), (devpair[0], None) if n_panels
+                              else devpair)
+    if n_panels:
+        _plan_panels(plan, a, b, int(n_panels), deg_align)
     return plan
+
+
+def _slice_panels(b: CSR, edges: np.ndarray) -> tuple:
+    """Split host B into column panels in ONE pass.
+
+    Returns per panel ``(prpt, pcol, pidx)``: CSR row pointers over B's rows
+    restricted to the panel, the (absolute) column ids, and each entry's
+    index into ``b.col``/``b.val`` — the shared substrate of the per-panel
+    degree tables and of the per-execute value gather."""
+    col = np.asarray(b.col, dtype=np.int64)
+    pid = np.searchsorted(np.asarray(edges, dtype=np.int64), col,
+                          side="right") - 1
+    rows_of = np.repeat(np.arange(b.nrows, dtype=np.int64), np.diff(b.rpt))
+    out = []
+    for p in range(len(edges) - 1):
+        idx = np.flatnonzero(pid == p)
+        prpt = np.zeros(b.nrows + 1, dtype=np.int64)
+        if idx.size:
+            np.cumsum(np.bincount(rows_of[idx], minlength=b.nrows),
+                      out=prpt[1:])
+        out.append((prpt, b.col[idx].astype(np.int32), idx))
+    return tuple(out)
+
+
+def _plan_panels(plan: SpgemmPlan, a: CSR, b: CSR, n_panels: int,
+                 deg_align: int) -> None:
+    """The single-device panel half of :func:`plan_spgemm`: slice B once,
+    build the per-panel degree and FLOP tables, and size every (bucket ×
+    panel) unit from the plan's sampled compression ratio applied per
+    panel (FLOP partitions exactly over panels, so the panel predictions
+    sum to the row's)."""
+    panels = part_mod.column_panels(b, n_panels, quantize=plan.pop_quant)
+    pslices = _slice_panels(b, panels.edges)
+    dbmax_p, flopr_p = binning_mod.panel_row_tables(
+        a.rpt, a.col, [ps[0] for ps in pslices])
+    structure_p = flopr_p.astype(np.float64) / max(
+        float(plan.compression_ratio), 1e-9)
+    dbrow = dbmax_p.max(axis=0) if dbmax_p.size else np.zeros(0, np.int64)
+    panel_align = (binning_mod.POW2_DEG_ALIGN if plan.pop_quant
+                   else deg_align)
+    buckets = plan.binning.buckets
+    plan.n_panels = n_panels
+    plan.panels = panels
+    plan.panel_deg_b = tuple(
+        binning_mod.round_deg(
+            int(dbrow[bk.rows].max()) if bk.n_rows else 1, panel_align)
+        for bk in buckets)
+    plan._panel_host = pslices
+    plan._panel_flopr = flopr_p
+    plan._panel_b_fp = (int(b.nnz),
+                        int(np.asarray(b.col, dtype=np.int64).sum()))
+    plan._panel_b_structure = (np.array(b.rpt, dtype=np.int64),
+                               np.array(b.col, dtype=np.int32))
+    # each unit runs on its own, so its capacity is its own panel's need
+    pc_mat, _ = predictor_mod.shard_bucket_capacities(
+        plan.binning, plan.structure, plan.flopr, np.array([0, a.nrows]),
+        safety=plan.safety, panel_structure=structure_p,
+        panel_flopr=flopr_p)
+    pc = np.maximum(8, pc_mat[:, 0, :])
+    if plan.pop_quant:
+        pc = np.array([[binning_mod.ceil_pow2(int(c)) for c in row]
+                       for row in pc], dtype=np.int64).reshape(pc.shape)
+    plan.panel_caps = pc.astype(np.int64)
+    # fault-injection hook (core.faults): no-op unless a test armed gather
+    # starvation — an under-sized operand is detected at upload, never
+    # written past
+    plan._panel_caps_dev = tuple(
+        faults_mod.scale_gather_cap(_device_capacity(int(n)))
+        for n in panels.panel_nnz)
 
 
 # --------------------------------------------------------------------------- #
@@ -782,6 +941,72 @@ def _build_local_executor(metas: tuple, nrows: int, cap_out: int,
     return run
 
 
+def _panel_meta(bucket: binning_mod.RowBucket, db_p: int, cap: int,
+                lane_budget: int = binning_mod.DEFAULT_LANE_BUDGET) -> tuple:
+    """Bucket execution metadata at the PANEL deg_b bound.  ``block_rows``
+    re-fits the narrower ``deg_a·db_p`` width as the JAX package does, so
+    the executor keys match (the port's kernels ignore it).  Route, tile
+    and span stay as planned: a panel's product columns are a subset of
+    the row's, so the planned column window still covers them."""
+    blk = binning_mod._pick_block_rows(bucket.deg_a * db_p, lane_budget,
+                                       binning_mod.DEFAULT_MAX_BLOCK_ROWS)
+    if bucket.route == binning_mod.ROUTE_SPA and bucket.tile_n:
+        blk = int(max(1, min(blk, binning_mod.floor_pow2(
+            max(1, lane_budget // bucket.tile_n)))))
+    elif bucket.route == binning_mod.ROUTE_BIN and bucket.tile_n:
+        blk = int(max(1, min(blk, binning_mod.floor_pow2(max(
+            1, lane_budget // (bucket.tile_n * max(1, bucket.n_tiles)))))))
+    return (bucket.deg_a, db_p, blk, bucket.route, bucket.tile_n,
+            bucket.n_tiles, bucket.span, int(cap))
+
+
+def _empty_unit(n_rows: int, cap: int, device) -> SpGEMMOut:
+    """The block of a unit whose rows have no products in its panel."""
+    return SpGEMMOut(
+        torch.full((n_rows, cap), COL_SENTINEL, dtype=torch.int32,
+                   device=device),
+        torch.zeros((n_rows, cap), dtype=torch.float32, device=device),
+        torch.zeros(n_rows, dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _build_local_panel_executor(metas: tuple, use_kernel: bool,
+                                masked: bool = False):
+    """Single-device panel executor: one routed pass per (bucket × panel),
+    each against that panel's operand at its panel deg_b bound, its own
+    capacity and its own FLOP bound.  Panels partition the column space,
+    so no merge pass follows: the blocks ARE the output
+    (:class:`PanelSpgemmOut`).  A unit whose rows have no products in its
+    panel (FLOP bound 0) launches nothing and yields an empty block.
+    ``masked`` (``pop_quant``) cuts each block to its table's real rows."""
+
+    def run(ad, bps, tables, bounds, valid):
+        rownnz = [torch.diff(bp.rpt) for bp in bps]
+        cols, vals, nnzs = [], [], []
+        overflow = torch.zeros((), dtype=torch.int32, device=ad.device)
+        for pmetas, rows, pbounds, n_valid in zip(metas, tables, bounds,
+                                                  valid):
+            bc, bv, bn = [], [], []
+            for bp, rnb, meta, bound in zip(bps, rownnz, pmetas, pbounds):
+                if bound:
+                    out = _run_bucket(ad, bp, rows, meta, use_kernel, bound,
+                                      rnb)
+                else:
+                    out = _empty_unit(rows.shape[0], meta[-1], ad.device)
+                if masked:
+                    out = _real_rows(out, n_valid, meta[-1])
+                bc.append(out.col)
+                bv.append(out.val)
+                bn.append(out.row_nnz)
+                overflow = overflow + out.overflow
+            cols.append(tuple(bc))
+            vals.append(tuple(bv))
+            nnzs.append(tuple(bn))
+        return PanelSpgemmOut(tuple(cols), tuple(vals), tuple(nnzs), overflow)
+
+    return run
+
+
 def _build_bucket_executor(meta: tuple, use_kernel: bool):
     """One bucket's standalone executor — the re-planning loop's unit of
     re-execution (build-counted like the full executors)."""
@@ -791,6 +1016,95 @@ def _build_bucket_executor(meta: tuple, use_kernel: bool):
                            torch.diff(bd.rpt))
 
     return run
+
+
+def _panel_operands_local(plan: SpgemmPlan, b: CSR) -> list:
+    """Per-panel device CSRs at the plan's padded panel capacities.
+
+    The structure (row pointers, padded columns, each entry's index into
+    ``b.val``) is uploaded ONCE per plan (``_panel_dev``); each execute
+    uploads ``b``'s values once and gathers every panel's on the device —
+    a revalued serving pair reuses the executors and the index uploads."""
+    dev = plan.device
+    if plan._panel_dev is None:
+        structs = []
+        for p, ((prpt, pcol, pidx), cap) in enumerate(
+                zip(plan._panel_host, plan._panel_caps_dev)):
+            if pcol.size > cap:
+                raise CapacityExhaustedError(
+                    f"panel {p} operand capacity {cap} cannot hold its "
+                    f"{pcol.size} entries", panel=p,
+                    observed=int(pcol.size), planned=int(cap),
+                    plan_key=_plan_key_id(plan))
+            col = np.full(cap, COL_SENTINEL, dtype=np.int32)
+            col[:pcol.size] = pcol
+            structs.append((
+                torch.from_numpy(prpt.astype(np.int32)).to(dev),
+                torch.from_numpy(col).to(dev),
+                torch.from_numpy(pidx.astype(np.int64)).to(dev)))
+        plan._panel_dev = tuple(structs)
+    bval = torch.from_numpy(np.ascontiguousarray(b.val, dtype=np.float32)
+                            ).to(dev)
+    out = []
+    for (rpt_d, col_d, idx_d), cap in zip(plan._panel_dev,
+                                          plan._panel_caps_dev):
+        val = torch.zeros(cap, dtype=torch.float32, device=dev)
+        val[:idx_d.shape[0]] = bval[idx_d]
+        out.append(CSRDevice(rpt=rpt_d, col=col_d, val=val,
+                             shape=plan.shape_b))
+    return out
+
+
+def _check_panel_operand(plan: SpgemmPlan, m) -> CSR:
+    """Panel plans bake operand B's STRUCTURE into the panel slices, so a
+    same-shape different-structure operand would silently produce a wrong
+    matrix.  Require the host CSR, match its (nnz, col-sum) fingerprint
+    against the planned operand's (the JAX package's check, and its error),
+    then its row pointers and columns exactly: entries moved between rows
+    keep the fingerprint."""
+    plan.validation["fingerprint_checks"] += 1
+    if not isinstance(m, CSR):
+        raise PlanMismatchError(
+            "panel plans bake operand b's structure into the gather "
+            "maps — pass the host CSR operand, not a CSRDevice",
+            operand="b", plan_key=_plan_key_id(plan))
+    fp = plan._panel_b_fp
+    m_fp = (int(m.nnz), int(np.asarray(m.col, dtype=np.int64).sum()))
+    if m.shape != plan.shape_b or m_fp != fp:
+        raise PlanMismatchError(
+            f"operand b shape/structure {m.shape}/nnz={m.nnz} does "
+            f"not match the planned operand ({plan.shape_b}/nnz={fp[0]}) — "
+            "the panel gather map is structure-specific; re-plan for a new "
+            "sparsity pattern", operand="b", observed=list(m_fp),
+            planned=list(fp), plan_key=_plan_key_id(plan))
+    rpt0, col0 = plan._panel_b_structure
+    rpt, col = np.asarray(m.rpt), np.asarray(m.col)
+    if not (np.array_equal(rpt, rpt0) and np.array_equal(col, col0)):
+        k = np.flatnonzero(rpt != rpt0)
+        row = (int(k[0]) - 1 if k.size else int(np.searchsorted(
+            rpt0, np.flatnonzero(col != col0)[0], side="right")) - 1)
+        raise PlanMismatchError(
+            f"operand b has the planned nnz and column sum but not the "
+            f"planned structure (row {row} differs) — the panel gather map "
+            "is structure-specific; re-plan for a new sparsity pattern",
+            operand="b", row=row, plan_key=_plan_key_id(plan))
+    return m
+
+
+def _invoke_executor(run, info: dict, *args):
+    """Every executor dispatch funnels here: the fault-injection hook
+    (``core.faults.check_executor``) fires before the dispatch, and any
+    exception out of the executor — injected or real, a kernel that failed
+    to launch included — surfaces as a typed :class:`ShardFailureError`
+    naming the dispatch unit, chained to its cause.  Typed pipeline errors
+    pass through as they are.  Nothing is retried here."""
+    try:
+        faults_mod.check_executor(info)
+        return run(*args)
+    except SpgemmError:
+        raise
+    except Exception as e:
+        raise ShardFailureError(f"executor failed: {e}", **info) from e
 
 
 def _coerce_one(plan: SpgemmPlan, m, which: str, idx: int) -> CSRDevice:
@@ -849,24 +1163,104 @@ def _exact_capacity(need: int, cap: int) -> int:
     return binning_mod.ceil_pow2(max(8, int(need), int(cap)))
 
 
+def _escalate(plan: SpgemmPlan, units: list, row_nnz: dict, caps,
+              overflow: int, rerun, exact_need, commit,
+              widen=lambda new_caps: None) -> int | None:
+    """The re-planning ladder over a finished wave's units — buckets (ints)
+    or (bucket, panel) pairs — shared by the whole-B and panel paths.
+
+    ``row_nnz[u]`` holds each unit's true per-row counts (host) and
+    ``caps[u]`` its capacity (a list by bucket, or a (bucket, panel)
+    array), updated in place.  Each round bumps only the
+    units whose need passed their capacity (``rerun(u, new_cap, kind)``
+    re-runs one unit and splices it back; ``widen`` sees each group of new
+    capacities first); when the ladder runs out, each unit still short is
+    counted exactly (``exact_need(u)``) and re-run once.  Events and
+    degradations name the unit's bucket, and its panel when it has one.
+    ``commit(caps)`` stores the final capacities.  Returns the overflow
+    left against them, or None when nothing was re-run (the fast path);
+    raises :class:`CapacityExhaustedError` when the policy says so."""
+    policy = plan.retry_policy
+    need = {u: int(row_nnz[u].max(initial=0)) for u in units}
+    panels = bool(units) and isinstance(units[0], tuple)
+    plan.retries = 0
+    plan.retry_events = []             # observability covers the LAST execute
+    plan.degradations = []
+
+    def tag(u) -> dict:
+        return dict(bucket=u[0], panel=u[1]) if panels else dict(bucket=u)
+
+    def exhausted(bad, dropped):
+        what = "bucket×panel units" if panels else "buckets"
+        ctx = dict(buckets=[tag(u)["bucket"] for u in bad],
+                   observed=int(dropped), plan_key=_plan_key_id(plan))
+        if not panels:
+            ctx["planned"] = [int(caps[u]) for u in bad]
+        raise CapacityExhaustedError(
+            f"retry escalation exhausted with {int(dropped)} entries still "
+            f"dropped ({what} {bad})", **ctx)
+
+    changed = False
+    for attempt in range(1, policy.rounds + 1):
+        bumps = []
+        for u in units:
+            if need[u] <= caps[u]:
+                continue
+            new_cap = policy.clamp(
+                int(caps[u]), _bumped_capacity(int(caps[u]), need[u],
+                                               policy.growth, attempt))
+            if new_cap > caps[u]:      # ceiling-clamped units wait for
+                bumps.append((u, new_cap))   # the exact fallback instead
+        if not bumps:
+            break
+        plan.retries = attempt
+        changed = True
+        widen([c for _, c in bumps])
+        for u, new_cap in bumps:
+            rerun(u, new_cap, "bucket-retry")
+            plan.retry_events.append(dict(
+                round=attempt, **tag(u), old_cap=int(caps[u]),
+                new_cap=new_cap, need=need[u]))
+            caps[u] = new_cap
+    # ladder exhausted (no rounds left, or every bump ceiling-clamped):
+    # escalate ONCE to an exact symbolic count of the offending units
+    over = [u for u in units if need[u] > caps[u]]
+    if over and policy.exact_fallback:
+        changed = True
+        exact = []
+        for u in over:
+            n_ex = exact_need(u)
+            exact.append((u, n_ex, _exact_capacity(n_ex, int(caps[u]) + 1)))
+        widen([c for _, _, c in exact])
+        for u, n_ex, new_cap in exact:
+            rerun(u, new_cap, "exact-fallback")
+            plan.degradations.append(dict(
+                kind="exact_symbolic", **tag(u), old_cap=int(caps[u]),
+                new_cap=int(new_cap), need=int(n_ex)))
+            caps[u] = new_cap
+    if not changed:
+        if over and policy.on_exhausted == "raise":
+            exhausted(over, overflow)
+        return None                    # fast path: nothing overflowed
+    # the overflow left against the bumped plan
+    left = sum(int(np.maximum(row_nnz[u] - caps[u], 0).sum()) for u in units)
+    commit(caps)
+    if left and policy.on_exhausted == "raise":
+        exhausted([u for u in units if need[u] > caps[u]], left)
+    return left
+
+
 def _replan_local(plan: SpgemmPlan, ad, bd, out: SpGEMMOut,
                   cache: PlanCache) -> SpGEMMOut:
     """The re-planning loop over a finished wave, on the device.  The true
     ``row_nnz`` is read back once (the fast path's only cost); each round
     widens the output once, to its widest new capacity, and each re-run
     bucket's real rows are written into it in place."""
-    policy = plan.retry_policy
     buckets = plan.binning.buckets
-    caps = list(plan.alloc.bucket_capacities)
     n = out.row_nnz.cpu().numpy().astype(np.int64)
-    need_of = [int(n[bk.rows].max()) if bk.n_rows else 0 for bk in buckets]
     tables = plan.device_args()
     bounds = plan.flop_bounds()
     col, val = out.col, out.val
-    spliced = False
-    plan.retries = 0
-    plan.retry_events = []             # observability covers the LAST execute
-    plan.degradations = []
 
     def widen(new_caps) -> None:
         nonlocal col, val
@@ -881,7 +1275,7 @@ def _replan_local(plan: SpgemmPlan, ad, bd, out: SpGEMMOut,
             grown[:, :val.shape[1]] = val
             val = grown
 
-    def rerun(i, new_cap) -> None:
+    def rerun(i, new_cap, unit) -> None:
         bk = buckets[i]
         meta = _bucket_meta(bk, new_cap)
         pop = int(tables[i].shape[0])
@@ -889,88 +1283,128 @@ def _replan_local(plan: SpgemmPlan, ad, bd, out: SpGEMMOut,
             ("bucket-retry", plan.shape_a, plan.shape_b, plan.cap_a,
              plan.cap_b, plan.use_kernel, meta, pop),
             lambda m=meta: _build_bucket_executor(m, plan.use_kernel))
-        c2, v2, _, _ = run(ad, bd, tables[i], bounds[i])
+        c2, v2, _, _ = _invoke_executor(run, dict(unit=unit, bucket=i),
+                                        ad, bd, tables[i], bounds[i])
         rows = tables[i][:bk.n_rows].long()
         col[rows, :new_cap] = c2[:bk.n_rows]
         val[rows, :new_cap] = v2[:bk.n_rows]
 
-    for attempt in range(1, policy.rounds + 1):
-        bumps = []
-        for i, bk in enumerate(buckets):
-            if not bk.n_rows or need_of[i] <= caps[i]:
-                continue
-            new_cap = policy.clamp(
-                caps[i], _bumped_capacity(caps[i], need_of[i], policy.growth,
-                                          attempt))
-            if new_cap > caps[i]:      # ceiling-clamped buckets wait for
-                bumps.append((i, new_cap))   # the exact fallback instead
-        if not bumps:
-            break
-        plan.retries = attempt
-        spliced = True
-        widen([c for _, c in bumps])
-        for i, new_cap in bumps:
-            rerun(i, new_cap)
-            plan.retry_events.append(dict(
-                round=attempt, bucket=i, old_cap=caps[i], new_cap=new_cap,
-                need=need_of[i]))
-            caps[i] = new_cap
-    # ladder exhausted (no rounds left, or every bump ceiling-clamped):
-    # escalate ONCE to an exact symbolic count of the offending buckets
-    over = [i for i, bk in enumerate(buckets)
-            if bk.n_rows and need_of[i] > caps[i]]
-    if over and policy.exact_fallback:
-        spliced = True
-        exact = []
-        for i in over:
-            bk = buckets[i]
-            counts = predictor_mod.exact_row_counts(
-                ad, bd, bk.rows, max_deg_a=bk.deg_a, max_deg_b=bk.deg_b,
-                route=bk.route, span=bk.span, use_kernel=plan.use_kernel,
-                row_flop=plan.flopr[bk.rows])
-            need = int(counts.max(initial=1))
-            exact.append((i, need, _exact_capacity(need, caps[i] + 1)))
-        widen([c for _, _, c in exact])
-        for i, need, new_cap in exact:
-            rerun(i, new_cap)
-            plan.degradations.append(dict(
-                kind="exact_symbolic", bucket=i, old_cap=int(caps[i]),
-                new_cap=int(new_cap), need=int(need)))
-            caps[i] = new_cap
-    if not spliced:
-        if over and policy.on_exhausted == "raise":
-            raise CapacityExhaustedError(
-                f"retry escalation exhausted with {int(out.overflow)} "
-                f"entries still dropped (buckets {over})", buckets=over,
-                observed=int(out.overflow),
-                planned=[int(caps[i]) for i in over],
-                plan_key=_plan_key_id(plan))
-        return out                     # fast path: nothing overflowed
-    # final capacities + overflow recomputed against the bumped plan
-    capv = np.zeros(n.shape[0], dtype=np.int64)
-    for bk, cap in zip(buckets, caps):
-        capv[bk.rows] = cap
-    overflow = int(np.maximum(n - capv, 0).sum())
-    plan.alloc = predictor_mod.BinnedAllocationPlan(
-        bucket_capacities=tuple(caps), row_capacity=max(caps),
-        total_capacity=sum(bk.n_rows * c for bk, c in zip(buckets, caps)),
-        safety=plan.alloc.safety)
-    if plan._template is not None:
-        plan._template.grow_caps(caps)   # the family learns from the miss
-    if overflow and policy.on_exhausted == "raise":
-        bad = [i for i, bk in enumerate(buckets)
-               if bk.n_rows and need_of[i] > caps[i]]
-        raise CapacityExhaustedError(
-            f"retry escalation exhausted with {overflow} entries still "
-            f"dropped (buckets {bad})", buckets=bad, observed=int(overflow),
-            planned=[int(caps[i]) for i in bad], plan_key=_plan_key_id(plan))
+    def exact_need(i) -> int:
+        bk = buckets[i]
+        return int(predictor_mod.exact_row_counts(
+            ad, bd, bk.rows, max_deg_a=bk.deg_a, max_deg_b=bk.deg_b,
+            route=bk.route, span=bk.span, use_kernel=plan.use_kernel,
+            row_flop=plan.flopr[bk.rows]).max(initial=1))
+
+    def commit(caps) -> None:
+        plan.alloc = predictor_mod.BinnedAllocationPlan(
+            bucket_capacities=tuple(caps), row_capacity=max(caps),
+            total_capacity=sum(bk.n_rows * c for bk, c in zip(buckets,
+                                                             caps)),
+            safety=plan.alloc.safety)
+        if plan._template is not None:
+            plan._template.grow_caps(caps)   # the family learns from the miss
+
+    overflow = _escalate(
+        plan, [i for i, bk in enumerate(buckets) if bk.n_rows],
+        {i: n[bk.rows] for i, bk in enumerate(buckets)},
+        list(plan.alloc.bucket_capacities), int(out.overflow),
+        rerun, exact_need, commit, widen)
+    if overflow is None:
+        return out
     return SpGEMMOut(col, val, out.row_nnz,
                      torch.tensor(overflow, dtype=torch.int32,
                                   device=col.device))
 
 
-def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None
-            ) -> SpGEMMOut:
+def _replan_local_panels(plan: SpgemmPlan, ad, bps, out: PanelSpgemmOut,
+                         cache: PlanCache) -> PanelSpgemmOut:
+    """Single-device panel re-planning: the unit is (bucket × panel).  The
+    blocks' true ``row_nnz`` are read back once; an overflow in one panel
+    of one bucket re-runs ONLY that unit, whose new block replaces the old
+    one whole (the other panels' blocks are kept as they are).  The exact
+    fallback counts each offending unit's rows against its panel operand
+    (kernel 2 or 4 in per-row count mode on the card)."""
+    buckets = plan.binning.buckets
+    npan = plan.n_panels
+    keys = [(i, p) for i in range(len(buckets)) for p in range(npan)]
+    flat = [out.row_nnz[i][p] for i, p in keys]
+    host = dict(zip(keys, np.split(
+        torch.cat(flat).cpu().numpy().astype(np.int64),
+        np.cumsum([n.shape[0] for n in flat])[:-1]))) if flat else {}
+    cols = [list(bc) for bc in out.cols]
+    vals = [list(bv) for bv in out.vals]
+    tables = plan.device_args()
+    bounds = plan.panel_flop_bounds()
+
+    def rerun(u, new_cap, unit):
+        i, p = u
+        bk = buckets[i]
+        meta = _panel_meta(bk, plan.panel_deg_b[i], new_cap)
+        pop = int(tables[i].shape[0])
+        run = cache.executor(
+            ("bucket-retry-panel", plan.shape_a, plan.shape_b,
+             plan.cap_a, plan._panel_caps_dev[p], plan.use_kernel, meta,
+             pop),
+            lambda m=meta: _build_bucket_executor(m, plan.use_kernel))
+        c2, v2, _, _ = _invoke_executor(
+            run, dict(unit=unit, bucket=i, panel=p), ad, bps[p], tables[i],
+            bounds[i][p])
+        cols[i][p] = c2[:bk.n_rows]
+        vals[i][p] = v2[:bk.n_rows]
+
+    def exact_need(u) -> int:
+        i, p = u
+        bk = buckets[i]
+        return int(predictor_mod.exact_row_counts(
+            ad, bps[p], bk.rows, max_deg_a=bk.deg_a,
+            max_deg_b=plan.panel_deg_b[i], route=bk.route, span=bk.span,
+            use_kernel=plan.use_kernel,
+            row_flop=plan._panel_flopr[p][bk.rows]).max(initial=1))
+
+    def commit(caps) -> None:
+        plan.panel_caps = caps
+
+    overflow = _escalate(
+        plan, [(i, p) for i, bk in enumerate(buckets) if bk.n_rows
+               for p in range(npan)],
+        host, np.asarray(plan.panel_caps, dtype=np.int64).copy(),
+        int(out.overflow), rerun, exact_need, commit)
+    if overflow is None:
+        return out
+    return PanelSpgemmOut(tuple(tuple(bc) for bc in cols),
+                          tuple(tuple(bv) for bv in vals), out.row_nnz,
+                          torch.tensor(overflow, dtype=torch.int32,
+                                       device=ad.device))
+
+
+def _execute_panels(plan: SpgemmPlan, a, b, cache: PlanCache
+                    ) -> PanelSpgemmOut:
+    """The panel branch of :func:`execute`."""
+    # the structure check is an O(nnz) host pass — the PLANNED operand
+    # (the common serving identity) skips it
+    planned = (plan._planned_pair[0] if plan._planned_pair is not None
+               else (None, None))
+    if b is not planned[1]:
+        b = _check_panel_operand(plan, b)
+    ad = _coerce_one(plan, a, "a", 0)
+    metas = tuple(
+        tuple(_panel_meta(bk, plan.panel_deg_b[i],
+                          int(plan.panel_caps[i, p]))
+              for p in range(plan.n_panels))
+        for i, bk in enumerate(plan.binning.buckets))
+    run = cache.executor(plan.key, lambda: _build_local_panel_executor(
+        metas, plan.use_kernel, masked=plan.pop_quant))
+    bps = _panel_operands_local(plan, b)
+    out = _invoke_executor(run, dict(unit="local-panels"), ad, bps,
+                           plan.device_args(), plan.panel_flop_bounds(),
+                           plan.valid_rows())
+    if plan.retry_policy is not None:
+        out = _replan_local_panels(plan, ad, bps, out, cache)
+    return out
+
+
+def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None):
     """Run the planned numeric phase on the plan's device.
 
     ``a``/``b`` may be host ``CSR`` (converted at the plan's padded
@@ -982,8 +1416,15 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None
     re-planning loop: a bucket whose true ``row_nnz`` passed its capacity is
     re-executed at a bumped (pow2-rounded) capacity and spliced back — the
     plan's capacities are updated in place, so a second :func:`execute` of
-    the same plan allocates right the first time."""
+    the same plan allocates right the first time.
+
+    Panel plans (``n_panels``) return a :class:`PanelSpgemmOut`: ``b`` must
+    then be the host ``CSR`` of the planned structure (the panel slices
+    bake it in; checked by structure unless it is the planned object),
+    and re-planning runs per (bucket × panel) unit."""
     cache = cache if cache is not None else _DEFAULT_CACHE
+    if plan.n_panels:
+        return _execute_panels(plan, a, b, cache)
     ad = _coerce_one(plan, a, "a", 0)
     bd = _coerce_one(plan, b, "b", 1)
     metas = tuple(_bucket_meta(bk, cap)
@@ -993,16 +1434,74 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None
         plan.key, lambda: _build_local_executor(
             metas, plan.shape_a[0], plan.alloc.row_capacity,
             plan.use_kernel, masked=plan.pop_quant))
-    out = run(ad, bd, plan.device_args(), plan.flop_bounds(),
-              plan.valid_rows())
+    out = _invoke_executor(run, dict(unit="local"), ad, bd,
+                           plan.device_args(), plan.flop_bounds(),
+                           plan.valid_rows())
     if plan.retry_policy is not None:
         out = _replan_local(plan, ad, bd, out, cache)
     return out
 
 
-def reassemble(plan: SpgemmPlan, out: SpGEMMOut, ncols: int | None = None, *,
+def _reassemble_panels(plan: SpgemmPlan, out: PanelSpgemmOut, nrows: int,
+                       ncols: int) -> CSR:
+    """One host CSR from the (bucket × panel) blocks, without a sort.
+
+    A row's entries are its bucket's panel blocks read in panel order, each
+    block's first ``min(row_nnz, cap)`` slots (columns ascending inside a
+    panel, panels ascending): the JAX package's stable ``from_coo`` order.
+    All of it is built on the device, with no read-back per unit: an
+    ``(M, n_panels)`` table of clamped counts gives the row pointers (read
+    back once), and each (row, panel) run's offset in the flattened blocks
+    against its offset in the output gives one gather that compacts every
+    block."""
+    buckets = plan.binning.buckets
+    dev = plan.device
+    tables = plan.device_args()
+    keys = [(i, p) for i, bk in enumerate(buckets) if bk.n_rows
+            for p in range(plan.n_panels)]
+    kept_n = torch.zeros((nrows, plan.n_panels), dtype=torch.int64,
+                         device=dev)
+    src = torch.zeros_like(kept_n)     # each block row's flat offset
+    off = 0
+    for i, p in keys:
+        c = out.cols[i][p]
+        rows = tables[i][:buckets[i].n_rows].long()
+        kept_n[rows, p] = torch.clamp(out.row_nnz[i][p].long(),
+                                      max=int(plan.panel_caps[i, p]))
+        src[rows, p] = off + c.shape[1] * torch.arange(
+            c.shape[0], dtype=torch.int64, device=dev)
+        off += c.numel()
+    rpt_d = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(kept_n.sum(dim=1), dim=0, out=rpt_d[1:])
+    rpt = rpt_d.cpu().numpy()
+    total = int(rpt[-1])
+    col = torch.empty(0, dtype=torch.int32, device=dev)
+    val = torch.empty(0, dtype=torch.float32, device=dev)
+    if keys:
+        # the runs tile [0, total) in (row, panel) order: output slot d
+        # reads flat slot d + (src - start) of the run it falls in
+        start = rpt_d[:-1, None] + torch.cumsum(kept_n, dim=1) - kept_n
+        idx = torch.arange(total, dtype=torch.int64, device=dev) \
+            + torch.repeat_interleave((src - start).reshape(-1),
+                                      kept_n.reshape(-1), output_size=total)
+        flat_c = torch.cat([out.cols[i][p].reshape(-1) for i, p in keys])
+        col = flat_c[idx]
+        val = torch.cat([out.vals[i][p].reshape(-1) for i, p in keys])[idx]
+        kept, holes = torch.stack([(flat_c != COL_SENTINEL).sum(),
+                                   (col == COL_SENTINEL).sum()]).tolist()
+        if kept != total or holes:
+            raise RuntimeError(
+                f"reassemble: {kept} entries kept in the panel blocks but "
+                f"their row counts clamped to the plan's capacities sum to "
+                f"{total}")
+    return CSR(rpt=rpt, col=col.cpu().numpy(), val=val.cpu().numpy(),
+               shape=(nrows, ncols))
+
+
+def reassemble(plan: SpgemmPlan, out, ncols: int | None = None, *,
                on_overflow: str = "raise") -> CSR:
-    """Stitch an :func:`execute` result back into one host CSR.
+    """Stitch an :func:`execute` result (a ``SpGEMMOut``, or a panel plan's
+    ``PanelSpgemmOut``) back into one host CSR.
 
     Overflow (entries dropped for capacity) RAISES by default instead of
     silently truncating the result — pass ``on_overflow="ignore"`` to get
@@ -1019,6 +1518,8 @@ def reassemble(plan: SpgemmPlan, out: SpGEMMOut, ncols: int | None = None, *,
             f"SpGEMM overflow: {overflow} entries dropped; re-plan with a "
             "higher safety factor or pass on_overflow='ignore'",
             observed=overflow)
+    if isinstance(out, PanelSpgemmOut):
+        return _reassemble_panels(plan, out, nrows, ncols)
     # each row keeps its first min(row_nnz, its bucket's capacity) slots,
     # columns ascending (every route writes them so), so the kept entries,
     # read row by row, are already in CSR order: the row pointers are the

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import faults as faults_mod
 from .binning import ROUTE_BIN, ROUTE_ESC, ROUTE_SPA, BinningPlan, ceil_pow2
 from .csr import COL_SENTINEL, CSRDevice, expand_products, row_chunks
 from .flop import flop_per_row
@@ -489,6 +490,9 @@ class AllocationPlan:
         cap = min(cap, max(ub, align))
         if pow2:
             cap = ceil_pow2(cap)
+        # fault-injection hook (core.faults): a no-op unless a test armed
+        # capacity starvation — every planned output capacity funnels here
+        cap = faults_mod.scale_capacity(cap)
         total = int(per_row.sum())
         total = max(align, ((total + align - 1) // align) * align)
         return AllocationPlan(cap, total, safety)
@@ -523,3 +527,59 @@ class BinnedAllocationPlan:
             bucket_capacities=tuple(caps),
             row_capacity=max(caps) if caps else align,
             total_capacity=total, safety=safety)
+
+
+def shard_bucket_capacities(plan: BinningPlan, pred_structure, flopr,
+                            bounds, safety: float = 1.2, align: int = 8,
+                            pow2: bool = False, panel_structure=None,
+                            panel_flopr=None
+                            ) -> tuple[np.ndarray, tuple[int, ...]]:
+    """Per-(bucket, shard) predicted row capacities.
+
+    Returns ``(caps, static_caps)``: ``caps[i, s]`` is the capacity bucket
+    ``i`` needs for the rows it owns inside the contiguous row range ``s``
+    of ``bounds`` (0 where the intersection is empty), sized by the same
+    ``min(ceil(pred·safety), flopr)`` rule as :class:`AllocationPlan` but
+    restricted to that intersection; ``static_caps[i]`` is the max over
+    shards (pow2-rounded under ``pow2``).  A single-device plan passes
+    ``bounds=[0, M]``.
+
+    **Column-partitioned B** (DESIGN.md §8): pass ``panel_structure`` /
+    ``panel_flopr`` — each ``(n_panels, nrows)``, the per-panel predicted
+    structure and per-panel FLOP from ``binning.panel_row_tables`` — and the
+    capacity unit becomes (bucket, shard, panel): ``caps[i, s, p]`` sizes
+    bucket ``i``'s output slots for shard ``s``'s rows restricted to panel
+    ``p``, and ``static_caps[i]`` is the max over (shard, panel).
+    """
+    from .partition import shard_slices
+    bounds = np.asarray(bounds)
+    num_shards = bounds.size - 1
+    # the replicated-B case is the 1-panel case: one sizing rule for both
+    if panel_structure is not None:
+        pps = np.asarray(panel_structure, dtype=np.float64)
+        pfl = np.asarray(panel_flopr, dtype=np.float64)
+    else:
+        pps = np.asarray(pred_structure, dtype=np.float64)[None]
+        pfl = np.asarray(flopr, dtype=np.float64)[None]
+    n_panels = pps.shape[0]
+    caps = np.zeros((len(plan.buckets), num_shards, n_panels),
+                    dtype=np.int64)
+    for i, bucket in enumerate(plan.buckets):
+        lo, hi = shard_slices(bucket.rows, bounds)
+        for s in range(num_shards):
+            ids = bucket.rows[lo[s]:hi[s]]
+            if not ids.size:
+                continue
+            for p in range(n_panels):
+                caps[i, s, p] = AllocationPlan.from_prediction(
+                    pps[p, ids], pfl[p, ids], safety=safety,
+                    align=align).row_capacity
+    if panel_structure is None:
+        caps = caps[:, :, 0]
+    if pow2:
+        static_caps = tuple(ceil_pow2(int(max(align, caps[i].max())))
+                            for i in range(len(plan.buckets)))
+    else:
+        static_caps = tuple(int(max(align, caps[i].max()))
+                            for i in range(len(plan.buckets)))
+    return caps, static_caps

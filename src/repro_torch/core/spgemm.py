@@ -40,6 +40,23 @@ class SpGEMMOut(NamedTuple):
     overflow: torch.Tensor  # scalar int32 — total entries dropped for capacity
 
 
+class PanelSpgemmOut(NamedTuple):
+    """Column-partitioned numeric-phase output (DESIGN.md §8).
+
+    One compacted block per (bucket, panel): ``cols[i][p]`` is
+    ``(bucket_rows, cap[i, p])`` int32 (COL_SENTINEL padded, ascending
+    ABSOLUTE column ids inside panel ``p``'s range), its rows the bucket's
+    real rows in table order.  Panels partition the column space, so a
+    row's full output is its panel blocks read in panel order — no
+    cross-panel merge pass is needed."""
+
+    cols: tuple             # per bucket: tuple per panel (rows, cap_ip) int32
+    vals: tuple             # per bucket: tuple per panel (rows, cap_ip) float32
+    row_nnz: tuple          # per bucket: tuple per panel (rows,) int32 — true
+                            # per-panel nnz (may exceed the panel capacity)
+    overflow: torch.Tensor  # scalar int32 — entries dropped across all blocks
+
+
 def gather_products(a: CSRDevice, b: CSRDevice, rows: torch.Tensor,
                     max_deg_a: int, max_deg_b: int,
                     rownnz_b: torch.Tensor | None = None):

@@ -1222,3 +1222,133 @@ def test_retry_splices_on_the_card_and_widens_once_a_round(card):
     assert out.col.is_cuda and out.val.is_cuda
     assert out.col.shape[1] == max(e["new_cap"] for e in p.retry_events) \
         == p.alloc.row_capacity
+
+
+def _panel_plan(card, route, n_panels, **kw):
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=71), 72)
+    sample = np.random.default_rng(7).integers(0, m.nrows, 200)
+    p = plan.plan_spgemm(m, m, route=route, n_panels=n_panels,
+                         sample_rows=sample, use_kernel=True, device=card,
+                         **kw)
+    return m, sample, p
+
+
+def _numeric_launches():
+    return (num_k.spgemm_numeric.launches + acc_k.spa_numeric.launches
+            + acc_k.bin_numeric.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin", "auto"])
+@pytest.mark.parametrize("n_panels", [2, 4])
+def test_numeric_kernels_on_panel_operands(card, route, n_panels):
+    """Kernels 3, 5 and 6 on every (bucket × panel) unit, against that
+    panel's operand (its own row lengths), at the panel deg_b bound, the
+    unit's own FLOP bound and the bucket's planned SPA/BIN window: equal to
+    the plain numeric phase on the same operand.  A unit with no products
+    (FLOP bound 0) launches cleanly too."""
+    m, _, p = _panel_plan(card, route, n_panels)
+    ad = p.to_device(m, "a")
+    bps = plan._panel_operands_local(p, m)
+    bounds = p.panel_flop_bounds()
+    for i, (bk, table) in enumerate(zip(p.binning.buckets,
+                                        p.device_args())):
+        for q, bp in enumerate(bps):
+            assert bounds[i][q] <= p.flop_bounds()[i]
+            meta = plan._panel_meta(bk, p.panel_deg_b[i],
+                                    int(p.panel_caps[i, q]))
+            kw = dict(row_capacity=meta[-1], deg_a=meta[0], deg_b=meta[1],
+                      route=bk.route, tile_n=bk.tile_n, n_tiles=bk.n_tiles,
+                      span=bk.span)
+            got = spgemm.routed_spgemm_rows(
+                ad, bp, table, use_kernel=True, max_row_flop=bounds[i][q],
+                rownnz_b=torch.diff(bp.rpt), **kw)
+            want = spgemm.routed_spgemm_rows(ad, bp, table, **kw)
+            _assert_numeric_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+def test_count_modes_on_panel_operands(card, route):
+    """Kernels 2 and 4 in per-row count mode over every (bucket × panel)
+    unit, at the panel's deg_b bound and each row's FLOP in that panel:
+    one launch each, equal to the plain counts and to the host's exact
+    structure of A times the panel."""
+    m, _, p = _panel_plan(card, route, 3)
+    ad = p.to_device(m, "a")
+    bps = plan._panel_operands_local(p, m)
+    for q, ((prpt, pcol, _), bp) in enumerate(zip(p._panel_host, bps)):
+        panel = CSR(rpt=prpt, col=pcol,
+                    val=np.ones(pcol.size, dtype=np.float32), shape=m.shape)
+        exact, _ = oracle.exact_structure(m, panel)
+        for i, bk in enumerate(p.binning.buckets):
+            kw = dict(max_deg_a=bk.deg_a, max_deg_b=p.panel_deg_b[i],
+                      route=bk.route, span=bk.span)
+            fn = (sym_k.exact_row_counts_esc if bk.route == "esc"
+                  else acc_k.exact_row_counts_bitmask)
+            before = fn.launches
+            got = predictor.exact_row_counts(
+                ad, bp, bk.rows, use_kernel=True,
+                row_flop=p._panel_flopr[q][bk.rows], **kw)
+            assert fn.launches == before + 1
+            np.testing.assert_array_equal(
+                got, predictor.exact_row_counts(ad, bp, bk.rows, **kw))
+            np.testing.assert_array_equal(got, exact[bk.rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin", "auto"])
+def test_panel_plan_matches_the_unpanelled_plan_on_the_card(card, route):
+    """plan → execute → reassemble with 2 and 4 panels on the card: one
+    numeric launch a unit with products, the blocks on the card, and the
+    same CSR as the unpanelled plan's (rows and columns exactly)."""
+    m, sample, whole = _panel_plan(card, route, 0, safety=4.0)
+    want = plan.reassemble(whole, plan.execute(whole, m, m,
+                                               cache=plan.PlanCache()))
+    for n_panels in (2, 4):
+        p = plan.plan_spgemm(m, m, route=route, n_panels=n_panels,
+                             sample_rows=sample, use_kernel=True, device=card,
+                             safety=4.0)
+        units = sum(1 for i, bk in enumerate(p.binning.buckets)
+                    for q in range(n_panels)
+                    if bk.n_rows and p.panel_flop_bounds()[i][q])
+        before = _numeric_launches()
+        out = plan.execute(p, m, m, cache=plan.PlanCache())
+        assert _numeric_launches() - before == units
+        assert out.cols[0][0].is_cuda and int(out.overflow) == 0
+        c = plan.reassemble(p, out)
+        np.testing.assert_array_equal(c.rpt, want.rpt)
+        np.testing.assert_array_equal(c.col, want.col)
+        np.testing.assert_allclose(c.val, want.val, rtol=VAL_RTOL, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+@pytest.mark.parametrize("policy", ["ladder", "fallback"])
+def test_retried_panel_plan_matches_the_plain_path(card, route, policy):
+    """A panel plan at the 8-slot floor re-planned per (bucket × panel) on
+    the card against the same plan run plain on the host: events,
+    degradations, capacities and every block."""
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=61), 62)
+    sample = np.random.default_rng(6).integers(0, m.nrows, 200)
+    outs, plans = [], []
+    for dev, use_kernel in ((card, True), ("cpu", False)):
+        p = plan.plan_spgemm(
+            m, m, route=route, safety=0.0, sample_rows=sample, n_panels=3,
+            use_kernel=use_kernel, device=dev,
+            retry_policy=plan.RetryPolicy(rounds=int(policy == "ladder")))
+        outs.append(plan.execute(p, m, m, cache=plan.PlanCache()))
+        plans.append(p)
+    assert plans[0].retry_events == plans[1].retry_events
+    assert plans[0].degradations == plans[1].degradations
+    assert (plans[0].retry_events if policy == "ladder"
+            else plans[0].degradations)
+    np.testing.assert_array_equal(plans[0].panel_caps, plans[1].panel_caps)
+    got, want = outs
+    assert int(got.overflow) == int(want.overflow) == 0
+    for i in range(len(plans[0].binning.buckets)):
+        for q in range(3):
+            _assert_numeric_equal(
+                (got.cols[i][q].cpu(), got.vals[i][q].cpu(),
+                 got.row_nnz[i][q].cpu(), 0),
+                (want.cols[i][q], want.vals[i][q], want.row_nnz[i][q], 0))

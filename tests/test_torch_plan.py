@@ -135,8 +135,7 @@ def test_overflow_is_counted_like_jax_and_refused_by_reassemble():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("num_shards", 4), ("n_panels", 2),
-    ("dispatch_budget", object())])
+    ("mesh", object()), ("num_shards", 4), ("dispatch_budget", object())])
 def test_unported_options_are_refused(option, value):
     tm = _host(_MINI["mini_er"])
     with pytest.raises(PlanMismatchError, match="not ported yet"):
