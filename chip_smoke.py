@@ -58,6 +58,20 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        (held to (c)'s CSR), a starved panel operand
        (``CapacityExhaustedError`` naming the panel) and a failed executor
        (``ShardFailureError`` from ``InjectedFault``), wave and panel wave;
+   (j) measured route profiles, the straggler watchdog and the service:
+       ``profiles.microbenchmark()`` times every route on the card's
+       kernels (3, 5, 6 and the count modes 2c, 4c), round-trips through
+       a file (a host profile is refused); the seven products planned
+       under it, each CSR held to (c)'s (bitwise where no bucket changed
+       route); ``DispatchBudget()`` armed on the seven, whole-B and at 4
+       panels, under the analytic and the measured model, two clean runs
+       each (a trip fails), then an injected delay on each wave kind on
+       ``pl_100k_d4``, ``band_60k_d16`` and ``rmat_80k``: the replay
+       bitwise equal to the clean run, JAX's ledger, one numeric launch a
+       replayed unit; ``SpgemmService(use_kernel=True)`` on (h)'s
+       template families at full size (every result bitwise equal to a
+       direct run; a second pass builds nothing); and the service's
+       chaos classes 1–6 on ``tests/test_service.py``'s small families;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
@@ -95,6 +109,7 @@ no CUDA device it exits 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -138,6 +153,8 @@ TEMPLATE_PASSES = 4
 # (h)'s pad-row member: the first family's shape, banded, its row 0 a hub
 PAD_ROW_SEED = 405
 PAD_ROW_HUB = 2000
+# (j4) serves each template family's members this many times a pass
+SERVICE_COPIES = 2
 
 
 def emit(obj) -> None:
@@ -355,7 +372,9 @@ def main() -> int:
     launches = {path: dict.fromkeys(names, 0)
                 for path in ("predict", "plan_esc", "plan_auto", "replan",
                              "templates", "panels", "global_predict",
-                             "global_bitmask", "global_spgemm", "experiment",
+                             "profiles", "measured_routes", "watchdog",
+                             "service", "global_bitmask", "global_spgemm",
+                             "experiment",
                              "attention")}
 
     def drive(path, fn):
@@ -466,6 +485,7 @@ def main() -> int:
     auto_runs = {}      # matrix -> (rows per route, launch counts) of (c)
     auto_csr = {}       # matrix -> (c)'s reassembled host CSR, for (h), (i)
     auto_secs = {}      # matrix -> (c)'s seconds and peak bytes, for (i)
+    auto_routes = {}    # matrix -> (c)'s bucket routes, for (j)
     b_row_nnz = {}      # matrix -> (b)'s row_nnz
     for name, m in mats:
         # (b) every bucket on ESC: the prediction launches the fused ESC
@@ -566,6 +586,7 @@ def main() -> int:
         if int(outa.overflow) == 0:     # (h) holds its runs to a whole C
             auto_csr[name] = ca
         auto_secs[name] = secs
+        auto_routes[name] = [bk.route for bk in pa.binning.buckets]
         del p, out, pa, outa, ca, ad
         torch.cuda.empty_cache()
 
@@ -1138,6 +1159,348 @@ def main() -> int:
             emit(line)
             torch.cuda.empty_cache()
     emit(dict(phase="panels_checked", max_abs_err=panel_err))
+
+    # ---- (j) measured route profiles, the straggler watchdog with
+    # single-device recovery, and the SpGEMM service.  (j1) times every
+    # route on the card (the numeric kernels 3/5/6 and the count modes
+    # 2c/4c) into a profile; (j2) plans the seven products under it; (j3)
+    # arms DispatchBudget() on them, whole-B and at 4 panels, under the
+    # analytic and the measured model (no clean run may trip), then delays
+    # the wave and holds the replay to the clean run bit for bit; (j4)
+    # serves (h)'s template families at full size, each result bitwise
+    # equal to a direct run; (j5) runs the service's chaos classes on the
+    # small families.  The active profile is cleared on the way out.
+    import tempfile
+    from repro_torch.core import profiles
+    from repro_torch.core.errors import SpgemmError
+    from repro_torch.serve import admission
+    from repro_torch.serve import spgemm_service as svc_mod
+    ready = numeric_kernels + (sym_k.exact_row_counts_esc,
+                               acc_k.exact_row_counts_bitmask)
+
+    def require_launched(path, kinds):
+        for k in kinds:
+            if launches[path][k] <= 0:
+                fail(f"kernel {k} was not launched on main path {path}")
+
+    def routes_of(p):
+        return {r: sum(1 for bk in p.binning.buckets if bk.route == r)
+                for r in binning.ROUTES}
+
+    try:
+        # (j1) the profile, on the card's kernels
+        t = time.perf_counter()
+        prof, counts = drive("profiles", profiles.microbenchmark)
+        secs = time.perf_counter() - t
+        require_launched("profiles", [k.__name__ for k in ready])
+        if prof.device_kind != kind or {c["route"] for c in prof.cells} \
+                != set(binning.ROUTES) or not all(
+                    c["numeric_s"] > 0 and c["symbolic_s"] > 0
+                    for c in prof.cells):
+            fail(f"profile: kind {prof.device_kind!r} or cells {prof.cells}")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "profile.json")
+            profiles.save(prof, path)
+            back = profiles.load(path)
+            if (back is None or back.cells != prof.cells
+                    or profiles.status()["source"] != "measured"):
+                fail(f"profile: save/load round trip {profiles.status()}")
+            host = os.path.join(tmp, "host.json")
+            profiles.save(dataclasses.replace(prof, device_kind="cpu"), host)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if profiles.load(host, activate=False) is not None or not any(
+                        issubclass(w.category, profiles.ProfileLoadWarning)
+                        for w in caught):
+                    fail("profile: a host profile loaded on the card")
+        emit(dict(phase="profile", device_kind=prof.device_kind,
+                  flops=prof.flops, bytes_per_s=prof.bytes_per_s,
+                  cells=list(prof.cells), seconds=secs, round_trip=True,
+                  host_profile_refused=True, launches=counts))
+
+        # (j2) the seven products under the measured model, held to (c);
+        # then each model's plan executed twice in turns (analytic,
+        # measured), the second execute timed: a first execute builds
+        # executors and allocates workspaces
+        def second_execute_s(m, model):
+            profiles.set_active(prof if model == "measured" else None)
+            p = plan.plan_spgemm(m, m, use_kernel=True, device=dev,
+                                 safety=SAFETY)
+            cache = plan.PlanCache()
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                plan.execute(p, m, m, cache=cache)
+                torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        profiles.set_active(prof)
+        measured = {}       # matrix -> bucket routes under the profile
+        for name, m in mats:
+            (p, out, c, secs), counts = drive(
+                "measured_routes", lambda: run_plan(m, "auto"))
+            structure, close, bitwise = csr_matches(c, auto_csr[name])
+            same = [bk.route for bk in p.binning.buckets] == auto_routes[name]
+            if not (structure and close) or int(out.overflow) or (
+                    same and not bitwise):
+                fail(f"measured_routes {name}: CSR != (c)'s auto run "
+                     f"(same routes {same}, val bitwise {bitwise})")
+            measured[name] = [bk.route for bk in p.binning.buckets]
+            measured_buckets = routes_of(p)
+            del p, out, c
+            torch.cuda.empty_cache()
+            again, _ = drive("measured_routes", lambda: {
+                model: second_execute_s(m, model)
+                for model in ("analytic", "measured")})
+            profiles.set_active(prof)
+            torch.cuda.empty_cache()
+            emit(dict(phase="measured_routes", matrix=name,
+                      analytic_buckets={r: auto_routes[name].count(r)
+                                        for r in binning.ROUTES},
+                      measured_buckets=measured_buckets,
+                      changed=sum(x != y for x, y in zip(
+                          measured[name], auto_routes[name])),
+                      analytic_execute_s=auto_secs[name]["execute_s"],
+                      execute_s=secs["execute_s"],
+                      analytic_execute_s_again=again["analytic"],
+                      execute_s_again=again["measured"],
+                      equals_auto_run=True, val_bitwise=bitwise,
+                      launches=counts))
+
+        # (j3) the watchdog: two clean runs of each armed plan, under each
+        # model; then an injected delay on each wave kind
+        def run_armed(m, n_panels, cache, reps):
+            p = plan.plan_spgemm(m, m, use_kernel=True, device=dev,
+                                 safety=SAFETY, n_panels=n_panels,
+                                 dispatch_budget=plan.DispatchBudget())
+            runs = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = plan.execute(p, m, m, cache=cache)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t)
+                if p.recoveries:
+                    fail(f"watchdog: a clean run tripped ({p.recoveries})")
+            return p, out, runs
+
+        for model in ("analytic", "measured"):
+            profiles.set_active(prof if model == "measured" else None)
+            for name, m in mats:
+                for n_panels in (0, 4):
+                    (p, out, runs), counts = drive(
+                        "watchdog", lambda: run_armed(m, n_panels,
+                                                      plan.PlanCache(), 2))
+                    priced = plan._plan_priced_seconds(p)
+                    emit(dict(phase="watchdog", model=model, matrix=name,
+                              n_panels=n_panels, priced_s=priced,
+                              limit_s=p.dispatch_budget.limit(priced),
+                              execute_s=runs, recoveries=0,
+                              launches=counts))
+                    del p, out
+                    torch.cuda.empty_cache()
+        profiles.set_active(None)
+        for name in ("pl_100k_d4", "band_60k_d16", "rmat_80k"):
+            m = dict(mats)[name]
+            for n_panels, unit in ((0, "local"), (4, "local-panels")):
+                cache = CountingCache()
+                (p, out, runs), _ = drive(
+                    "watchdog", lambda: run_armed(m, n_panels, cache, 2))
+                clean = plan.reassemble(p, out)
+                del out
+                mark = len(cache.marks)
+                t = time.perf_counter()
+                with faults.inject(delay_executor={"unit": unit},
+                                   delay_s=60.0):
+                    out, counts = drive("watchdog", lambda: plan.execute(
+                        p, m, m, cache=cache))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                c = plan.reassemble(p, out)
+                structure, close, bitwise = csr_matches(c, clean)
+                units = ([(i, q) for i in range(len(p.binning.buckets))
+                          for q in range(n_panels)] if n_panels
+                         else list(range(len(p.binning.buckets))))
+                want_led = [dict(kind="wave_failed", unit=unit,
+                                 error="StragglerError")] + [
+                    dict(kind="unit", bucket=u[0], panel=u[1], attempts=1)
+                    if n_panels else dict(kind="unit", bucket=u, attempts=1)
+                    for u in units]
+                bounds = (p.panel_flop_bounds() if n_panels
+                          else p.flop_bounds())
+                want_calls = [("bucket-retry-panel" if n_panels
+                               else "bucket-retry",
+                               int(bool(bounds[u[0]][u[1]] if n_panels
+                                        else bounds[u])))
+                              for u in units]
+                calls = cache.calls()[mark:]
+                if not (structure and bitwise) or p.recoveries != want_led \
+                        or calls[1:] != want_calls or faults.armed():
+                    fail(f"watchdog {name} {unit}: replay bitwise "
+                         f"{bitwise}, ledger {p.recoveries}, launches "
+                         f"{calls}")
+                emit(dict(phase="straggler", matrix=name, unit=unit,
+                          units=len(units), clean_execute_s=runs,
+                          execute_s=secs, replay_launches=sum(
+                              n for _, n in calls[1:]),
+                          wave_launches=calls[0][1], val_bitwise=True,
+                          ledger_equal=True, launches=counts))
+                del p, out, c, clean
+                torch.cuda.empty_cache()
+        require_launched("watchdog", ["spgemm_numeric", "spa_numeric",
+                                      "bin_numeric"])
+
+        # (j4) the service under normal traffic: (h)'s two template families
+        # at full size, two copies of each member, then a second pass
+        free = torch.cuda.mem_get_info(dev)[0]
+        cfg = svc_mod.ServiceConfig(use_kernel=True,
+                                    device_budget_bytes=free // 2)
+        service = svc_mod.SpgemmService(cfg)
+        direct_reg, direct_cache = plan.TemplateRegistry(), plan.PlanCache()
+
+        def serve(members):
+            reqs = [(service.submit(mm, mm), mm) for _, mm in members
+                    for _ in range(SERVICE_COPIES)]
+            service.drain()
+            return reqs
+
+        fam_lines = []
+        for fam, gen, seeds in TEMPLATE_FAMILIES:
+            members = [(s, gen(sprand, s)) for s in seeds]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reqs, counts = drive("service", lambda: serve(members))
+            peak = torch.cuda.max_memory_allocated() - base
+            for r, mm in reqs:
+                if r.state != svc_mod.RequestState.DONE:
+                    fail(f"service {fam}: request {r.id} {r.state} "
+                         f"{r.error!r}")
+                pd = plan.plan_spgemm(
+                    mm, mm, safety=cfg.safety, seed=cfg.seed,
+                    pop_quant=cfg.pop_quant, template="auto",
+                    registry=direct_reg, use_kernel=True, device=dev,
+                    retry_policy=cfg.retry_policy)
+                want = plan.reassemble(pd, plan.execute(pd, mm, mm,
+                                                        cache=direct_cache))
+                structure, close, bitwise = csr_matches(r.result, want)
+                if not (structure and bitwise):
+                    fail(f"service {fam}: request {r.id} != its direct run")
+                del pd, want
+            fam_lines.append((fam, members, dict(
+                requests=len(reqs), peak_bytes=peak,
+                estimate_total_bytes=max(r.estimate.total_bytes
+                                         for r, _ in reqs),
+                planned_bytes=max(admission.planned_bytes(r.plan)
+                                  for r, _ in reqs),
+                output_bytes=max(r.plan.shape_a[0] * r.plan.alloc.row_capacity
+                                 * 8 for r, _ in reqs),
+                launches=counts)))
+            for r, _ in reqs:
+                r.result = r.plan = None
+            torch.cuda.empty_cache()
+        traces = service.stats()["plan_cache"]["traces"]
+        again, counts = drive("service", lambda: [
+            r for _, members, _ in fam_lines for r in serve(members)])
+        if service.stats()["plan_cache"]["traces"] != traces or any(
+                r.state != svc_mod.RequestState.DONE for r, _ in again):
+            fail(f"service: the second pass built executors "
+                 f"({service.stats()['plan_cache']})")
+        st = service.stats()
+        for fam, _, line in fam_lines:
+            emit(dict(phase="service", family=fam, **line))
+        emit(dict(phase="service_stats", waves=st["waves"],
+                  batched_requests=st["batched_requests"],
+                  requeues=st["requeues"], terminal=st["terminal"],
+                  latency=st["latency"], plan_cache=st["plan_cache"],
+                  templates=st["templates"], second_pass_builds=0,
+                  second_pass_launches=counts))
+        del service, again, fam_lines
+        torch.cuda.empty_cache()
+        require_launched("service", ["spgemm_numeric", "spa_numeric"])
+
+        # (j5) the service under faults: tests/test_service.py's chaos
+        # classes 1-6 on its five small families (the shard-loss class
+        # needs a mesh, which the port does not plan yet)
+        chaos_fams = [
+            (sprand.erdos_renyi(250, 250, 4, seed=25),
+             sprand.erdos_renyi(250, 250, 3, seed=26)),
+            (sprand.power_law(300, 300, 5, 1.5, seed=21),
+             sprand.power_law(300, 300, 4, 1.6, seed=22)),
+            (sprand.rmat(250, 250, 1250, seed=31),
+             sprand.rmat(250, 250, 1000, seed=32)),
+            (sprand.banded(250, 250, 10, 14, seed=23),
+             sprand.banded(250, 250, 8, 12, seed=24)),
+            (sprand.banded(160, 160, 40, 30, seed=51),
+             sprand.banded(160, 160, 32, 28, seed=52))]
+        oracles = [spgemm_dense_oracle(a, b) for a, b in chaos_fams]
+        nan = sprand.erdos_renyi(50, 50, 3, seed=7)
+        nan.val[nan.val.size // 2] = np.nan
+
+        def chaos():
+            out = {}
+            svc = svc_mod.SpgemmService(svc_mod.ServiceConfig(
+                use_kernel=True, queue_capacity=256, max_batch=4,
+                breaker_threshold=3, breaker_cooldown=0.0))
+            waves = (("capacity", dict(capacity_scale=0.2)),
+                     ("sketch", dict(sketch_scale=0.05)),
+                     ("executor", dict(fail_executor={"unit": "local"})),
+                     ("composed", dict(capacity_scale=0.3,
+                                       sketch_scale=0.5)),
+                     ("control", None))
+            for round_i, (wave, fault) in enumerate(waves):
+                reqs = [(svc.submit(a, b), k) for k, (a, b)
+                        in enumerate(chaos_fams) for _ in range(5)]
+                reqs.append((svc.submit(nan, nan), None))
+                with faults.inject(seed=round_i, **(fault or {})):
+                    svc.drain()
+                out[wave] = reqs
+            panel = svc_mod.SpgemmService(svc_mod.ServiceConfig(
+                use_kernel=True, queue_capacity=64, n_panels=2))
+            out["gather"] = [(panel.submit(a, b), k) for k, (a, b)
+                             in enumerate(chaos_fams) for _ in range(2)]
+            with faults.inject(gather_scale=0.25):
+                panel.drain()
+            rec = svc_mod.SpgemmService(svc_mod.ServiceConfig(
+                use_kernel=True, queue_capacity=64, max_batch=4,
+                dispatch_budget=plan.DispatchBudget(multiple=50.0,
+                                                    floor_s=0.25)))
+            for a, b in chaos_fams:
+                rec.submit(a, b)
+            rec.drain()
+            out["straggler"] = [(rec.submit(a, b), k) for k, (a, b)
+                                in enumerate(chaos_fams) for _ in range(2)]
+            with faults.inject(delay_executor={"unit": "local"},
+                               delay_s=30.0):
+                rec.drain()
+            return out, (svc, panel, rec)
+
+        t = time.perf_counter()
+        (out, svcs), counts = drive("service", chaos)
+        tally = {}
+        for cls, reqs in out.items():
+            for r, k in reqs:
+                if not r.done or (r.error is None) == (r.result is None):
+                    fail(f"chaos {cls}: request {r.id} {r.state}")
+                if r.error is not None:
+                    if not isinstance(r.error, SpgemmError):
+                        fail(f"chaos {cls}: untyped {r.error!r}")
+                elif not np.allclose(r.result.to_dense(), oracles[k],
+                                     rtol=1e-4, atol=1e-4):
+                    fail(f"chaos {cls}: request {r.id} != the dense oracle")
+                tally.setdefault(cls, {}).setdefault(r.state, 0)
+                tally[cls][r.state] += 1
+        if set(tally["straggler"]) != {"DEGRADED"} or any(
+                b["trips"] for b in svcs[2].stats()["breakers"]):
+            fail(f"chaos straggler: {tally['straggler']}")
+        if any(s.stats()["queue"]["depth"] or s.stats()["in_flight"]
+               for s in svcs) or faults.armed():
+            fail("chaos: a queue did not drain or a fault stayed armed")
+        emit(dict(phase="service_chaos", states=tally,
+                  seconds=time.perf_counter() - t, launches=counts))
+        del out, svcs
+    finally:
+        profiles.clear()
     auto_csr.clear()
 
     # ---- (d) the paper's predictor at global bounds: one pad, no buckets,

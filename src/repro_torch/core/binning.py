@@ -300,8 +300,8 @@ def route_costs(deg_a: int, deg_b: int, ncols_b: int, span: int | None = None,
 
 def choose_route(deg_a: int, deg_b: int, ncols_b: int, span: int | None = None,
                  *, lane_budget: int = DEFAULT_LANE_BUDGET,
-                 spa_min_block_rows: int = DEFAULT_SPA_MIN_BLOCK_ROWS
-                 ) -> tuple[str, int, int]:
+                 spa_min_block_rows: int = DEFAULT_SPA_MIN_BLOCK_ROWS,
+                 profile=None) -> tuple[str, int, int]:
     """``(route, tile_n, n_tiles)`` for one bucket's static bounds.
 
     Candidates are gated structurally, then the cheapest wins (strict ``<``
@@ -314,17 +314,26 @@ def choose_route(deg_a: int, deg_b: int, ncols_b: int, span: int | None = None,
     * BIN is a candidate iff the layout yields ≥ 2 bins — with a single bin
       propagation blocking degenerates to SPA's dense pass.
 
-    This is the analytic :func:`route_costs` model only: the port has no
-    measured route profiles yet, which is what the JAX planner consults when
-    one is active.
+    ``profile`` (a :class:`repro_torch.core.profiles.RouteProfile`) replaces
+    the analytic :func:`route_costs` numbers with measured per-row seconds
+    when it covers every surviving candidate; the structural gates above
+    are applied either way, and any uncovered route falls the whole
+    comparison back to the analytic model (cold-start rule, DESIGN.md §11).
     """
     c = route_costs(deg_a, deg_b, ncols_b, span, lane_budget)
+    w = max(1, int(deg_a) * int(deg_b))
     cands = [(ROUTE_ESC, 0, 0, c["esc"])]
     spa_block = floor_pow2(max(1, lane_budget // c["tile_n"]))
     if spa_block >= spa_min_block_rows:
         cands.append((ROUTE_SPA, c["tile_n"], c["n_tiles"], c["spa"]))
     if c["bin_n"] >= 2:
         cands.append((ROUTE_BIN, c["bin_tile"], c["bin_n"], c["bin"]))
+    if profile is not None:
+        measured = [profile.route_seconds(r, w, c["span"])
+                    for (r, _, _, _) in cands]
+        if all(s is not None for s in measured):
+            cands = [(r, t, n, s)
+                     for (r, t, n, _), s in zip(cands, measured)]
     best = cands[0]
     for cand in cands[1:]:
         if cand[3] < best[3]:
@@ -401,7 +410,8 @@ def build_plan(a, b, *, lane_budget: int = DEFAULT_LANE_BUDGET,
     (planning is a launch-time host step).
 
     ``route`` selects the accumulator backend per bucket: ``"auto"`` applies
-    the analytic :func:`choose_route` cost model;
+    the :func:`choose_route` cost model (consulting the active measured
+    profile from :mod:`repro_torch.core.profiles` when one is set);
     ``"esc"``/``"spa"``/``"bin"`` force every bucket onto one backend
     (forced SPA/BIN fall back to column tiling instead of being rejected by
     the lane-budget gate — outputs are route-invariant either way, see DESIGN.md
@@ -410,6 +420,10 @@ def build_plan(a, b, *, lane_budget: int = DEFAULT_LANE_BUDGET,
     if route not in ("auto",) + ROUTES:
         from .errors import PlanMismatchError
         raise PlanMismatchError(f"unknown route {route!r}")
+    profile = None
+    if route == "auto":
+        from . import profiles as profiles_mod   # lazy: profiles times plans
+        profile = profiles_mod.active()
     a_rpt = np.asarray(a.rpt)
     a_col = np.asarray(a.col)
     b_rpt = np.asarray(b.rpt)
@@ -480,7 +494,7 @@ def build_plan(a, b, *, lane_budget: int = DEFAULT_LANE_BUDGET,
         else:
             rt, tile, ntiles = choose_route(
                 da, db, ncols_b, span, lane_budget=lane_budget,
-                spa_min_block_rows=spa_min_block_rows)
+                spa_min_block_rows=spa_min_block_rows, profile=profile)
         if rt == ROUTE_SPA:
             # the block must also hold the dense column tile under the budget
             blk = int(max(1, min(blk, floor_pow2(

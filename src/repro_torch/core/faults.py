@@ -27,19 +27,23 @@ Fault classes (one keyword each, composable):
 * ``fail_executor`` / ``on_call`` — raise :class:`InjectedFault` on the
   Nth invocation of any executor whose dispatch info matches the given
   key/value filter (e.g. ``{"bucket": 2}`` or ``{"unit": "local"}``).
-* ``delay_executor`` / ``delay_s`` and ``lose_shard`` — the JAX package's
-  straggler (a simulated delay that a ``DispatchBudget`` turns into a
-  ``StragglerError``) and persistent shard loss.  The port has no dispatch
-  they can act on yet: its planner refuses ``dispatch_budget`` and
-  ``mesh``.  So :func:`inject` refuses them too, with a
-  :class:`~repro_torch.core.errors.PlanMismatchError` naming the option
-  they need, rather than arm a hook that nothing fires.
+* ``delay_executor`` / ``delay_s`` — simulated per-dispatch latency:
+  every dispatch matching the filter reports ``delay_s`` extra seconds to
+  the straggler watchdog (``plan.DispatchBudget``), which turns a blown
+  budget into a typed :class:`~repro_torch.core.errors.StragglerError` and
+  hands the wave to per-unit recovery (``core.recovery``).  Nothing
+  sleeps: the delay is added to the measured time.
+* ``lose_shard`` — the JAX package's persistent shard loss.  The port has
+  no distributed dispatch it could act on yet (its planner refuses
+  ``mesh``), so :func:`inject` refuses it with a
+  :class:`~repro_torch.core.errors.PlanMismatchError` naming the option it
+  needs, rather than arm a hook that nothing fires.
 
 Everything is deterministic given ``seed``; nesting ``inject`` contexts
 stacks (innermost wins per fault class).
 
-This is the JAX package's module less its straggler and shard-loss hooks,
-which come with the watchdog and the distributed plans.
+This is the JAX package's module less its shard-loss hook, which comes
+with the distributed plans.
 """
 from __future__ import annotations
 
@@ -62,6 +66,8 @@ class FaultState:                  # must never pop a LOOK-ALIKE sibling
     sketch_scale: float | None = None
     gather_scale: float | None = None
     fail_executor: dict | None = None
+    delay_executor: dict | None = None
+    delay_s: float = 1.0
     on_call: int = 1
     seed: int = 0
     executor_calls: int = 0      # matching-dispatch counter (mutable)
@@ -88,17 +94,15 @@ def inject(*, capacity_scale: float | None = None,
            lose_shard: int | None = None,
            on_call: int = 1, seed: int = 0):
     """Arm the selected fault classes for the dynamic extent of the block.
-    ``delay_executor`` and ``lose_shard`` raise :class:`PlanMismatchError`
-    (context ``field``: the plan option whose dispatch they need)."""
-    for hook, value, field in (("delay_executor", delay_executor,
-                                "dispatch_budget"),
-                               ("lose_shard", lose_shard, "mesh")):
-        if value is not None:
-            raise PlanMismatchError(
-                f"fault hook {hook} needs the port's {field} dispatch, "
-                "which it does not have yet", field=field, hook=hook)
+    ``lose_shard`` raises :class:`PlanMismatchError` (context ``field``:
+    ``mesh``, the plan option whose dispatch it needs)."""
+    if lose_shard is not None:
+        raise PlanMismatchError(
+            "fault hook lose_shard needs the port's mesh dispatch, which it "
+            "does not have yet", field="mesh", hook="lose_shard")
     st = FaultState(capacity_scale=capacity_scale, sketch_scale=sketch_scale,
                     gather_scale=gather_scale, fail_executor=fail_executor,
+                    delay_executor=delay_executor, delay_s=float(delay_s),
                     on_call=int(on_call), seed=int(seed))
     _STACK.append(st)
     try:
@@ -162,3 +166,16 @@ def check_executor(info: dict) -> None:
         if st.executor_calls == st.on_call:
             raise InjectedFault(
                 f"injected executor fault (call {st.on_call}) at {info}")
+
+
+def executor_delay(info: dict) -> float:
+    """Dispatch-time hook: simulated extra seconds this dispatch took.
+    Returns 0.0 unless a ``delay_executor`` filter matches — the delay is
+    ADDED to the measured wall time by ``plan._invoke_executor`` (never a
+    real sleep, so chaos tests stay fast and deterministic)."""
+    st = _active("delay_executor")
+    if st is None:
+        return 0.0
+    if all(info.get(k) == v for k, v in st.delay_executor.items()):
+        return st.delay_s
+    return 0.0

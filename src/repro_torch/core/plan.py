@@ -42,11 +42,15 @@ unit is then (bucket × panel).
 **Failure containment** (DESIGN.md §9): every executor dispatch goes
 through :func:`_invoke_executor`, which fires the fault-injection hook
 (``core.faults``) and turns any failure inside the executor into a typed
-:class:`~repro_torch.core.errors.ShardFailureError` naming the unit.
+:class:`~repro_torch.core.errors.ShardFailureError` naming the unit.  A
+plan armed with a :class:`DispatchBudget` (the straggler watchdog,
+DESIGN.md §12) also times each wave against its priced seconds
+(``core.profiles``); a wave that blows its budget raises a typed
+:class:`~repro_torch.core.errors.StragglerError` and replays unit by unit
+through ``core.recovery``, bitwise equal to the clean wave.
 
 Not ported yet, and refused with :class:`PlanMismatchError` when asked for:
-distributed plans (``mesh``/``num_shards``) and the straggler watchdog
-(``dispatch_budget``).
+distributed plans (``mesh``/``num_shards``).
 
 Public API::
 
@@ -59,10 +63,12 @@ Public API::
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build as build_mod
 from repro_torch.sparse.formats import CSR
 from . import binning as binning_mod
 from . import csr as csr_mod
@@ -70,10 +76,12 @@ from . import faults as faults_mod
 from . import oracle
 from . import partition as part_mod
 from . import predictor as predictor_mod
+from . import profiles as profiles_mod
 from . import validate as validate_mod
 from .csr import COL_SENTINEL, CSRDevice
 from .errors import (CapacityExhaustedError, OperandValidationError,
-                     PlanMismatchError, ShardFailureError, SpgemmError)
+                     PlanMismatchError, ShardFailureError, SpgemmError,
+                     StragglerError)
 from .spgemm import (PanelSpgemmOut, SpGEMMOut, assemble,
                      routed_spgemm_rows)
 
@@ -160,6 +168,37 @@ class RetryPolicy:
         return min(new_cap, max(int(self.max_capacity), cap))
 
 
+@dataclasses.dataclass(frozen=True)
+class DispatchBudget:
+    """Straggler watchdog for executor dispatches (DESIGN.md §12).
+
+    A plan armed with a budget (``plan_spgemm(dispatch_budget=...)``) times
+    every wave/recovery dispatch through :func:`_invoke_executor` and raises
+    a typed :class:`~repro_torch.core.errors.StragglerError` when the
+    dispatch exceeds ``multiple ×`` the PRICED expected seconds — per-unit
+    seconds from :func:`repro_torch.core.profiles.unit_seconds` (a measured
+    profile when one is active, the analytic roofline otherwise) — floored
+    at ``floor_s`` so tiny dispatches never trip on scheduler noise.
+    Pricing rule::
+
+        limit = max(floor_s, multiple · Σ_units unit_seconds(route, w, span, rows))
+
+    Two exemptions keep the watchdog deterministic: the first dispatch of
+    an executor, and any dispatch during which a kernel library was loaded
+    (or built), never count their real wall time — loading is not a
+    straggler — and injected ``delay_executor`` seconds always count, so
+    chaos tests exercise the full straggler → recovery path without real
+    sleeps.
+    """
+
+    multiple: float = 10.0
+    floor_s: float = 0.05
+
+    def limit(self, priced_s: float) -> float:
+        return max(float(self.floor_s),
+                   float(self.multiple) * max(0.0, float(priced_s)))
+
+
 def _plan_key_id(plan) -> str:
     """Short stable fingerprint of ``plan.key`` for error context."""
     return format(hash(plan.key) & 0xFFFFFFFF, "08x")
@@ -189,6 +228,12 @@ class SpgemmPlan:
     retry_events: list = dataclasses.field(default_factory=list)  # last execute()
     retry_policy: RetryPolicy | None = None      # None → re-planning off
     degradations: list = dataclasses.field(default_factory=list)  # last execute()
+    # the straggler watchdog (DESIGN.md §12); None → dispatches untimed
+    dispatch_budget: DispatchBudget | None = None
+    recoveries: list = dataclasses.field(default_factory=list)  # last execute()
+    # plan_spgemm's max_retries: a recovery unit's dispatch attempts when no
+    # retry policy is set (the JAX plan's max_retries field)
+    _max_retries: int = 4
     validation: dict = dataclasses.field(
         default_factory=lambda: dict(operands_validated=0,
                                      fingerprint_checks=0))
@@ -355,6 +400,7 @@ class SpgemmPlan:
             num_buckets=len(self.binning.buckets),
             lane_reduction=round(self.binning.lane_reduction, 3),
             route_rows=self.binning.route_rows(),
+            route_profile=profiles_mod.status(),
             bucket_capacities=list(self.alloc.bucket_capacities),
             total_capacity=int(self.alloc.total_capacity),
             device=str(self.device),
@@ -375,9 +421,14 @@ class SpgemmPlan:
             out.update(n_panels=self.n_panels,
                        panel_edges=[int(e) for e in self.panels.edges],
                        panel_nnz=[int(n) for n in self.panels.panel_nnz])
+        if self.dispatch_budget is not None:
+            out.update(dispatch_budget=dict(
+                multiple=float(self.dispatch_budget.multiple),
+                floor_s=float(self.dispatch_budget.floor_s)))
         out.update(retries=int(self.retries),
                    degradations=[dict(e) for e in self.degradations],
-                   validation=dict(self.validation))
+                   validation=dict(self.validation),
+                   recoveries=[dict(e) for e in self.recoveries])
         return out
 
 
@@ -661,7 +712,7 @@ def _device_capacity(nnz: int) -> int:
 
 # The JAX planner's options this port does not carry yet, with the value
 # that leaves each one off.
-_UNPORTED = dict(mesh=None, num_shards=None, dispatch_budget=None)
+_UNPORTED = dict(mesh=None, num_shards=None)
 
 
 def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
@@ -674,7 +725,9 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
                 validate: bool = True,
                 template: "PlanTemplate | str | None" = None,
                 registry: TemplateRegistry | None = None,
-                n_panels: int = 0, device=None, **unported) -> SpgemmPlan:
+                n_panels: int = 0,
+                dispatch_budget: DispatchBudget | None = None,
+                device=None, **unported) -> SpgemmPlan:
     """Plan ``C = A·B``: sample → predict (binned) → per-bucket capacities.
 
     ``a``/``b`` are host ``CSR``; planning is a launch-time host step, and
@@ -700,9 +753,13 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
     split into ``n_panels`` contiguous column panels with about equal
     entries (edges snapped to a pow2 grid under ``pop_quant``), each bucket
     is sized per panel, and :func:`execute` runs one (bucket × panel) unit
-    at a time against that panel's operand.  The JAX planner's distributed
-    and watchdog options (``mesh``, ``num_shards``, ``dispatch_budget``)
-    raise :class:`PlanMismatchError` (not ported yet).
+    at a time against that panel's operand.
+
+    ``dispatch_budget`` (a :class:`DispatchBudget`) arms the straggler
+    watchdog: each wave is timed against its priced seconds and one that
+    blows its budget replays unit by unit (``core.recovery``).  The JAX
+    planner's distributed options (``mesh``, ``num_shards``) raise
+    :class:`PlanMismatchError` (not ported yet).
     """
     for name, value in unported.items():
         if name not in _UNPORTED:
@@ -797,7 +854,8 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
         predicted_nnz=predicted_nnz, compression_ratio=cr,
         sample_rows=sample_rows, shape_a=a.shape, shape_b=b.shape,
         cap_a=cap_a, cap_b=cap_b, safety=safety, use_kernel=use_kernel,
-        device=dev, pop_quant=pop_quant, retry_policy=retry_policy)
+        device=dev, pop_quant=pop_quant, retry_policy=retry_policy,
+        dispatch_budget=dispatch_budget, _max_retries=int(max_retries))
     plan.validation["operands_validated"] = operands_validated
     if template is not None:
         plan._template = template
@@ -1008,10 +1066,15 @@ def _build_local_panel_executor(metas: tuple, use_kernel: bool,
 
 
 def _build_bucket_executor(meta: tuple, use_kernel: bool):
-    """One bucket's standalone executor — the re-planning loop's unit of
-    re-execution (build-counted like the full executors)."""
+    """One bucket's standalone executor — the unit of re-execution of the
+    re-planning loop and of straggler recovery (build-counted like the full
+    executors).  A unit whose rows have no products (FLOP bound 0: a
+    panel without their columns) launches nothing and yields an empty
+    block, as in the panel wave."""
 
     def run(ad, bd, rows, bound):
+        if not bound:
+            return _empty_unit(rows.shape[0], meta[-1], ad.device)
         return _run_bucket(ad, bd, rows, meta, use_kernel, bound,
                            torch.diff(bd.rpt))
 
@@ -1091,16 +1154,88 @@ def _check_panel_operand(plan: SpgemmPlan, m) -> CSR:
     return m
 
 
-def _invoke_executor(run, info: dict, *args):
+def _unit_priced_seconds(meta: tuple, rows: int) -> float:
+    """Expected seconds of one (bucket[×panel]) unit dispatch, priced from
+    its execution metadata: ``width = deg_a·deg_b`` products per row over
+    ``rows`` dispatched rows (pads included — they cost real lanes)."""
+    deg_a, deg_b = int(meta[0]), int(meta[1])
+    return profiles_mod.unit_seconds(meta[3], deg_a * max(1, deg_b),
+                                     int(meta[6]), int(rows))
+
+
+def _plan_priced_seconds(plan: SpgemmPlan) -> float:
+    """Expected seconds of one full execute() wave — the sum over every
+    (bucket[× panel]) unit the wave dispatches.  Feeds
+    :class:`DispatchBudget` for the wave; recovery prices each unit
+    individually with :func:`_unit_priced_seconds`."""
+    total = 0.0
+    pops = plan.local_populations()
+    for i, (bk, pop) in enumerate(zip(plan.binning.buckets, pops)):
+        if plan.n_panels:
+            for p in range(plan.n_panels):
+                meta = _panel_meta(bk, plan.panel_deg_b[i],
+                                   int(plan.panel_caps[i, p]))
+                total += _unit_priced_seconds(meta, pop)
+        else:
+            meta = _bucket_meta(bk, int(plan.alloc.bucket_capacities[i]))
+            total += _unit_priced_seconds(meta, pop)
+    return total
+
+
+def _wave_budget(plan: SpgemmPlan) -> dict:
+    """The watchdog arguments of a plan's wave dispatch (none unarmed)."""
+    if plan.dispatch_budget is None:
+        return {}
+    return dict(budget=plan.dispatch_budget,
+                priced_s=_plan_priced_seconds(plan), device=plan.device)
+
+
+def _invoke_executor(run, info: dict, *args,
+                     budget: DispatchBudget | None = None,
+                     priced_s: float = 0.0, device=None):
     """Every executor dispatch funnels here: the fault-injection hook
     (``core.faults.check_executor``) fires before the dispatch, and any
     exception out of the executor — injected or real, a kernel that failed
     to launch included — surfaces as a typed :class:`ShardFailureError`
     naming the dispatch unit, chained to its cause.  Typed pipeline errors
-    pass through as they are.  Nothing is retried here."""
+    pass through as they are.  Nothing is retried here.
+
+    When ``budget`` is armed (``plan.dispatch_budget``), the dispatch is
+    timed between two synchronizes of ``device`` (the kernels run
+    asynchronously: without them only the launches would be timed) against
+    ``budget.limit(priced_s)``; exceeding it raises a typed
+    :class:`StragglerError` carrying observed vs planned seconds.  Real
+    wall time does not count for an executor's first dispatch, nor for a
+    dispatch during which a kernel library was loaded or built
+    (``kernels._build.loads``): neither is a straggler.  Injected
+    ``delay_executor`` seconds always count."""
     try:
         faults_mod.check_executor(info)
-        return run(*args)
+        if budget is None:
+            out = run(*args)
+            run.dispatched = True
+            return out
+        cuda = device is not None and torch.device(device).type == "cuda"
+        first = not getattr(run, "dispatched", False)
+        loads0 = build_mod.loads
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = run(*args)
+        if cuda:
+            torch.cuda.synchronize(device)
+        elapsed = time.perf_counter() - t0
+        run.dispatched = True
+        if first or build_mod.loads != loads0:
+            elapsed = 0.0              # first dispatch or a library load
+        elapsed += faults_mod.executor_delay(info)
+        limit = budget.limit(priced_s)
+        if elapsed > limit:
+            raise StragglerError(
+                f"dispatch exceeded its budget: {elapsed:.4f}s > "
+                f"{limit:.4f}s", observed=round(elapsed, 6),
+                planned=round(limit, 6), **info)
+        return out
     except SpgemmError:
         raise
     except Exception as e:
@@ -1396,9 +1531,15 @@ def _execute_panels(plan: SpgemmPlan, a, b, cache: PlanCache
     run = cache.executor(plan.key, lambda: _build_local_panel_executor(
         metas, plan.use_kernel, masked=plan.pop_quant))
     bps = _panel_operands_local(plan, b)
-    out = _invoke_executor(run, dict(unit="local-panels"), ad, bps,
-                           plan.device_args(), plan.panel_flop_bounds(),
-                           plan.valid_rows())
+    try:
+        out = _invoke_executor(run, dict(unit="local-panels"), ad, bps,
+                               plan.device_args(), plan.panel_flop_bounds(),
+                               plan.valid_rows(), **_wave_budget(plan))
+    except StragglerError as e:
+        # a straggling wave replays per (bucket × panel) unit — completed
+        # units checkpoint in the recovery ledger
+        from . import recovery as recovery_mod
+        out = recovery_mod.recover_local_panels(plan, ad, bps, cache, e)
     if plan.retry_policy is not None:
         out = _replan_local_panels(plan, ad, bps, out, cache)
     return out
@@ -1421,8 +1562,14 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None):
     Panel plans (``n_panels``) return a :class:`PanelSpgemmOut`: ``b`` must
     then be the host ``CSR`` of the planned structure (the panel slices
     bake it in; checked by structure unless it is the planned object),
-    and re-planning runs per (bucket × panel) unit."""
+    and re-planning runs per (bucket × panel) unit.
+
+    Plans armed with a :class:`DispatchBudget` time the wave; a straggling
+    wave (:class:`StragglerError`) replays unit by unit through
+    ``core.recovery`` (ledger in ``plan.recoveries``), then re-planning
+    runs on the replayed result as on the wave's."""
     cache = cache if cache is not None else _DEFAULT_CACHE
+    plan.recoveries = []               # observability covers the LAST execute
     if plan.n_panels:
         return _execute_panels(plan, a, b, cache)
     ad = _coerce_one(plan, a, "a", 0)
@@ -1434,9 +1581,13 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None):
         plan.key, lambda: _build_local_executor(
             metas, plan.shape_a[0], plan.alloc.row_capacity,
             plan.use_kernel, masked=plan.pop_quant))
-    out = _invoke_executor(run, dict(unit="local"), ad, bd,
-                           plan.device_args(), plan.flop_bounds(),
-                           plan.valid_rows())
+    try:
+        out = _invoke_executor(run, dict(unit="local"), ad, bd,
+                               plan.device_args(), plan.flop_bounds(),
+                               plan.valid_rows(), **_wave_budget(plan))
+    except StragglerError as e:
+        from . import recovery as recovery_mod
+        out = recovery_mod.recover_local(plan, ad, bd, cache, e)
     if plan.retry_policy is not None:
         out = _replan_local(plan, ad, bd, out, cache)
     return out

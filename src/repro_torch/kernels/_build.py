@@ -28,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_TIMEOUT_S = 600
 
 _LIBS: dict = {}
+# libraries loaded (each built first if it was missing) in this process: the
+# straggler watchdog does not count a dispatch during which this grew
+loads = 0
 
 
 def _sources() -> list[Path]:
@@ -103,8 +106,10 @@ def load(name: str):
     """The loaded ``lib<name>.so`` (built first if needed), with the two
     entry points every source exports declared: ``<name>_error_string`` and
     ``<name>_max_smem``."""
+    global loads
     if name not in _LIBS:
         import ctypes
+        loads += 1
         path = _build_dir() / f"lib{name}.so"
         if not path.exists():
             build_all()

@@ -1352,3 +1352,133 @@ def test_retried_panel_plan_matches_the_plain_path(card, route, policy):
                 (got.cols[i][q].cpu(), got.vals[i][q].cpu(),
                  got.row_nnz[i][q].cpu(), 0),
                 (want.cols[i][q], want.vals[i][q], want.row_nnz[i][q], 0))
+
+
+# --------------------------------------------------------------------------- #
+# the straggler watchdog, single-device recovery, route profiles and the
+# service on the card
+# --------------------------------------------------------------------------- #
+def _units_with_products(p):
+    """(bucket[, panel]) units of a plan whose rows have products."""
+    if p.n_panels:
+        b = p.panel_flop_bounds()
+        return [(i, q) for i in range(len(p.binning.buckets))
+                for q in range(p.n_panels) if b[i][q]]
+    return [i for i, b in enumerate(p.flop_bounds()) if b]
+
+
+@pytest.mark.cuda
+def test_clean_budget_armed_waves_do_not_trip_after_a_fresh_build(
+        card, tmp_path, monkeypatch):
+    """With a fresh build directory the kernels are built and loaded inside
+    the first plan and dispatches: neither counts against the default
+    budget, and no clean wave after them trips it."""
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_FUNCS", {})
+    loads = _build.loads
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=71), 72)
+    for n_panels in (0, 4):
+        p = plan.plan_spgemm(m, m, use_kernel=True, device=card,
+                             safety=4.0, n_panels=n_panels,
+                             dispatch_budget=plan.DispatchBudget())
+        cache = plan.PlanCache()
+        for _ in range(3):
+            out = plan.execute(p, m, m, cache=cache)
+            assert p.recoveries == [] and int(out.overflow) == 0
+    assert _build.loads > loads
+    assert any(tmp_path.iterdir())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+@pytest.mark.parametrize("n_panels", [0, 4])
+def test_straggler_recovery_is_bitwise_on_the_card(card, route, n_panels):
+    """A delayed wave trips the watchdog; the replay launches one numeric
+    kernel a unit with products and equals the clean run bit for bit."""
+    from repro_torch.core import faults
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=73), 74)
+    p = plan.plan_spgemm(m, m, route=route, use_kernel=True, device=card,
+                         safety=4.0, n_panels=n_panels,
+                         dispatch_budget=plan.DispatchBudget())
+    cache = plan.PlanCache()
+    clean = plan.reassemble(p, plan.execute(p, m, m, cache=cache))
+    assert p.recoveries == []
+    unit = "local-panels" if n_panels else "local"
+    wave = (len(_units_with_products(p)) if n_panels
+            else len(p.binning.buckets))
+    before = _numeric_launches()
+    with faults.inject(delay_executor={"unit": unit}, delay_s=60.0):
+        out = plan.execute(p, m, m, cache=cache)
+    assert _numeric_launches() - before == wave + len(
+        _units_with_products(p))
+    units = len(p.binning.buckets) * (n_panels or 1)
+    assert p.recoveries[0] == dict(kind="wave_failed", unit=unit,
+                                   error="StragglerError")
+    assert len(p.recoveries) == 1 + units
+    assert all(e["attempts"] == 1 for e in p.recoveries[1:])
+    c = plan.reassemble(p, out)
+    np.testing.assert_array_equal(c.rpt, clean.rpt)
+    np.testing.assert_array_equal(c.col, clean.col)
+    np.testing.assert_array_equal(c.val.view(np.int32),
+                                  clean.val.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_quick_microbenchmark_times_the_card_kernels(card, tmp_path):
+    from repro_torch.core import profiles
+    kernels = (num_k.spgemm_numeric, acc_k.spa_numeric, acc_k.bin_numeric,
+               sym_k.exact_row_counts_esc, acc_k.exact_row_counts_bitmask)
+    before = [k.launches for k in kernels]
+    try:
+        prof = profiles.microbenchmark(quick=True)
+        assert all(k.launches > n for k, n in zip(kernels, before))
+        assert prof.device_kind == torch.cuda.get_device_name(card)
+        assert {c["route"] for c in prof.cells} == set(binning.ROUTES)
+        assert all(c["numeric_s"] > 0 and c["symbolic_s"] > 0
+                   for c in prof.cells)
+        path = tmp_path / "card.json"
+        profiles.save(prof, path)
+        assert profiles.load(path).to_json() == prof.to_json()
+        assert profiles.status()["source"] == "measured"
+        host = tmp_path / "host.json"
+        profiles.save(dataclasses.replace(prof, device_kind="cpu"), host)
+        with pytest.warns(profiles.ProfileLoadWarning, match="device kind"):
+            assert profiles.load(host) is None
+        assert profiles.status()["source"] == "analytic"
+    finally:
+        profiles.clear()
+
+
+@pytest.mark.cuda
+def test_service_results_equal_direct_runs_on_the_card(card):
+    """Served requests (two template families, two members, two copies)
+    equal direct plan → execute → reassemble runs with the service's
+    settings bit for bit, and a second pass builds no executor."""
+    from repro_torch.serve.spgemm_service import (RequestState,
+                                                  ServiceConfig,
+                                                  SpgemmService)
+    members = [_valued(sprand.power_law(3000, 3000, 8, 1.6, seed=s), s)
+               for s in (81, 82)]
+    members += [_valued(sprand.banded(3000, 3000, 16, 24, seed=s), s)
+                for s in (83, 84)]
+    cfg = ServiceConfig(use_kernel=True, device=card)
+    svc = SpgemmService(cfg)
+    reg, cache = plan.TemplateRegistry(), plan.PlanCache()
+    for pass_ in range(2):
+        reqs = [(svc.submit(m, m), m) for m in members for _ in range(2)]
+        svc.drain()
+        if pass_ == 0:
+            traces = svc.stats()["plan_cache"]["traces"]
+        for r, m in reqs:
+            assert r.state == RequestState.DONE, (r.state, r.error)
+            pd = plan.plan_spgemm(
+                m, m, safety=cfg.safety, seed=cfg.seed, pop_quant=True,
+                template="auto", registry=reg, use_kernel=True, device=card,
+                retry_policy=cfg.retry_policy)
+            want = plan.reassemble(pd, plan.execute(pd, m, m, cache=cache))
+            np.testing.assert_array_equal(r.result.rpt, want.rpt)
+            np.testing.assert_array_equal(r.result.col, want.col)
+            np.testing.assert_array_equal(r.result.val.view(np.int32),
+                                          want.val.view(np.int32))
+    assert svc.stats()["plan_cache"]["traces"] == traces

@@ -10,11 +10,12 @@ equals the dense oracle.  The fault hooks sit at JAX's call sites:
 capacity starvation where every capacity is planned, sketch corruption
 after the prediction, gather starvation on the panel operands, and executor
 failure in :func:`repro_torch.core.plan._invoke_executor`, which every
-dispatch goes through with JAX's unit names.  The straggler (``delay``) and
-shard-loss (``lose``) classes need the dispatch budget and the mesh, which
-the port still refuses with ``PlanMismatchError``, and ``inject`` refuses
-to arm their hooks the same way: pinned so here.  On the CPU
-``use_kernel`` runs the kernel wrappers' plain versions."""
+dispatch goes through with JAX's unit names.  The straggler class
+(``delay``) runs through the dispatch budget and single-device recovery:
+JAX's recovery ledger and CSR.  The shard-loss class (``lose``) needs the
+mesh, which the port still refuses with ``PlanMismatchError``, and
+``inject`` refuses to arm its hook the same way: pinned so here.  On the
+CPU ``use_kernel`` runs the kernel wrappers' plain versions."""
 import functools
 from collections import Counter
 
@@ -50,6 +51,10 @@ FAMILIES = {
             sprand.banded(160, 160, 32, 28, seed=52)),
 }
 
+# the straggler class's budget, built per package in _run: a floor far
+# above a clean wave's time on a loaded host, far below the 30 s delay
+WATCHDOG = "watchdog"
+
 # (name, inject kwargs, plan kwargs, outcome) — tests/test_faults.py's
 # matrix, the panel-wave executor failure added
 FAULTS = [
@@ -60,6 +65,9 @@ FAULTS = [
     ("executor_panels", dict(fail_executor={"unit": "local-panels"}),
      dict(n_panels=2), "raise"),
     ("operand", None, {}, "raise"),
+    # the watchdog fires and per-unit recovery replays the wave bitwise
+    ("delay", dict(delay_executor={"unit": "local"}, delay_s=30.0),
+     dict(dispatch_budget=WATCHDOG), "ok"),
 ]
 
 
@@ -83,6 +91,9 @@ def _operands(family, fault):
 def _run(mod, fmod, a, b, inj, pkw, cache=None, **kw):
     """One faulted plan → execute → reassemble: ("ok", CSR, plan) or
     ("raise", error, None)."""
+    if pkw.get("dispatch_budget") == WATCHDOG:
+        pkw = dict(pkw, dispatch_budget=mod.DispatchBudget(multiple=50.0,
+                                                           floor_s=5.0))
     try:
         with fmod.inject(**(inj or {})):
             p = mod.plan_spgemm(a, b, safety=1.3, sample_rows=_rows(a),
@@ -120,7 +131,7 @@ def _context(err):
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_containment_matrix_matches_jax(family, fault, inj, pkw, outcome,
                                         use_kernel):
-    jkind, jres, _ = _jax_case(family, fault)
+    jkind, jres, jp = _jax_case(family, fault)
     a, b = _operands(family, fault)
     kind, res, p = _run(tplan_mod, faults, _host(a), _host(b), inj, pkw,
                         use_kernel=use_kernel, device="cpu")
@@ -147,22 +158,24 @@ def test_containment_matrix_matches_jax(family, fault, inj, pkw, outcome,
                                spgemm_dense_oracle(_host(a), _host(b)),
                                rtol=1e-4, atol=1e-4)
     assert p.stats()["degradations"] == p.degradations
+    assert p.stats()["recoveries"] == p.recoveries == jp.recoveries
+    if fault == "delay":
+        assert p.recoveries[0] == dict(kind="wave_failed", unit="local",
+                                       error="StragglerError")
 
 
 @pytest.mark.parametrize("fault,inj,pkw", [
-    ("delay", dict(delay_executor={"unit": "local"}, delay_s=30.0),
-     dict(dispatch_budget=object())),
     ("lose", dict(lose_shard=0), dict(mesh=object())),
-], ids=["delay", "lose"])
+], ids=["lose"])
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_watchdog_and_shard_faults_are_refused_until_ported(family, fault,
                                                             inj, pkw):
-    """The straggler and shard-loss classes need the dispatch budget and a
-    mesh, which the port does not plan yet: it refuses them, typed."""
+    """The shard-loss class needs a mesh, which the port does not plan yet:
+    it refuses it, typed."""
     a, b = (_host(m) for m in FAMILIES[family])
     kind, res, _ = _run(tplan_mod, faults, a, b, inj, pkw, device="cpu")
     assert kind == "raise" and isinstance(res, PlanMismatchError)
-    assert res.context["field"] in ("dispatch_budget", "mesh")
+    assert res.context["field"] == "mesh"
     assert not faults.armed()
 
 
@@ -402,8 +415,9 @@ def test_inject_tolerates_stack_perturbation():
 
 def test_hooks_match_jax():
     """The copy's hooks give JAX's values: the scaled capacities, the
-    corrupted sketch and the Nth-call executor fault; the straggler and
-    lost-shard hooks, which nothing in the port fires yet, refuse to arm."""
+    corrupted sketch, the Nth-call executor fault and the straggler delay;
+    the lost-shard hook, which nothing in the port fires yet, refuses to
+    arm."""
     structure = np.random.default_rng(5).uniform(0, 9, 50)
     for fmod in (faults, jfaults):
         assert fmod.scale_capacity(64) == 64 and not fmod.armed()
@@ -423,11 +437,20 @@ def test_hooks_match_jax():
         with pytest.raises(faults.InjectedFault):
             faults.check_executor(dict(unit="exact-fallback", bucket=1))
         faults.check_executor(dict(unit="exact-fallback", bucket=1))
-    for inj, field in ((dict(lose_shard=1), "mesh"),
-                       (dict(delay_executor={"unit": "dist"}, delay_s=2.5),
-                        "dispatch_budget")):
-        with pytest.raises(PlanMismatchError) as err:
-            with faults.inject(**inj):
-                pass
-        assert err.value.context["field"] == field
-        assert not faults.armed()
+    with pytest.raises(PlanMismatchError) as err:
+        with faults.inject(lose_shard=1):
+            pass
+    assert err.value.context["field"] == "mesh"
+    assert not faults.armed()
+    infos = (dict(unit="dist"), dict(unit="local"),
+             dict(unit="recover", bucket=2), dict(unit="dist", shard=1))
+    assert [faults.executor_delay(i) for i in infos] == [0.0] * 4
+    with faults.inject(delay_executor={"unit": "dist"}, delay_s=2.5), \
+            jfaults.inject(delay_executor={"unit": "dist"}, delay_s=2.5):
+        assert faults.armed()
+        got = [faults.executor_delay(i) for i in infos]
+        assert got == [jfaults.executor_delay(i) for i in infos]
+        assert got == [2.5, 0.0, 0.0, 2.5]
+        with faults.inject(delay_executor={}, delay_s=0.5):
+            assert [faults.executor_delay(i) for i in infos] == [0.5] * 4
+    assert not faults.armed()

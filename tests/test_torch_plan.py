@@ -135,12 +135,32 @@ def test_overflow_is_counted_like_jax_and_refused_by_reassemble():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("num_shards", 4), ("dispatch_budget", object())])
+    ("mesh", object()), ("num_shards", 4)])
 def test_unported_options_are_refused(option, value):
     tm = _host(_MINI["mini_er"])
     with pytest.raises(PlanMismatchError, match="not ported yet"):
         tplan_mod.plan_spgemm(tm, tm, route="esc", device="cpu",
                               **{option: value})
+
+
+@pytest.mark.parametrize("n_panels", [0, 2])
+def test_dispatch_budget_is_accepted_and_reported(n_panels):
+    """The straggler watchdog is ported: a budget is accepted, its settings
+    and the (empty) recovery ledger are in ``stats()``, and a clean run
+    under a generous budget recovers nothing."""
+    tm = _host(_MINI["mini_er"])
+    budget = tplan_mod.DispatchBudget(multiple=50.0, floor_s=5.0)
+    p = tplan_mod.plan_spgemm(tm, tm, device="cpu", n_panels=n_panels,
+                              dispatch_budget=budget,
+                              sample_rows=_rows(tm))
+    assert p.dispatch_budget is budget
+    tplan_mod.execute(p, tm, tm, cache=tplan_mod.PlanCache())
+    st = p.stats()
+    assert st["dispatch_budget"] == dict(multiple=50.0, floor_s=5.0)
+    assert st["recoveries"] == [] == p.recoveries
+    assert st["route_profile"]["source"] == "analytic"
+    assert "dispatch_budget" not in tplan_mod.plan_spgemm(
+        tm, tm, device="cpu", sample_rows=_rows(tm)).stats()
 
 
 @pytest.mark.parametrize("route", ["spa", "bin"])
