@@ -70,8 +70,23 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        bitwise equal to the clean run, JAX's ledger, one numeric launch a
        replayed unit; ``SpgemmService(use_kernel=True)`` on (h)'s
        template families at full size (every result bitwise equal to a
-       direct run; a second pass builds nothing); and the service's
-       chaos classes 1–6 on ``tests/test_service.py``'s small families;
+       direct run; a second pass builds nothing; the most its memory
+       budget reserved at once at or above the pass's peak device bytes);
+       and the service's chaos classes 1–6 on ``tests/test_service.py``'s
+       small families;
+   (k) distributed execution on a 4-shard mesh of the one card
+       (``make_mesh((4,), ("data",), devices=[cuda:0] * 4)``): the seven
+       products whole-B and at 2 panels, each CSR held to (c)'s (``val``
+       bitwise, or the differing rows and routes printed), one numeric
+       launch a (bucket × shard) unit with rows and products, the
+       admission reservation at or above the run's peak device bytes; a
+       lost shard (``faults.inject(lose_shard=...)``) on ``pl_100k_d4``,
+       ``band_60k_d16`` and ``rmat_80k`` whole-B and ``band_60k_d16`` at 2
+       panels, re-homed on the survivors, bitwise equal to the clean run,
+       JAX's ledger order, no survivor's unit run twice; and
+       ``SpgemmService`` on the mesh over (h)'s template families, DONE and
+       then DEGRADED under a lost shard, each result bitwise equal to its
+       direct run;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
@@ -373,7 +388,8 @@ def main() -> int:
                 for path in ("predict", "plan_esc", "plan_auto", "replan",
                              "templates", "panels", "global_predict",
                              "profiles", "measured_routes", "watchdog",
-                             "service", "global_bitmask", "global_spgemm",
+                             "service", "mesh", "global_bitmask",
+                             "global_spgemm",
                              "experiment",
                              "attention")}
 
@@ -1183,6 +1199,20 @@ def main() -> int:
             if launches[path][k] <= 0:
                 fail(f"kernel {k} was not launched on main path {path}")
 
+    def track_reservations(service):
+        """The most a service's memory budget holds at once, noted at each
+        reservation (``["max"]``, reset by the caller)."""
+        budget = service._budget
+        seen = dict(max=0)
+        reserve = budget.reserve
+
+        def noting(est):
+            reserve(est)
+            seen["max"] = max(seen["max"], budget.reserved)
+
+        budget.reserve = noting
+        return seen
+
     def routes_of(p):
         return {r: sum(1 for bk in p.binning.buckets if bk.route == r)
                 for r in binning.ROUTES}
@@ -1356,6 +1386,7 @@ def main() -> int:
         cfg = svc_mod.ServiceConfig(use_kernel=True,
                                     device_budget_bytes=free // 2)
         service = svc_mod.SpgemmService(cfg)
+        reserved = track_reservations(service)
         direct_reg, direct_cache = plan.TemplateRegistry(), plan.PlanCache()
 
         def serve(members):
@@ -1370,8 +1401,14 @@ def main() -> int:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+            reserved["max"] = 0
             reqs, counts = drive("service", lambda: serve(members))
             peak = torch.cuda.max_memory_allocated() - base
+            # admission bounds the card's memory: the most the budget held
+            # at once covers the pass's peak above its start
+            if reserved["max"] < peak:
+                fail(f"service {fam}: reserved at most {reserved['max']} "
+                     f"bytes, peak {peak}")
             for r, mm in reqs:
                 if r.state != svc_mod.RequestState.DONE:
                     fail(f"service {fam}: request {r.id} {r.state} "
@@ -1395,7 +1432,11 @@ def main() -> int:
                                   for r, _ in reqs),
                 output_bytes=max(r.plan.shape_a[0] * r.plan.alloc.row_capacity
                                  * 8 for r, _ in reqs),
-                launches=counts)))
+                reserve_bytes=max(r.estimate.reserve_bytes for r, _ in reqs),
+                device_price_bytes=max(r.estimate.device_bytes
+                                       for r, _ in reqs),
+                reserved_by=sorted({r.estimate.reserved_by for r, _ in reqs}),
+                max_reserved_bytes=reserved["max"], launches=counts)))
             for r, _ in reqs:
                 r.result = r.plan = None
             torch.cuda.empty_cache()
@@ -1501,6 +1542,220 @@ def main() -> int:
         del out, svcs
     finally:
         profiles.clear()
+
+    # ---- (k) distributed execution on a 4-shard mesh of the one card
+    # (make_mesh with devices=[cuda:0] * 4: the whole distributed path —
+    # shard tables, per-shard launches, the panel gather, recovery — on one
+    # H100, held to the port's single-device run).  (k1) the seven
+    # products whole-B and at 2 panels, each CSR held to (c)'s (same sample
+    # rows), with the reservation against the measured peak; (k2) a lost
+    # shard re-homed, bitwise equal to the clean run; (k3) the service on
+    # the mesh: DONE, then DEGRADED under a lost shard, each result bitwise
+    # equal to its direct run, the budget's reservations over the peak.
+    from repro_torch.core import mesh as mesh_mod
+    mesh4 = mesh_mod.make_mesh((4,), ("data",), devices=[dev] * 4)
+    k_start = time.perf_counter()
+
+    def mesh_units(p):
+        """(bucket × shard) units the wave launches: the shard owns rows of
+        the bucket and they have products (in its panel)."""
+        bounds = p.shard_flop_bounds()
+        return sum(1 for i, t in enumerate(p.shard_tables)
+                   for s in range(p.num_shards)
+                   if t.valid[s].any() and bounds[i][s])
+
+    def run_mesh(m, n_panels, cache):
+        """plan → execute → reassemble on the mesh, then the plan again:
+        the plan, its estimate, the CSR, host-clock seconds and the peak
+        device bytes of the first run above what was allocated before."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        p = plan.plan_spgemm(m, m, mesh=mesh4, use_kernel=True,
+                             safety=SAFETY, n_panels=n_panels,
+                             retry_policy=plan.RetryPolicy())
+        torch.cuda.synchronize()
+        secs = dict(plan_s=time.perf_counter() - t)
+        est = admission.estimate_cost(p)
+        t = time.perf_counter()
+        out = plan.execute(p, m, m, cache=cache)
+        torch.cuda.synchronize()
+        secs["execute_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        c = plan.reassemble(p, out)
+        secs["reassemble_s"] = time.perf_counter() - t
+        secs["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        overflow = [int(x) for x in out.shard_overflow]
+        retries = p.retries
+        del out
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plan.execute(p, m, m, cache=cache)
+        torch.cuda.synchronize()
+        secs["execute_s_again"] = time.perf_counter() - t
+        del out
+        return p, est, c, secs, overflow, retries
+
+    def val_diffs(p, got, want, limit=5):
+        """The first rows where ``val`` is not bitwise, with their routes."""
+        bad = np.flatnonzero(got.val.view(np.int32) != want.val.view(np.int32))
+        rows = np.unique(np.searchsorted(want.rpt, bad, side="right") - 1)
+        return [dict(row=int(r), route=p.binning.buckets[
+                    p.binning.row_bucket[r]].route) for r in rows[:limit]]
+
+    for name, m in mats:
+        want_c = auto_csr.get(name)
+        for n_panels in (0, 2):
+            cache = plan.PlanCache()
+            (p, est, c, secs, overflow, retries), counts = drive(
+                "mesh", lambda: run_mesh(m, n_panels, cache))
+            line = dict(phase="mesh", matrix=name, n_panels=n_panels,
+                        shards=4, devices=sorted({str(d) for d in
+                                                  mesh4.devices}),
+                        buckets=len(p.binning.buckets), units=mesh_units(p),
+                        imbalance=float(p.partition.imbalance),
+                        shard_overflow=overflow, retries=retries)
+            if want_c is not None:
+                structure, close, bitwise = csr_matches(c, want_c)
+                if not (structure and close):
+                    fail(f"mesh {name} P={n_panels}: CSR != the single-device "
+                         "run")
+                line.update(equals_single_device=True, val_bitwise=bitwise,
+                            val_diff_rows=([] if bitwise else
+                                           val_diffs(p, c, want_c)))
+            if est.reserve_bytes < secs["peak_bytes"]:
+                fail(f"mesh {name} P={n_panels}: reserved "
+                     f"{est.reserve_bytes} bytes under the peak "
+                     f"{secs['peak_bytes']}")
+            numeric = sum(counts[k.__name__] for k in numeric_kernels)
+            if not retries and numeric != 2 * mesh_units(p):
+                fail(f"mesh {name} P={n_panels}: {numeric} numeric launches "
+                     f"for two waves of {mesh_units(p)} units")
+            line.update(reserve_bytes=est.reserve_bytes,
+                        device_price_bytes=est.device_bytes,
+                        jax_estimate_bytes=est.total_bytes,
+                        reserved_by=est.reserved_by,
+                        comm=p.comm_stats() if n_panels else None,
+                        launches=counts, **secs)
+            emit(line)
+            del p, c
+            torch.cuda.empty_cache()
+
+    # (k2) a lost shard: shard 2 whole-B on three products, device 1 of
+    # the banded product at 2 panels
+    for name, n_panels, lost in (("pl_100k_d4", 0, 2), ("band_60k_d16", 0, 2),
+                                 ("rmat_80k", 0, 2), ("band_60k_d16", 2, 1)):
+        m = dict(mats)[name]
+        cache = plan.PlanCache()
+        p = plan.plan_spgemm(m, m, mesh=mesh4, use_kernel=True,
+                             safety=SAFETY, n_panels=n_panels,
+                             retry_policy=plan.RetryPolicy())
+        c0 = plan.reassemble(p, plan.execute(p, m, m, cache=cache))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plan.execute(p, m, m, cache=cache)
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with faults.inject(lose_shard=lost):
+            out, counts = drive("mesh", lambda: plan.execute(p, m, m,
+                                                             cache=cache))
+        torch.cuda.synchronize()
+        lost_s = time.perf_counter() - t
+        c1 = plan.reassemble(p, out)
+        structure, close, bitwise = csr_matches(c1, c0)
+        led = p.recoveries
+        kinds = [e["kind"] for e in led]
+        units = [(e["bucket"], e["shard"]) for e in led
+                 if e["kind"] == "unit"]
+        rehomes = [e for e in led if e["kind"] == "rehome"]
+        if not (structure and bitwise and kinds[:1] == ["wave_failed"]
+                and {e["shard"] for e in led if e["kind"] == "shard_lost"}
+                == {lost} and rehomes
+                and kinds.index("shard_lost") < kinds.index("rehome")
+                and len(units) == len(set(units))
+                and lost not in {s for _, s in units}
+                and {e["shard"] for e in rehomes} == {lost}):
+            fail(f"mesh shard loss {name} P={n_panels}: bitwise {bitwise}, "
+                 f"ledger {kinds}")
+        emit(dict(phase="mesh_shard_loss", matrix=name, n_panels=n_panels,
+                  lost=lost, clean_execute_s=clean_s, lost_execute_s=lost_s,
+                  units=len(units), rehomes=len(rehomes),
+                  rehome_to=sorted({e["to"] for e in rehomes}),
+                  rehomed_rows=sum(e["rows"] for e in rehomes),
+                  val_bitwise=True, launches=counts))
+        del p, out, c0, c1
+        torch.cuda.empty_cache()
+
+    # (k3) the service on the mesh: (h)'s template families, each member
+    # once; then again under a lost shard
+    free = torch.cuda.mem_get_info(dev)[0]
+    mcfg = svc_mod.ServiceConfig(use_kernel=True, mesh=mesh4,
+                                 device_budget_bytes=free // 2)
+    msvc = svc_mod.SpgemmService(mcfg)
+    mreserved = track_reservations(msvc)
+    direct_reg, direct_cache = plan.TemplateRegistry(), plan.PlanCache()
+    for fam, gen, seeds in TEMPLATE_FAMILIES:
+        members = [(s, gen(sprand, s)) for s in seeds]
+        direct = {}
+        for s, mm in members:
+            pd = plan.plan_spgemm(
+                mm, mm, mesh=mesh4, safety=mcfg.safety, seed=mcfg.seed,
+                pop_quant=mcfg.pop_quant, template="auto",
+                registry=direct_reg, use_kernel=True,
+                retry_policy=mcfg.retry_policy)
+            direct[s] = plan.reassemble(pd, plan.execute(
+                pd, mm, mm, cache=direct_cache))
+            del pd
+        torch.cuda.empty_cache()
+        for mode, want_state in (("clean", svc_mod.RequestState.DONE),
+                                 ("lose", svc_mod.RequestState.DEGRADED)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mreserved["max"] = 0
+            reqs = [(msvc.submit(mm, mm), s) for s, mm in members]
+            if mode == "lose":
+                with faults.inject(lose_shard=2):
+                    _, counts = drive("mesh", msvc.drain)
+            else:
+                _, counts = drive("mesh", msvc.drain)
+            peak = torch.cuda.max_memory_allocated() - base
+            for r, s in reqs:
+                if r.state != want_state:
+                    fail(f"mesh service {fam} {mode}: request {r.id} "
+                         f"{r.state} {r.error!r}")
+                structure, close, bitwise = csr_matches(r.result, direct[s])
+                if not (structure and bitwise):
+                    fail(f"mesh service {fam} {mode}: request {r.id} != its "
+                         "direct run")
+            if mreserved["max"] < peak:
+                fail(f"mesh service {fam} {mode}: reserved at most "
+                     f"{mreserved['max']} bytes, peak {peak}")
+            emit(dict(phase="mesh_service", family=fam, mode=mode,
+                      requests=len(reqs), states=sorted({r.state
+                                                         for r, _ in reqs}),
+                      recoveries=[len(r.stats["recoveries"])
+                                  for r, _ in reqs],
+                      peak_bytes=peak, max_reserved_bytes=mreserved["max"],
+                      reserve_bytes=max(r.estimate.reserve_bytes
+                                        for r, _ in reqs),
+                      reserved_by=sorted({r.estimate.reserved_by
+                                          for r, _ in reqs}),
+                      val_bitwise=True, launches=counts))
+            for r, _ in reqs:
+                r.result = r.plan = None
+        del direct
+        torch.cuda.empty_cache()
+    if any(b["trips"] for b in msvc.stats()["breakers"]) or faults.armed():
+        fail(f"mesh service: a breaker tripped ({msvc.stats()['breakers']})")
+    require_launched("mesh", ["spgemm_numeric", "spa_numeric", "bin_numeric",
+                              "fused_flop_symbolic_buckets",
+                              "fused_flop_symbolic_bitmask_buckets"])
+    emit(dict(phase="mesh_seconds", seconds=time.perf_counter() - k_start))
+    del msvc
     auto_csr.clear()
 
     # ---- (d) the paper's predictor at global bounds: one pad, no buckets,

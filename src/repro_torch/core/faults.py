@@ -33,17 +33,16 @@ Fault classes (one keyword each, composable):
   budget into a typed :class:`~repro_torch.core.errors.StragglerError` and
   hands the wave to per-unit recovery (``core.recovery``).  Nothing
   sleeps: the delay is added to the measured time.
-* ``lose_shard`` — the JAX package's persistent shard loss.  The port has
-  no distributed dispatch it could act on yet (its planner refuses
-  ``mesh``), so :func:`inject` refuses it with a
-  :class:`~repro_torch.core.errors.PlanMismatchError` naming the option it
-  needs, rather than arm a hook that nothing fires.
+* ``lose_shard`` — a PERSISTENT failure pinned to one shard id: every
+  dispatch attributed to that shard (``info["shard"] == lose_shard``), and
+  every fused distributed wave that includes it (``unit`` of ``"dist"`` /
+  ``"dist-panels"`` with no shard attribution), raises
+  :class:`InjectedFault` — unlike ``fail_executor`` this never clears, so
+  recovery (``core.recovery``) must re-home the shard's rows onto the
+  survivors.
 
 Everything is deterministic given ``seed``; nesting ``inject`` contexts
 stacks (innermost wins per fault class).
-
-This is the JAX package's module less its shard-loss hook, which comes
-with the distributed plans.
 """
 from __future__ import annotations
 
@@ -51,8 +50,6 @@ import contextlib
 import dataclasses
 
 import numpy as np
-
-from .errors import PlanMismatchError
 
 
 class InjectedFault(RuntimeError):
@@ -68,6 +65,7 @@ class FaultState:                  # must never pop a LOOK-ALIKE sibling
     fail_executor: dict | None = None
     delay_executor: dict | None = None
     delay_s: float = 1.0
+    lose_shard: int | None = None
     on_call: int = 1
     seed: int = 0
     executor_calls: int = 0      # matching-dispatch counter (mutable)
@@ -93,16 +91,11 @@ def inject(*, capacity_scale: float | None = None,
            delay_s: float = 1.0,
            lose_shard: int | None = None,
            on_call: int = 1, seed: int = 0):
-    """Arm the selected fault classes for the dynamic extent of the block.
-    ``lose_shard`` raises :class:`PlanMismatchError` (context ``field``:
-    ``mesh``, the plan option whose dispatch it needs)."""
-    if lose_shard is not None:
-        raise PlanMismatchError(
-            "fault hook lose_shard needs the port's mesh dispatch, which it "
-            "does not have yet", field="mesh", hook="lose_shard")
+    """Arm the selected fault classes for the dynamic extent of the block."""
     st = FaultState(capacity_scale=capacity_scale, sketch_scale=sketch_scale,
                     gather_scale=gather_scale, fail_executor=fail_executor,
                     delay_executor=delay_executor, delay_s=float(delay_s),
+                    lose_shard=lose_shard,
                     on_call=int(on_call), seed=int(seed))
     _STACK.append(st)
     try:
@@ -156,8 +149,12 @@ def corrupt_sketch(structure: np.ndarray, predicted_nnz: float,
 
 def check_executor(info: dict) -> None:
     """Dispatch-time hook: raise :class:`InjectedFault` when this dispatch
-    matches the armed filter and the matching-call counter hits
-    ``on_call``."""
+    matches the armed filter and the matching-call counter hits ``on_call``,
+    or (persistently) when it touches a lost shard."""
+    ls = _active("lose_shard")
+    if ls is not None and _touches_lost_shard(info, ls.lose_shard):
+        raise InjectedFault(
+            f"injected shard loss (shard {ls.lose_shard}) at {info}")
     st = _active("fail_executor")
     if st is None:
         return
@@ -179,3 +176,14 @@ def executor_delay(info: dict) -> float:
     if all(info.get(k) == v for k, v in st.delay_executor.items()):
         return st.delay_s
     return 0.0
+
+
+def _touches_lost_shard(info: dict, sid: int) -> bool:
+    """A dispatch touches the lost shard when it is attributed to it, or
+    when it is a fused distributed wave (no per-shard attribution — the lost
+    device takes part in the wave, so the whole wave dies).  A recovery
+    dispatch attributed to a SURVIVOR escapes, which is exactly the
+    contract re-homing relies on."""
+    if "shard" in info:
+        return info["shard"] == sid
+    return info.get("unit") in ("dist", "dist-panels")

@@ -49,8 +49,20 @@ DESIGN.md §12) also times each wave against its priced seconds
 :class:`~repro_torch.core.errors.StragglerError` and replays unit by unit
 through ``core.recovery``, bitwise equal to the clean wave.
 
-Not ported yet, and refused with :class:`PlanMismatchError` when asked for:
-distributed plans (``mesh``/``num_shards``).
+**Distributed plans** (``mesh=`` a :class:`~repro_torch.core.mesh.Mesh`,
+or ``num_shards=`` to plan without devices): the rows are partitioned into
+contiguous shards on the predicted structure (``partition.
+balanced_contiguous``), every bucket gets a per-shard row table
+(:class:`BucketShardTable`) and a per-shard capacity, and :func:`execute`
+runs shard ``s``'s tables on ``mesh.devices[s]`` — one process drives the
+mesh, as JAX's ``shard_map`` does, with A and B uploaded once per distinct
+device and each bucket's output stacked per shard on the mesh's first
+device (:class:`DistSpgemmOut`).  With ``n_panels`` the panel axis folds
+onto the shard axis (device ``d = s·P + p``), and each device receives
+only the panel entries of the B rows its row shard references
+(:class:`PanelGather`).  A failed or lost shard's wave re-executes unit by
+unit and re-homes the lost shard's rows on the survivors
+(``core.recovery``).
 
 Public API::
 
@@ -59,11 +71,14 @@ Public API::
     c    = reassemble(plan, out, ncols=b.ncols) # host CSR
     plan = plan_spgemm(a, b, n_panels=4)        # column panels
     out  = execute(plan, a, b)                  # PanelSpgemmOut
+    plan = plan_spgemm(a, b, mesh=make_mesh((4,), ("data",)))
+    out  = execute(plan, a, b)                  # DistSpgemmOut
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,6 +88,7 @@ from repro_torch.sparse.formats import CSR
 from . import binning as binning_mod
 from . import csr as csr_mod
 from . import faults as faults_mod
+from . import mesh as mesh_mod
 from . import oracle
 from . import partition as part_mod
 from . import predictor as predictor_mod
@@ -199,6 +215,35 @@ class DispatchBudget:
                    float(self.multiple) * max(0.0, float(priced_s)))
 
 
+@dataclasses.dataclass(frozen=True)
+class BucketShardTable:
+    """One bucket's static shard execution table (distributed plans).
+
+    ``table[s]`` lists the bucket rows shard ``s`` computes, padded to the
+    bucket's max per-shard population ``rows_pb`` by repeating the shard's
+    last owned row (or any bucket row when the shard owns none — padded
+    outputs are masked off by ``valid`` at reassembly/overflow time).
+    """
+
+    table: np.ndarray       # (num_shards, rows_pb) int32
+    valid: np.ndarray       # (num_shards, rows_pb) bool
+    capacity: int           # static per-row output slots (max per-shard need)
+
+    @property
+    def rows_pb(self) -> int:
+        return int(self.table.shape[1])
+
+
+class DistSpgemmOut(NamedTuple):
+    """Distributed numeric-phase output: per-bucket stacked shard blocks,
+    on the mesh's first device."""
+
+    cols: tuple        # per bucket: (num_shards, rows_pb, cap_b) int32
+    vals: tuple        # per bucket: (num_shards, rows_pb, cap_b) float32
+    row_nnz: tuple     # per bucket: (num_shards, rows_pb) int32 — true nnz
+    shard_overflow: np.ndarray   # (num_shards,) int64 — valid rows only
+
+
 def _plan_key_id(plan) -> str:
     """Short stable fingerprint of ``plan.key`` for error context."""
     return format(hash(plan.key) & 0xFFFFFFFF, "08x")
@@ -206,7 +251,9 @@ def _plan_key_id(plan) -> str:
 
 @dataclasses.dataclass(eq=False)   # identity compare; plans match via .key
 class SpgemmPlan:
-    """The plan: prediction + capacities + executor key, on one device."""
+    """The plan: prediction + partition + capacities + executor key.
+    ``device`` is where the prediction ran and where a single-device plan
+    executes; a distributed plan executes on its mesh's devices."""
 
     binning: binning_mod.BinningPlan
     alloc: predictor_mod.BinnedAllocationPlan
@@ -248,9 +295,10 @@ class SpgemmPlan:
     _panel_flopr: np.ndarray | None = dataclasses.field(default=None,
                                                         repr=False)
     _panel_bounds: tuple | None = dataclasses.field(default=None, repr=False)
-    # per-panel operand structure (rpt, col, entry index into b.val),
-    # uploaded once per plan
-    _panel_dev: tuple | None = dataclasses.field(default=None, repr=False)
+    # per-panel operand structure uploaded once per plan: single-device,
+    # a tuple of (rpt, col, entry index into b.val) per panel; distributed,
+    # per mesh key the panel gather's arrays on each distinct device
+    _panel_dev: object = dataclasses.field(default=None, repr=False)
     # the PLANNED B's (nnz, col-sum) fingerprint and its (rpt, col) copy:
     # the panel slices bake B's structure in, so execute() rejects an
     # operand of another structure instead of silently pairing its values
@@ -258,6 +306,21 @@ class SpgemmPlan:
     _panel_b_fp: tuple | None = None
     _panel_b_structure: tuple | None = dataclasses.field(default=None,
                                                          repr=False)
+    # distributed-only (num_shards == 0 → single device)
+    num_shards: int = 0
+    axis: str = "data"
+    partition: part_mod.Partition | None = None
+    shard_tables: tuple = ()        # BucketShardTable per bucket
+    shard_capacities: np.ndarray | None = None  # (buckets, shards) needs
+    mesh: object = None             # not part of the key (see _mesh_key)
+    row_shards: int = 0             # with panels: num_shards // n_panels
+    _panel_gather: object = None    # PanelGather (distributed panel operands)
+    _panel_a_fp: tuple | None = None
+    _panel_a_structure: tuple | None = dataclasses.field(default=None,
+                                                         repr=False)
+    # per mesh key: each shard's row tables on its device, uploaded once
+    _shard_dev: dict = dataclasses.field(default_factory=dict, repr=False)
+    _shard_bounds: tuple | None = dataclasses.field(default=None, repr=False)
     _template: object = None        # PlanTemplate this plan was fit against
     _pop_override: tuple | None = dataclasses.field(default=None, repr=False)
     _host_tables: tuple | None = dataclasses.field(default=None, repr=False)
@@ -266,6 +329,10 @@ class SpgemmPlan:
     # ((host_a, host_b), (ad, bd)) from planning — execute() on the planned
     # operands reuses the prediction pass's upload instead of a second copy
     _planned_pair: tuple | None = dataclasses.field(default=None, repr=False)
+
+    @property
+    def distributed(self) -> bool:
+        return self.num_shards > 0
 
     @property
     def retry_safety(self) -> float:
@@ -350,31 +417,114 @@ class SpgemmPlan:
                 for t in self.host_tables())
         return self._panel_bounds
 
+    def shard_flop_bounds(self) -> tuple:
+        """Per bucket, per shard (per device ``d = s·P + p`` with panels):
+        the largest FLOP of the rows that shard's table launches, pad rows
+        included, restricted to its panel with panels — each (bucket ×
+        shard) unit's own bound, as :meth:`flop_bounds` is a bucket's.
+        Never in :attr:`key`."""
+        if self._shard_bounds is None:
+            out = []
+            for t in self.shard_tables:
+                per = []
+                for d in range(t.table.shape[0]):
+                    fl = (self._panel_flopr[d % self.n_panels]
+                          if self.n_panels else self.flopr)
+                    per.append(int(fl[t.table[d]].max())
+                               if t.table.shape[1] else 0)
+                out.append(tuple(per))
+            self._shard_bounds = tuple(out)
+        return self._shard_bounds
+
     @property
     def key(self) -> tuple:
-        """The static half of the executor contract, laid out as the JAX
-        package's single-device key (no shards)."""
+        """The static half of the executor contract (the mesh's fingerprint
+        is added at executor lookup, :func:`_executor_key`), laid out as the
+        JAX package's key."""
         if self.n_panels:
             # panel plans key on the panel layout (quantized edges), the
-            # per-panel operand capacities, and per-bucket panel degree
-            # bounds and capacities — the whole numeric contract of §8
+            # operand capacities, and per-bucket panel degree bounds and
+            # capacities — the whole numeric contract of §8
+            if self.distributed:
+                buckets = tuple(
+                    (bk.signature, db, t.rows_pb, t.capacity)
+                    for bk, db, t in zip(self.binning.buckets,
+                                         self.panel_deg_b, self.shard_tables))
+                pan = (self.panels.key, self.row_shards,
+                       self._panel_gather.nref, self._panel_gather.ecap)
+            else:
+                buckets = tuple(
+                    (bk.signature, db, pop,
+                     tuple(int(c) for c in self.panel_caps[i]))
+                    for i, (bk, db, pop) in enumerate(
+                        zip(self.binning.buckets, self.panel_deg_b,
+                            self.local_populations())))
+                pan = (self.panels.key, self._panel_caps_dev)
+            return ("spgemm-plan-panels", self.num_shards, self.axis,
+                    self.use_kernel, self.pop_quant, self.shape_a,
+                    self.shape_b, self.cap_a, buckets, pan)
+        if self.distributed:
             buckets = tuple(
-                (bk.signature, db, pop,
-                 tuple(int(c) for c in self.panel_caps[i]))
-                for i, (bk, db, pop) in enumerate(
-                    zip(self.binning.buckets, self.panel_deg_b,
-                        self.local_populations())))
-            return ("spgemm-plan-panels", 0, "data", self.use_kernel,
-                    self.pop_quant, self.shape_a, self.shape_b, self.cap_a,
-                    buckets, (self.panels.key, self._panel_caps_dev))
-        buckets = tuple(
-            (bk.signature, pop, int(cap))
-            for bk, pop, cap in zip(self.binning.buckets,
-                                    self.local_populations(),
-                                    self.alloc.bucket_capacities))
-        return ("spgemm-plan", 0, "data", self.use_kernel, self.pop_quant,
-                self.shape_a, self.shape_b, self.cap_a, self.cap_b,
-                self.alloc.row_capacity, buckets)
+                (bk.signature, t.rows_pb, t.capacity)
+                for bk, t in zip(self.binning.buckets, self.shard_tables))
+        else:
+            buckets = tuple(
+                (bk.signature, pop, int(cap))
+                for bk, pop, cap in zip(self.binning.buckets,
+                                        self.local_populations(),
+                                        self.alloc.bucket_capacities))
+        return ("spgemm-plan", self.num_shards, self.axis, self.use_kernel,
+                self.pop_quant, self.shape_a, self.shape_b, self.cap_a,
+                self.cap_b, self.alloc.row_capacity, buckets)
+
+    def shard_slots(self) -> int:
+        """Output slots each shard allocates under this plan
+        (Σ buckets rows_pb·capacity; identical on every shard)."""
+        if not self.distributed:
+            return int(self.alloc.total_capacity)
+        return int(sum(t.rows_pb * t.capacity for t in self.shard_tables))
+
+    def comm_stats(self) -> dict:
+        """Per-device B footprint + gather volume of a panel-distributed plan
+        vs the replicated-B executor — the §8 acceptance metric.  On a
+        single-controller mesh the gather is an index gather on each device,
+        so these are the bytes a device holds and receives, not a transfer
+        that was timed."""
+        if not (self.n_panels and self.distributed):
+            raise PlanMismatchError(
+                "comm_stats needs a distributed panel plan",
+                plan_key=_plan_key_id(self))
+        pg = self._panel_gather
+        # index+value bytes per entry (int32 col + float32 val) + rpt words
+        rep_bytes = self.cap_b * 8 + (self.shape_b[0] + 1) * 4
+        dev_bytes = pg.ecap * 8 + (pg.nref + 1) * 4
+        payload_max = int(pg.ref_nnz.max()) if pg.ref_nnz.size else 0
+        nnz_b = int(self._panel_b_fp[0])
+        return dict(
+            n_panels=self.n_panels,
+            devices=self.num_shards,
+            row_shards=self.row_shards,
+            replicated_b_bytes=int(rep_bytes),
+            per_device_b_bytes=int(dev_bytes),
+            footprint_reduction=round(rep_bytes / max(1, dev_bytes), 3),
+            b_nnz=nnz_b,
+            payload_entries_max=payload_max,
+            payload_reduction=round(nnz_b / max(1, payload_max), 3),
+            gathered_entries_total=int(pg.ref_nnz.sum()),
+            gathered_bytes_total=int(pg.ref_nnz.sum()) * 8,
+        )
+
+    def release_device(self) -> None:
+        """Drop every device buffer the plan caches — the prediction pass's
+        operand uploads, the row tables, the panel structure, the
+        prediction's tables — so that a plan kept only for its record holds
+        no device memory; they are uploaded again by the next
+        :func:`execute`.  The service calls it when a request ends."""
+        self._planned_pair = None
+        self._device_args = None
+        self._panel_dev = None
+        self._shard_dev = {}
+        predictor_mod.drop_plan_tables(self.binning)
 
     def to_device(self, m: CSR, which: str) -> CSRDevice:
         """Convert one operand at the plan's padded device capacity."""
@@ -405,6 +555,15 @@ class SpgemmPlan:
             total_capacity=int(self.alloc.total_capacity),
             device=str(self.device),
         )
+        if self.distributed:
+            out.update(
+                num_shards=self.num_shards,
+                imbalance=round(self.partition.imbalance, 4),
+                shard_slots=self.shard_slots(),
+                bucket_rows_per_shard=[t.rows_pb for t in self.shard_tables],
+                shard_bucket_capacities=[t.capacity
+                                         for t in self.shard_tables],
+            )
         if self.pop_quant:
             real = max(1, sum(bk.n_rows for bk in self.binning.buckets))
             out.update(pop_quant=True,
@@ -416,11 +575,16 @@ class SpgemmPlan:
                        final_capacities=(
                            [[int(c) for c in row] for row in self.panel_caps]
                            if self.n_panels else
+                           [t.capacity for t in self.shard_tables]
+                           if self.distributed else
                            list(self.alloc.bucket_capacities)))
         if self.n_panels:
             out.update(n_panels=self.n_panels,
                        panel_edges=[int(e) for e in self.panels.edges],
                        panel_nnz=[int(n) for n in self.panels.panel_nnz])
+            if self.distributed:
+                out.update(row_shards=self.row_shards,
+                           comm=self.comm_stats())
         if self.dispatch_budget is not None:
             out.update(dispatch_budget=dict(
                 multiple=float(self.dispatch_budget.multiple),
@@ -581,8 +745,7 @@ class PlanTemplate:
     def dist_profile(self, num_shards: int) -> dict:
         """Per-mesh-size static shard profile: pow2 ``rows_pb`` and per-shard
         capacities per bucket, grown monotonically like the local half
-        (first use seeds from the member without counting growth).  Kept
-        for the distributed plans, which the port does not carry yet."""
+        (first use seeds from the member without counting growth)."""
         if not hasattr(self, "_dist"):
             self._dist = {}
         return self._dist.setdefault(
@@ -710,12 +873,8 @@ def _device_capacity(nnz: int) -> int:
     return binning_mod.ceil_pow2(max(8, int(nnz)))
 
 
-# The JAX planner's options this port does not carry yet, with the value
-# that leaves each one off.
-_UNPORTED = dict(mesh=None, num_shards=None)
-
-
-def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
+def plan_spgemm(a: CSR, b: CSR, *, mesh=None, num_shards: int | None = None,
+                axis: str = "data", seed: int = 0, safety: float = 1.3,
                 route: str = "auto", use_kernel: bool = False,
                 sample_rows: np.ndarray | None = None,
                 min_rows: int = binning_mod.DEFAULT_MIN_ROWS,
@@ -727,48 +886,59 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
                 registry: TemplateRegistry | None = None,
                 n_panels: int = 0,
                 dispatch_budget: DispatchBudget | None = None,
-                device=None, **unported) -> SpgemmPlan:
-    """Plan ``C = A·B``: sample → predict (binned) → per-bucket capacities.
+                device=None) -> SpgemmPlan:
+    """Plan ``C = A·B``: sample → predict (binned) → partition on predicted
+    nnz → per-bucket(-per-shard) capacities.
 
     ``a``/``b`` are host ``CSR``; planning is a launch-time host step, and
-    the prediction pass runs on ``device`` (default: the CUDA card; with
-    none present this raises unless ``device="cpu"`` is given).  ``route``
-    picks each bucket's accumulator: ``"auto"`` by the analytic cost model,
-    or ``"esc"``/``"spa"``/``"bin"`` for every bucket; the plan's buckets,
-    prediction and capacities do not depend on it.
+    the prediction pass runs on ``device`` (default: the mesh's first
+    device, else the CUDA card; with none present this raises unless
+    ``device="cpu"`` is given).  ``route`` picks each bucket's accumulator:
+    ``"auto"`` by the analytic cost model, or ``"esc"``/``"spa"``/``"bin"``
+    for every bucket; the plan's buckets, prediction and capacities do not
+    depend on it.
 
-    ``pop_quant`` pow2-pads bucket populations, degree bounds and
-    capacities, so same-family different-seed matrices share executors at
-    ≤ 2× row padding.  ``retry_safety`` > 0 arms the overflow re-planning
-    loop of :func:`execute` (``×retry_safety^n`` pow2-rounded capacity
-    bumps of only the overflowing buckets, ≤ ``max_retries`` rounds, the
-    overflow surfaced after that); ``retry_policy`` arms it with a
-    :class:`RetryPolicy` (by default an exact-symbolic fallback when the
-    ladder runs out).  ``template`` (implies ``pop_quant``) plans against a
-    :class:`PlanTemplate`'s frozen bucket ladder instead of the member's own
-    width histogram; ``template="auto"`` resolves it from ``registry``
-    (default: the session registry) by a structural sketch.
+    ``mesh`` (a :class:`~repro_torch.core.mesh.Mesh`) or ``num_shards``
+    selects distributed planning over the mesh axis ``axis``:
+    ``num_shards`` alone plans without devices (a mesh is then given to
+    :func:`execute`).
+
+    ``pop_quant`` pow2-pads bucket populations (distributed: ``rows_pb``),
+    degree bounds and capacities, so same-family different-seed matrices
+    share executors at ≤ 2× row padding.  ``retry_safety`` > 0 arms the
+    overflow re-planning loop of :func:`execute` (``×retry_safety^n``
+    pow2-rounded capacity bumps of only the overflowing units, ≤
+    ``max_retries`` rounds, the overflow surfaced after that);
+    ``retry_policy`` arms it with a :class:`RetryPolicy` (by default an
+    exact-symbolic fallback when the ladder runs out).  ``template``
+    (implies ``pop_quant``) plans against a :class:`PlanTemplate`'s frozen
+    bucket ladder instead of the member's own width histogram;
+    ``template="auto"`` resolves it from ``registry`` (default: the session
+    registry) by a structural sketch.
 
     ``n_panels`` > 0 selects **column-partitioned B** (DESIGN.md §8): B is
     split into ``n_panels`` contiguous column panels with about equal
     entries (edges snapped to a pow2 grid under ``pop_quant``), each bucket
     is sized per panel, and :func:`execute` runs one (bucket × panel) unit
-    at a time against that panel's operand.
+    at a time against that panel's operand.  Distributed plans fold the
+    panels onto the mesh axis — device ``d`` serves row shard ``d //
+    n_panels`` and panel ``d % n_panels``, and ``n_panels`` must divide
+    the axis size.
 
     ``dispatch_budget`` (a :class:`DispatchBudget`) arms the straggler
     watchdog: each wave is timed against its priced seconds and one that
-    blows its budget replays unit by unit (``core.recovery``).  The JAX
-    planner's distributed options (``mesh``, ``num_shards``) raise
-    :class:`PlanMismatchError` (not ported yet).
+    blows its budget replays unit by unit (``core.recovery``).
     """
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"plan_spgemm() got an unexpected keyword "
-                            f"argument {name!r}")
-        if value != _UNPORTED[name]:
-            raise PlanMismatchError(
-                f"plan_spgemm({name}=...) is not ported yet: the port plans "
-                "single-device execution only", field=name)
+    if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
+        raise PlanMismatchError(
+            f"mesh must be a repro_torch.core.mesh.Mesh, got "
+            f"{type(mesh).__name__}", field="mesh")
+    if mesh is not None and axis not in mesh.shape:
+        raise PlanMismatchError(
+            f"mesh has no axis {axis!r} (axes {list(mesh.axis_names)})",
+            field="mesh", observed=list(mesh.axis_names), planned=axis)
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     dev = csr_mod.resolve_device(device)
     operands_validated = 0
     if validate:
@@ -787,6 +957,13 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
             plan_spgemm(a, b, seed=seed, safety=safety, route=route,
                         use_kernel=use_kernel, sample_rows=sample_rows,
                         min_rows=min_rows, pop_quant=True, device=dev)))
+    if n_panels and (mesh is not None or num_shards):
+        shards_chk = int(num_shards if num_shards else mesh.shape[axis])
+        if shards_chk % int(n_panels):
+            raise PlanMismatchError(
+                f"n_panels={n_panels} must divide the mesh axis size "
+                f"{shards_chk} (panels fold onto the data axis)",
+                observed=int(shards_chk), planned=int(n_panels))
     if template is not None:
         pop_quant = True
         template.grow_device_caps(a.nnz, b.nnz)
@@ -865,8 +1042,15 @@ def plan_spgemm(a: CSR, b: CSR, *, seed: int = 0, safety: float = 1.3,
         # upload (and the host references, which gate the fingerprint check)
         plan._planned_pair = ((a, b), (devpair[0], None) if n_panels
                               else devpair)
+    structure_p = flopr_p = None
     if n_panels:
-        _plan_panels(plan, a, b, int(n_panels), deg_align)
+        structure_p, flopr_p = _panel_tables(plan, a, b, int(n_panels),
+                                             deg_align)
+    if mesh is not None or num_shards:
+        _plan_shards(plan, a, mesh, num_shards, axis, template, structure_p,
+                     flopr_p)
+    elif n_panels:
+        _plan_panel_caps(plan, structure_p, flopr_p)
     return plan
 
 
@@ -892,13 +1076,13 @@ def _slice_panels(b: CSR, edges: np.ndarray) -> tuple:
     return tuple(out)
 
 
-def _plan_panels(plan: SpgemmPlan, a: CSR, b: CSR, n_panels: int,
-                 deg_align: int) -> None:
-    """The single-device panel half of :func:`plan_spgemm`: slice B once,
-    build the per-panel degree and FLOP tables, and size every (bucket ×
-    panel) unit from the plan's sampled compression ratio applied per
-    panel (FLOP partitions exactly over panels, so the panel predictions
-    sum to the row's)."""
+def _panel_tables(plan: SpgemmPlan, a: CSR, b: CSR, n_panels: int,
+                  deg_align: int) -> tuple[np.ndarray, np.ndarray]:
+    """The panel half of :func:`plan_spgemm` shared by single-device and
+    distributed plans: slice B once, build the per-panel degree and FLOP
+    tables, and return the per-panel predicted structure (the plan's
+    sampled compression ratio applied per panel: FLOP partitions exactly
+    over panels, so the panel predictions sum to the row's) and FLOP."""
     panels = part_mod.column_panels(b, n_panels, quantize=plan.pop_quant)
     pslices = _slice_panels(b, panels.edges)
     dbmax_p, flopr_p = binning_mod.panel_row_tables(
@@ -908,24 +1092,32 @@ def _plan_panels(plan: SpgemmPlan, a: CSR, b: CSR, n_panels: int,
     dbrow = dbmax_p.max(axis=0) if dbmax_p.size else np.zeros(0, np.int64)
     panel_align = (binning_mod.POW2_DEG_ALIGN if plan.pop_quant
                    else deg_align)
-    buckets = plan.binning.buckets
     plan.n_panels = n_panels
     plan.panels = panels
     plan.panel_deg_b = tuple(
         binning_mod.round_deg(
             int(dbrow[bk.rows].max()) if bk.n_rows else 1, panel_align)
-        for bk in buckets)
+        for bk in plan.binning.buckets)
     plan._panel_host = pslices
     plan._panel_flopr = flopr_p
     plan._panel_b_fp = (int(b.nnz),
                         int(np.asarray(b.col, dtype=np.int64).sum()))
     plan._panel_b_structure = (np.array(b.rpt, dtype=np.int64),
                                np.array(b.col, dtype=np.int32))
-    # each unit runs on its own, so its capacity is its own panel's need
+    plan._panel_a_fp = (int(a.nnz),
+                        int(np.asarray(a.col, dtype=np.int64).sum()))
+    plan._panel_a_structure = (np.array(a.rpt, dtype=np.int64),
+                               np.array(a.col, dtype=np.int32))
+    return structure_p, flopr_p
+
+
+def _plan_panel_caps(plan: SpgemmPlan, structure_p, flopr_p) -> None:
+    """Single-device panel capacities: each (bucket × panel) unit runs on
+    its own, so its capacity is its own panel's need."""
     pc_mat, _ = predictor_mod.shard_bucket_capacities(
-        plan.binning, plan.structure, plan.flopr, np.array([0, a.nrows]),
-        safety=plan.safety, panel_structure=structure_p,
-        panel_flopr=flopr_p)
+        plan.binning, plan.structure, plan.flopr,
+        np.array([0, plan.shape_a[0]]), safety=plan.safety,
+        panel_structure=structure_p, panel_flopr=flopr_p)
     pc = np.maximum(8, pc_mat[:, 0, :])
     if plan.pop_quant:
         pc = np.array([[binning_mod.ceil_pow2(int(c)) for c in row]
@@ -936,7 +1128,197 @@ def _plan_panels(plan: SpgemmPlan, a: CSR, b: CSR, n_panels: int,
     # written past
     plan._panel_caps_dev = tuple(
         faults_mod.scale_gather_cap(_device_capacity(int(n)))
-        for n in panels.panel_nnz)
+        for n in plan.panels.panel_nnz)
+
+
+def _plan_shards(plan: SpgemmPlan, a: CSR, mesh, num_shards, axis: str,
+                 template, structure_p, flopr_p) -> None:
+    """The distributed half of :func:`plan_spgemm` (the JAX package's mesh
+    branch): partition the rows into contiguous shards on the predicted
+    structure, size every (bucket × shard[× panel]) unit, and lay out the
+    per-shard row tables; with panels, fold the panel axis onto the shard
+    axis (device ``d = s·P + p``) and build the panel gather."""
+    shards = int(num_shards if num_shards else mesh.shape[axis])
+    n_panels = plan.n_panels
+    row_shards = shards // n_panels if n_panels else shards
+    partn = part_mod.balanced_contiguous(plan.structure, row_shards)
+    caps_mat, static_caps = predictor_mod.shard_bucket_capacities(
+        plan.binning, plan.structure, plan.flopr, partn.bounds,
+        safety=plan.safety, pow2=plan.pop_quant,
+        panel_structure=structure_p, panel_flopr=flopr_p)
+    rows_pb_list = slices = None
+    if template is not None:
+        # member per-bucket rows_pb (pow2) → grow the family profile, then
+        # pad every table to the grown profile (the shard slices are
+        # computed once and reused for the table fill)
+        slices = [part_mod.shard_slices(bucket.rows, partn.bounds)
+                  for bucket in plan.binning.buckets]
+        member_pb = []
+        for lo, hi in slices:
+            counts = hi - lo
+            member_pb.append(binning_mod.ceil_pow2(
+                int(max(1, counts.max())) if counts.size else 1))
+        rows_pb_list, static_caps = template.grow_dist(
+            row_shards, member_pb, static_caps)
+    plan.num_shards = shards
+    plan.axis = axis
+    plan.partition = partn
+    tables = _build_shard_tables(plan.binning, partn, static_caps,
+                                 pow2_rows=plan.pop_quant,
+                                 rows_pb_list=rows_pb_list, slices=slices)
+    if n_panels:
+        # fold the panel axis onto the data axis: device d = s·P + p
+        # repeats row shard s's table for each of its P panels
+        tables = tuple(BucketShardTable(
+            table=np.repeat(t.table, n_panels, axis=0),
+            valid=np.repeat(t.valid, n_panels, axis=0),
+            capacity=t.capacity) for t in tables)
+        plan.row_shards = row_shards
+        plan.panel_caps = np.tile(
+            np.asarray(static_caps, dtype=np.int64)[:, None], (1, n_panels))
+        plan._panel_gather = _build_panel_gather(
+            a, plan._panel_host, partn.bounds, row_shards, n_panels,
+            plan.cap_a, plan.pop_quant)
+    plan.shard_tables = tables
+    plan.shard_capacities = caps_mat
+    plan.mesh = mesh
+
+
+def _build_shard_tables(binplan: binning_mod.BinningPlan,
+                        partn: part_mod.Partition, static_caps,
+                        pow2_rows: bool = False, rows_pb_list=None,
+                        slices=None) -> tuple[BucketShardTable, ...]:
+    bounds = np.asarray(partn.bounds)
+    num_shards = partn.num_parts
+    tables = []
+    for i, (bucket, cap) in enumerate(zip(binplan.buckets, static_caps)):
+        lo, hi = (slices[i] if slices is not None
+                  else part_mod.shard_slices(bucket.rows, bounds))
+        counts = hi - lo
+        rows_pb = int(max(1, counts.max())) if counts.size else 1
+        if pow2_rows:
+            # population quantization: pad rows_pb so same-family
+            # different-seed plans share the shard executor's key
+            rows_pb = binning_mod.ceil_pow2(rows_pb)
+        if rows_pb_list is not None:
+            # template profile: the family's grown rows_pb dominates
+            rows_pb = max(rows_pb, int(rows_pb_list[i]))
+        table = np.empty((num_shards, rows_pb), dtype=np.int32)
+        valid = np.zeros((num_shards, rows_pb), dtype=bool)
+        for s in range(num_shards):
+            ids = bucket.rows[lo[s]:hi[s]]
+            n = ids.size
+            if n:
+                table[s, :n] = ids
+                table[s, n:] = ids[-1]
+            else:
+                # shard owns no rows of this bucket: pad with any bucket row
+                # (stays inside the bucket's degree envelope; discarded) —
+                # row 0 for a bucket emptied under a template
+                table[s, :] = bucket.rows[0] if bucket.n_rows else 0
+            valid[s, :n] = True
+        tables.append(BucketShardTable(table=table, valid=valid,
+                                       capacity=int(cap)))
+    return tuple(tables)
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelGather:
+    """Structure-only half of the panel-gathered numeric operands.
+
+    Built ONCE at plan time from the bucket row tables (host): device
+    ``d = s·P + p`` (row shard ``s``, panel ``p``) receives ONLY the
+    panel-``p`` entries of the B rows shard ``s``'s A-rows actually
+    reference, as a compact CSR of ``nref`` rows.  A's column indices are
+    remapped per row shard into the compact row space, so the unmodified
+    numeric kernels run against the gathered operand unchanged.
+
+    Index arrays are seed-structure only and upload once per plan and
+    device; the value payload (``g_idx`` → ``b.val``) is gathered on the
+    device each execute, which is what lets a revalued serving pair reuse
+    every executor.
+    """
+
+    nref: int               # compact referenced-row count (padded, pow2 opt)
+    ecap: int               # gathered entries per (shard, panel) (padded)
+    row_shards: int
+    n_panels: int
+    a_col: np.ndarray       # (row_shards, cap_a) int32 remapped A columns
+                            # (a shard's panels share one row)
+    g_rpt: np.ndarray       # (D, nref+1) int32 compact panel row pointers
+    g_col: np.ndarray       # (D, ecap) int32 absolute columns, sentinel pad
+    g_idx: np.ndarray       # (D, ecap) int64 → b.val entry index, -1 pad
+    ref_nnz: np.ndarray     # (D,) int64 true gathered entries (payload)
+
+
+def _build_panel_gather(a: CSR, pslices, bounds, row_shards: int,
+                        n_panels: int, cap_a: int,
+                        pop_quant: bool) -> PanelGather:
+    """Materialize the per-device gathered-B operands (host, launch-time).
+
+    One referenced-row set per row shard (union over its buckets — shared by
+    every bucket, every panel and the retry loop), one entry gather per
+    (shard, panel)."""
+    bounds = np.asarray(bounds, dtype=np.int64)
+    nrows_b = pslices[0][0].size - 1
+    a_rpt = np.asarray(a.rpt, dtype=np.int64)
+    a_col_host = np.asarray(a.col, dtype=np.int64)
+    nnz_a = int(a_rpt[-1])
+    refs = []
+    for s in range(row_shards):
+        seg = a_col_host[a_rpt[bounds[s]]:a_rpt[bounds[s + 1]]]
+        refs.append(np.unique(seg))
+    nref = max(1, max((r.size for r in refs), default=1))
+    if pop_quant:
+        nref = binning_mod.ceil_pow2(nref)
+    d_total = row_shards * n_panels
+    # one remapped-A row per ROW SHARD — a shard's panels share it
+    a_col = np.zeros((row_shards, cap_a), dtype=np.int32)
+    panel_rows = [np.repeat(np.arange(nrows_b, dtype=np.int64),
+                            np.diff(prpt)) for prpt, _, _ in pslices]
+    sel_cols, sel_idx, sel_cnt = [], [], []
+    for s in range(row_shards):
+        remap = np.zeros(max(1, nrows_b), dtype=np.int64)
+        remap[refs[s]] = np.arange(refs[s].size)
+        in_ref = np.zeros(max(1, nrows_b), dtype=bool)
+        in_ref[refs[s]] = True
+        if nnz_a:
+            a_col[s, :nnz_a] = remap[a_col_host].astype(np.int32)
+        for p in range(n_panels):
+            prpt, pcol, pidx = pslices[p]
+            sel = np.flatnonzero(in_ref[panel_rows[p]])
+            sel_cols.append(pcol[sel])
+            sel_idx.append(pidx[sel])
+            # compact row pointers: panel entries are CSR-ordered, refs are
+            # ascending, so selected entries sort by compact row already
+            sel_cnt.append(np.bincount(remap[panel_rows[p][sel]],
+                                       minlength=nref))
+    ecap = max(8, max((c.size for c in sel_cols), default=0))
+    if pop_quant:
+        ecap = binning_mod.ceil_pow2(ecap)
+    # fault-injection hook (core.faults): no-op unless a test armed gather
+    # starvation — an under-sized entry cap is DETECTED below, never written
+    # past
+    ecap = faults_mod.scale_gather_cap(ecap)
+    g_rpt = np.zeros((d_total, nref + 1), dtype=np.int32)
+    g_col = np.full((d_total, ecap), COL_SENTINEL, dtype=np.int32)
+    g_idx = np.full((d_total, ecap), -1, dtype=np.int64)
+    ref_nnz = np.zeros(d_total, dtype=np.int64)
+    for d in range(d_total):
+        e = sel_cols[d].size
+        if e > ecap:
+            raise ShardFailureError(
+                f"panel gather entry capacity {ecap} cannot hold the "
+                f"{e} entries device {d} references",
+                shard=d // n_panels, panel=d % n_panels,
+                observed=int(e), planned=int(ecap))
+        np.cumsum(sel_cnt[d], out=g_rpt[d, 1:])
+        g_col[d, :e] = sel_cols[d]
+        g_idx[d, :e] = sel_idx[d]
+        ref_nnz[d] = e
+    return PanelGather(nref=nref, ecap=ecap, row_shards=row_shards,
+                       n_panels=n_panels, a_col=a_col, g_rpt=g_rpt,
+                       g_col=g_col, g_idx=g_idx, ref_nnz=ref_nnz)
 
 
 # --------------------------------------------------------------------------- #
@@ -1081,6 +1463,172 @@ def _build_bucket_executor(meta: tuple, use_kernel: bool):
     return run
 
 
+def _mesh_key(mesh) -> tuple:
+    return () if mesh is None else mesh.key()
+
+
+def _executor_key(plan: SpgemmPlan, mesh) -> tuple:
+    return plan.key + (_mesh_key(mesh),)
+
+
+def _dist_bucket(meta: tuple, use_kernel: bool, ops, rows, bounds, live,
+                 first) -> tuple:
+    """One bucket's (bucket × shard) units: shard ``s`` runs the bucket's
+    routed pass over its own row table on its own device (``ops[s]``: A,
+    B and B's row lengths there), into its own slice of one stacked
+    ``(num_shards, rows_pb, cap)`` block on ``first``.  A shard that owns
+    no row of the bucket (``live[s]`` false) and a unit without products
+    (FLOP bound 0) launch nothing: their pad rows are masked off by
+    ``valid`` wherever the block is read."""
+    n_sh = len(ops)
+    pb = int(rows[0].shape[0])
+    cap = int(meta[-1])
+    col = torch.full((n_sh, pb, cap), COL_SENTINEL, dtype=torch.int32,
+                     device=first)
+    val = torch.zeros((n_sh, pb, cap), dtype=torch.float32, device=first)
+    nnz = torch.zeros((n_sh, pb), dtype=torch.int32, device=first)
+    for s, ((ad, bd, rnb), r, bound, on) in enumerate(zip(ops, rows, bounds,
+                                                          live)):
+        if not (on and bound):
+            continue
+        out = _run_bucket(ad, bd, r, meta, use_kernel, bound, rnb)
+        col[s].copy_(out.col)
+        val[s].copy_(out.val)
+        nnz[s].copy_(out.row_nnz)
+    return col, val, nnz
+
+
+def _build_dist_executor(metas: tuple, use_kernel: bool):
+    """The distributed wave (JAX ``_build_dist_executor`` /
+    ``_build_panel_dist_executor``): every shard runs every bucket's routed
+    pass over its own row table, the bucket's shards stacked in one block
+    — one process driving the mesh, where JAX's ``shard_map`` runs one
+    program a device.  A and B (the gathered panel operand, with panels)
+    come in per shard position, so the executor is the same for both
+    modes; per-shard overflow is derived on the host from the returned
+    true ``row_nnz`` and the tables' ``valid`` masks."""
+
+    def run(ops, tables, bounds, live, first):
+        outs = [_dist_bucket(meta, use_kernel, ops, rows, b, on, first)
+                for meta, rows, b, on in zip(metas, tables, bounds, live)]
+        return (tuple(o[0] for o in outs), tuple(o[1] for o in outs),
+                tuple(o[2] for o in outs))
+
+    return run
+
+
+def _shard_live(plan: SpgemmPlan) -> tuple:
+    """Per bucket, per shard: whether the shard owns any row of it."""
+    return tuple(tuple(bool(v) for v in t.valid.any(axis=1))
+                 for t in plan.shard_tables)
+
+
+def _shard_args(plan: SpgemmPlan, mesh) -> tuple:
+    """Each shard's row table on its device: per bucket, a tuple over shard
+    positions of int32 row tensors.  Every distinct device gets the whole
+    ``(num_shards, rows_pb)`` table ONCE a plan (its shards read their own
+    row of it), cached by the mesh's key."""
+    key = mesh.key()
+    if key not in plan._shard_dev:
+        per_dev = {d: tuple(torch.from_numpy(np.ascontiguousarray(
+                       t.table, dtype=np.int32)).to(d)
+                       for t in plan.shard_tables)
+                   for d in mesh.distinct_devices()}
+        plan._shard_dev[key] = tuple(
+            tuple(per_dev[d][i][s] for s, d in enumerate(mesh.devices))
+            for i in range(len(plan.shard_tables)))
+    return plan._shard_dev[key]
+
+
+def _on_device(m: CSRDevice, device) -> CSRDevice:
+    """``m`` on ``device`` (itself when it is there already)."""
+    if mesh_mod.same_device(m.device, device):
+        return m
+    return CSRDevice(rpt=m.rpt.to(device), col=m.col.to(device),
+                     val=m.val.to(device), shape=m.shape)
+
+
+def _dist_operands(plan: SpgemmPlan, ad: CSRDevice, bd: CSRDevice,
+                   mesh) -> list:
+    """Per shard position ``(A, B, B's row lengths)`` on that shard's
+    device: the replicated operands, uploaded once per distinct device
+    (JAX's ``P()`` in-specs), never once per shard."""
+    per_dev = {}
+    for d in mesh.distinct_devices():
+        a_d, b_d = _on_device(ad, d), _on_device(bd, d)
+        per_dev[d] = (a_d, b_d, torch.diff(b_d.rpt))
+    return [per_dev[d] for d in mesh.devices]
+
+
+def _panel_dist_args(plan: SpgemmPlan, mesh) -> dict:
+    """Structure-only device uploads of the panel gather, once a plan and
+    device: for each distinct device, its shards' remapped A columns and
+    their gathered-panel row pointers, columns, B-entry indices and row
+    lengths (only the rows of the devices it serves)."""
+    key = mesh.key()
+    if plan._panel_dev is None:
+        plan._panel_dev = {}
+    if key not in plan._panel_dev:
+        pg = plan._panel_gather
+        out = {}
+        for dev in mesh.distinct_devices():
+            ds = [d for d, dd in enumerate(mesh.devices) if dd == dev]
+            rs = sorted({d // pg.n_panels for d in ds})
+            g_rpt = torch.from_numpy(pg.g_rpt[ds]).to(dev)
+            out[dev] = dict(
+                d_pos={d: k for k, d in enumerate(ds)},
+                s_pos={s: k for k, s in enumerate(rs)},
+                a_col=torch.from_numpy(pg.a_col[rs]).to(dev),
+                g_rpt=g_rpt, g_col=torch.from_numpy(pg.g_col[ds]).to(dev),
+                g_idx=torch.from_numpy(pg.g_idx[ds]).to(dev),
+                g_rnb=torch.diff(g_rpt, dim=1).contiguous())
+        plan._panel_dev[key] = out
+    return plan._panel_dev[key]
+
+
+def _gather_panel_values(g_idx: torch.Tensor,
+                         bval: torch.Tensor) -> torch.Tensor:
+    """The per-execute half of the gather: each device's gathered panel
+    value payload (``ecap`` floats a device), read from ``b.val`` through
+    the plan's entry indices on the device (0 on the padding)."""
+    if not bval.numel():
+        return torch.zeros(g_idx.shape, dtype=torch.float32,
+                           device=g_idx.device)
+    return torch.where(g_idx >= 0, bval[g_idx.clamp(min=0)],
+                       torch.zeros((), dtype=torch.float32,
+                                   device=g_idx.device))
+
+
+def _panel_dist_operands(plan: SpgemmPlan, ad: CSRDevice, b: CSR,
+                         mesh) -> list:
+    """Per device position ``d = s·P + p``: A with row shard ``s``'s
+    remapped columns, the gathered panel operand (a compact CSR of
+    ``nref`` rows, its values gathered from ``b`` on the device this
+    execute) and its row lengths.  A's row pointers and values and B's
+    values are uploaded once per distinct device."""
+    pg = plan._panel_gather
+    args = _panel_dist_args(plan, mesh)
+    bval_host = torch.from_numpy(np.ascontiguousarray(b.val,
+                                                      dtype=np.float32))
+    per_dev = {}
+    for dev, st in args.items():
+        a_d = _on_device(ad, dev)
+        per_dev[dev] = (a_d, _gather_panel_values(st["g_idx"],
+                                                  bval_host.to(dev)))
+    ops = []
+    for d, dev in enumerate(mesh.devices):
+        st = args[dev]
+        a_d, g_val = per_dev[dev]
+        k, ks = st["d_pos"][d], st["s_pos"][d // pg.n_panels]
+        ops.append((
+            CSRDevice(rpt=a_d.rpt, col=st["a_col"][ks], val=a_d.val,
+                      shape=plan.shape_a),
+            CSRDevice(rpt=st["g_rpt"][k], col=st["g_col"][k],
+                      val=g_val[k], shape=(pg.nref, plan.shape_b[1])),
+            st["g_rnb"][k]))
+    return ops
+
+
 def _panel_operands_local(plan: SpgemmPlan, b: CSR) -> list:
     """Per-panel device CSRs at the plan's padded panel capacities.
 
@@ -1118,39 +1666,42 @@ def _panel_operands_local(plan: SpgemmPlan, b: CSR) -> list:
     return out
 
 
-def _check_panel_operand(plan: SpgemmPlan, m) -> CSR:
-    """Panel plans bake operand B's STRUCTURE into the panel slices, so a
+def _check_panel_operand(plan: SpgemmPlan, m, which: str = "b") -> CSR:
+    """Panel plans bake operand B's STRUCTURE into the panel slices (and a
+    distributed panel plan A's too, in its remapped columns), so a
     same-shape different-structure operand would silently produce a wrong
     matrix.  Require the host CSR, match its (nnz, col-sum) fingerprint
     against the planned operand's (the JAX package's check, and its error),
     then its row pointers and columns exactly: entries moved between rows
     keep the fingerprint."""
+    shape = plan.shape_b if which == "b" else plan.shape_a
+    fp = plan._panel_b_fp if which == "b" else plan._panel_a_fp
     plan.validation["fingerprint_checks"] += 1
     if not isinstance(m, CSR):
         raise PlanMismatchError(
-            "panel plans bake operand b's structure into the gather "
+            f"panel plans bake operand {which}'s structure into the gather "
             "maps — pass the host CSR operand, not a CSRDevice",
-            operand="b", plan_key=_plan_key_id(plan))
-    fp = plan._panel_b_fp
+            operand=which, plan_key=_plan_key_id(plan))
     m_fp = (int(m.nnz), int(np.asarray(m.col, dtype=np.int64).sum()))
-    if m.shape != plan.shape_b or m_fp != fp:
+    if m.shape != shape or m_fp != fp:
         raise PlanMismatchError(
-            f"operand b shape/structure {m.shape}/nnz={m.nnz} does "
-            f"not match the planned operand ({plan.shape_b}/nnz={fp[0]}) — "
-            "the panel gather map is structure-specific; re-plan for a new "
-            "sparsity pattern", operand="b", observed=list(m_fp),
+            f"operand {which} shape/structure {m.shape}/nnz={m.nnz} does "
+            f"not match the planned operand ({shape}/nnz={fp[0]}) — the "
+            "panel gather map is structure-specific; re-plan for a new "
+            "sparsity pattern", operand=which, observed=list(m_fp),
             planned=list(fp), plan_key=_plan_key_id(plan))
-    rpt0, col0 = plan._panel_b_structure
+    rpt0, col0 = (plan._panel_b_structure if which == "b"
+                  else plan._panel_a_structure)
     rpt, col = np.asarray(m.rpt), np.asarray(m.col)
     if not (np.array_equal(rpt, rpt0) and np.array_equal(col, col0)):
         k = np.flatnonzero(rpt != rpt0)
         row = (int(k[0]) - 1 if k.size else int(np.searchsorted(
             rpt0, np.flatnonzero(col != col0)[0], side="right")) - 1)
         raise PlanMismatchError(
-            f"operand b has the planned nnz and column sum but not the "
-            f"planned structure (row {row} differs) — the panel gather map "
-            "is structure-specific; re-plan for a new sparsity pattern",
-            operand="b", row=row, plan_key=_plan_key_id(plan))
+            f"operand {which} has the planned nnz and column sum but not "
+            f"the planned structure (row {row} differs) — the panel gather "
+            "map is structure-specific; re-plan for a new sparsity pattern",
+            operand=which, row=row, plan_key=_plan_key_id(plan))
     return m
 
 
@@ -1165,10 +1716,22 @@ def _unit_priced_seconds(meta: tuple, rows: int) -> float:
 
 def _plan_priced_seconds(plan: SpgemmPlan) -> float:
     """Expected seconds of one full execute() wave — the sum over every
-    (bucket[× panel]) unit the wave dispatches.  Feeds
+    (bucket × panel[× shard]) unit the wave dispatches.  Feeds
     :class:`DispatchBudget` for the wave; recovery prices each unit
     individually with :func:`_unit_priced_seconds`."""
     total = 0.0
+    if plan.distributed:
+        for i, (bk, t) in enumerate(zip(plan.binning.buckets,
+                                        plan.shard_tables)):
+            if plan.n_panels:
+                meta = _panel_meta(bk, plan.panel_deg_b[i], t.capacity)
+            else:
+                meta = _bucket_meta(bk, t.capacity)
+            # the JAX package's SPMD pricing: every device runs its rows_pb
+            # slice at once, so the wave's critical path is ONE shard's
+            # unit per bucket
+            total += _unit_priced_seconds(meta, t.rows_pb)
+        return total
     pops = plan.local_populations()
     for i, (bk, pop) in enumerate(zip(plan.binning.buckets, pops)):
         if plan.n_panels:
@@ -1182,12 +1745,15 @@ def _plan_priced_seconds(plan: SpgemmPlan) -> float:
     return total
 
 
-def _wave_budget(plan: SpgemmPlan) -> dict:
-    """The watchdog arguments of a plan's wave dispatch (none unarmed)."""
+def _wave_budget(plan: SpgemmPlan, mesh=None) -> dict:
+    """The watchdog arguments of a plan's wave dispatch (none unarmed); a
+    distributed wave synchronizes every device of its mesh."""
     if plan.dispatch_budget is None:
         return {}
     return dict(budget=plan.dispatch_budget,
-                priced_s=_plan_priced_seconds(plan), device=plan.device)
+                priced_s=_plan_priced_seconds(plan),
+                device=(plan.device if mesh is None
+                        else mesh.distinct_devices()))
 
 
 def _invoke_executor(run, info: dict, *args,
@@ -1201,8 +1767,9 @@ def _invoke_executor(run, info: dict, *args,
     pass through as they are.  Nothing is retried here.
 
     When ``budget`` is armed (``plan.dispatch_budget``), the dispatch is
-    timed between two synchronizes of ``device`` (the kernels run
-    asynchronously: without them only the launches would be timed) against
+    timed between two synchronizes of ``device``, or of each device of a
+    list (the kernels run asynchronously: without them only the launches
+    would be timed) against
     ``budget.limit(priced_s)``; exceeding it raises a typed
     :class:`StragglerError` carrying observed vs planned seconds.  Real
     wall time does not count for an executor's first dispatch, nor for a
@@ -1215,15 +1782,17 @@ def _invoke_executor(run, info: dict, *args,
             out = run(*args)
             run.dispatched = True
             return out
-        cuda = device is not None and torch.device(device).type == "cuda"
+        devices = (list(device) if isinstance(device, (list, tuple))
+                   else [] if device is None else [device])
+        cuda = [d for d in devices if torch.device(d).type == "cuda"]
         first = not getattr(run, "dispatched", False)
         loads0 = build_mod.loads
-        if cuda:
-            torch.cuda.synchronize(device)
+        for d in cuda:
+            torch.cuda.synchronize(d)
         t0 = time.perf_counter()
         out = run(*args)
-        if cuda:
-            torch.cuda.synchronize(device)
+        for d in cuda:
+            torch.cuda.synchronize(d)
         elapsed = time.perf_counter() - t0
         run.dispatched = True
         if first or build_mod.loads != loads0:
@@ -1300,7 +1869,7 @@ def _exact_capacity(need: int, cap: int) -> int:
 
 def _escalate(plan: SpgemmPlan, units: list, row_nnz: dict, caps,
               overflow: int, rerun, exact_need, commit,
-              widen=lambda new_caps: None) -> int | None:
+              widen=lambda new_caps: None, exhausted=None) -> int | None:
     """The re-planning ladder over a finished wave's units — buckets (ints)
     or (bucket, panel) pairs — shared by the whole-B and panel paths.
 
@@ -1314,7 +1883,10 @@ def _escalate(plan: SpgemmPlan, units: list, row_nnz: dict, caps,
     degradations name the unit's bucket, and its panel when it has one.
     ``commit(caps)`` stores the final capacities.  Returns the overflow
     left against them, or None when nothing was re-run (the fast path);
-    raises :class:`CapacityExhaustedError` when the policy says so."""
+    raises :class:`CapacityExhaustedError` when the policy says so
+    (``exhausted(bad_units, dropped)``, when given, raises instead: the
+    distributed paths raise JAX's :class:`ShardFailureError` naming the
+    shards)."""
     policy = plan.retry_policy
     need = {u: int(row_nnz[u].max(initial=0)) for u in units}
     panels = bool(units) and isinstance(units[0], tuple)
@@ -1325,7 +1897,7 @@ def _escalate(plan: SpgemmPlan, units: list, row_nnz: dict, caps,
     def tag(u) -> dict:
         return dict(bucket=u[0], panel=u[1]) if panels else dict(bucket=u)
 
-    def exhausted(bad, dropped):
+    def default_exhausted(bad, dropped):
         what = "bucket×panel units" if panels else "buckets"
         ctx = dict(buckets=[tag(u)["bucket"] for u in bad],
                    observed=int(dropped), plan_key=_plan_key_id(plan))
@@ -1335,6 +1907,7 @@ def _escalate(plan: SpgemmPlan, units: list, row_nnz: dict, caps,
             f"retry escalation exhausted with {int(dropped)} entries still "
             f"dropped ({what} {bad})", **ctx)
 
+    exhausted = exhausted or default_exhausted
     changed = False
     for attempt in range(1, policy.rounds + 1):
         bumps = []
@@ -1513,6 +2086,269 @@ def _replan_local_panels(plan: SpgemmPlan, ad, bps, out: PanelSpgemmOut,
                                        device=ad.device))
 
 
+def _shard_overflow(tables, nnz_host, widths) -> np.ndarray:
+    """Entries each shard position's VALID rows dropped: ``nnz_host[i]``
+    is bucket ``i``'s ``(num_shards, rows_pb)`` true counts (host) and
+    ``widths[i]`` the slots per position (an int, or one a position)."""
+    n_sh = tables[0].table.shape[0] if tables else 0
+    over = np.zeros(n_sh, dtype=np.int64)
+    for t, n, w in zip(tables, nnz_host, widths):
+        w = np.broadcast_to(np.asarray(w, dtype=np.int64), (n_sh,))
+        over += np.where(t.valid, np.maximum(n - w[:, None], 0),
+                         0).sum(axis=1)
+    return over
+
+
+def _nnz_to_host(nnzs) -> list:
+    """Every bucket's ``(num_shards, rows_pb)`` true counts, read back in
+    ONE copy."""
+    if not nnzs:
+        return []
+    flat = torch.cat([n.reshape(-1) for n in nnzs]).cpu().numpy()
+    parts = np.split(flat.astype(np.int64),
+                     np.cumsum([n.numel() for n in nnzs])[:-1])
+    return [p.reshape(tuple(n.shape)) for p, n in zip(parts, nnzs)]
+
+
+def _replan_dist(plan: SpgemmPlan, ops, out: DistSpgemmOut, nnz_host,
+                 cache: PlanCache, mesh) -> DistSpgemmOut:
+    """Distributed re-planning: the unit is a bucket, re-run over every
+    shard at its bumped capacity (a ``("bucket-retry-dist", …)``
+    executor); the ladder and the exact fallback are the local paths'
+    (:func:`_escalate`), the residual raises JAX's
+    :class:`ShardFailureError` naming the shards."""
+    buckets = plan.binning.buckets
+    tables = list(plan.shard_tables)
+    cols, vals = list(out.cols), list(out.vals)
+    args = _shard_args(plan, mesh)
+    bounds = plan.shard_flop_bounds()
+    live = _shard_live(plan)
+    first = mesh.devices[0]
+
+    def rerun(i, new_cap, unit) -> None:
+        t = tables[i]
+        meta = _bucket_meta(buckets[i], new_cap)
+        run = cache.executor(
+            ("bucket-retry-dist", plan.shape_a, plan.shape_b, plan.cap_a,
+             plan.cap_b, plan.use_kernel, meta, t.rows_pb, plan.axis,
+             _mesh_key(mesh)),
+            lambda m=meta: _build_dist_executor((m,), plan.use_kernel))
+        (c2,), (v2,), _ = _invoke_executor(
+            run, dict(unit=unit, bucket=i), ops, (args[i],), (bounds[i],),
+            (live[i],), first)
+        cols[i], vals[i] = c2, v2
+        tables[i] = dataclasses.replace(t, capacity=new_cap)
+
+    def exact_need(i) -> int:
+        bk = buckets[i]
+        ad, bd, _ = ops[0]
+        return int(predictor_mod.exact_row_counts(
+            ad, bd, bk.rows, max_deg_a=bk.deg_a, max_deg_b=bk.deg_b,
+            route=bk.route, span=bk.span, use_kernel=plan.use_kernel,
+            row_flop=plan.flopr[bk.rows]).max(initial=1))
+
+    def overflow_now() -> np.ndarray:
+        return _shard_overflow(tables, nnz_host,
+                               [t.capacity for t in tables])
+
+    def exhausted(bad, dropped):
+        shards = [int(s) for s in np.flatnonzero(overflow_now())]
+        raise ShardFailureError(
+            f"retry escalation exhausted with {int(dropped)} entries still "
+            f"dropped on shards {shards}", shards=shards, buckets=list(bad),
+            observed=int(dropped), plan_key=_plan_key_id(plan))
+
+    def commit(caps) -> None:
+        plan.shard_tables = tuple(tables)   # reassemble reads the widths
+        if plan._template is not None:
+            plan._template.grow_dist(plan.num_shards,
+                                     [t.rows_pb for t in tables],
+                                     [t.capacity for t in tables])
+
+    left = _escalate(
+        plan, list(range(len(buckets))),
+        {i: np.where(t.valid, nnz_host[i], 0).ravel()
+         for i, t in enumerate(tables)},
+        [t.capacity for t in tables], int(out.shard_overflow.sum()),
+        rerun, exact_need, commit, exhausted=exhausted)
+    if left is None:
+        return out
+    return DistSpgemmOut(tuple(cols), tuple(vals), out.row_nnz,
+                         overflow_now())
+
+
+def _replan_dist_panels(plan: SpgemmPlan, ops, out: DistSpgemmOut,
+                        nnz_host, cache: PlanCache, mesh) -> DistSpgemmOut:
+    """Distributed panel re-planning: overflow is found per (bucket ×
+    panel) across that panel's devices, and ONLY the offending unit
+    re-runs — one cached per-bucket executor dispatch per row shard,
+    against the SAME gathered operands the wave used.  A unit's threshold
+    is the width it ran at (every panel of a bucket runs at the bucket's
+    shard capacity)."""
+    pg = plan._panel_gather
+    npan = plan.n_panels
+    buckets = plan.binning.buckets
+    tables = list(plan.shard_tables)
+    cols, vals = list(out.cols), list(out.vals)
+    args = _shard_args(plan, mesh)
+    bounds = plan.shard_flop_bounds()
+    alloc0 = np.array([[int(t.capacity)] * npan for t in tables],
+                      dtype=np.int64).reshape(len(tables), npan)
+    caps = alloc0.copy()
+
+    def rerun(u, new_cap, unit) -> None:
+        i, p = u
+        t = tables[i]
+        meta = _panel_meta(buckets[i], plan.panel_deg_b[i], new_cap)
+        run = cache.executor(
+            ("bucket-retry-panel-dist", plan.shape_a, plan.shape_b,
+             plan.cap_a, pg.nref, pg.ecap, plan.use_kernel, meta, t.rows_pb),
+            lambda m=meta: _build_bucket_executor(m, plan.use_kernel))
+        if new_cap > cols[i].shape[2]:
+            cols[i] = _widen_block(cols[i], new_cap, COL_SENTINEL)
+            vals[i] = _widen_block(vals[i], new_cap, 0.0)
+        for s in range(plan.row_shards):
+            d = s * npan + p
+            ad_d, gd_d, _ = ops[d]
+            c2, v2, _, _ = _invoke_executor(
+                run, dict(unit=unit, bucket=i, panel=p, shard=s), ad_d, gd_d,
+                args[i][d], bounds[i][d])
+            cols[i][d, :, :new_cap].copy_(c2)
+            vals[i][d, :, :new_cap].copy_(v2)
+
+    def exact_need(u) -> int:
+        i, p = u
+        bk, t = buckets[i], tables[i]
+        need = 1
+        for s in range(plan.row_shards):
+            d = s * npan + p
+            rows = t.table[d][t.valid[d]]
+            if not rows.size:
+                continue
+            ad_d, gd_d, _ = ops[d]
+            need = max(need, int(predictor_mod.exact_row_counts(
+                ad_d, gd_d, rows, max_deg_a=bk.deg_a,
+                max_deg_b=plan.panel_deg_b[i], route=bk.route, span=bk.span,
+                use_kernel=plan.use_kernel,
+                row_flop=plan._panel_flopr[p][rows]).max(initial=1)))
+        return need
+
+    def overflow_now() -> np.ndarray:
+        dev_panel = np.arange(plan.num_shards) % npan
+        return _shard_overflow(tables, nnz_host,
+                               [caps[i, dev_panel] for i in range(len(caps))])
+
+    def exhausted(bad, dropped):
+        devs = np.flatnonzero(overflow_now())
+        raise ShardFailureError(
+            f"retry escalation exhausted with {int(dropped)} entries still "
+            f"dropped (bucket×panel units {bad})",
+            shards=[int(d) // npan for d in devs], observed=int(dropped),
+            plan_key=_plan_key_id(plan))
+
+    def commit(final) -> None:
+        plan.panel_caps = np.where(final != alloc0, final, plan.panel_caps)
+        plan.shard_tables = tuple(
+            dataclasses.replace(t, capacity=int(cols[i].shape[2]))
+            for i, t in enumerate(tables))
+
+    left = _escalate(
+        plan, [(i, p) for i in range(len(tables)) for p in range(npan)],
+        {(i, p): np.where(t.valid[p::npan], nnz_host[i][p::npan], 0).ravel()
+         for i, t in enumerate(tables) for p in range(npan)},
+        caps, int(out.shard_overflow.sum()), rerun, exact_need, commit,
+        exhausted=exhausted)
+    if left is None:
+        return out
+    return DistSpgemmOut(tuple(cols), tuple(vals), out.row_nnz,
+                         overflow_now())
+
+
+def _widen_block(block: torch.Tensor, width: int, fill) -> torch.Tensor:
+    """A stacked ``(num_shards, rows_pb, w)`` block widened to ``width``
+    slots (sentinel or 0 fill) — splicing only ever widens buffers."""
+    if block.shape[-1] >= width:
+        return block
+    grown = torch.full(block.shape[:-1] + (width,), fill, dtype=block.dtype,
+                       device=block.device)
+    grown[..., :block.shape[-1]] = block
+    return grown
+
+
+def _execute_dist(plan: SpgemmPlan, a, b, mesh, cache: PlanCache
+                  ) -> DistSpgemmOut:
+    """The mesh branch of :func:`execute`."""
+    mesh = mesh if mesh is not None else plan.mesh
+    if mesh is None:
+        raise PlanMismatchError(
+            "distributed plan needs a mesh (plan_spgemm(mesh=...)"
+            " or execute(..., mesh=...))", plan_key=_plan_key_id(plan))
+    if not isinstance(mesh, mesh_mod.Mesh):
+        raise PlanMismatchError(
+            f"mesh must be a repro_torch.core.mesh.Mesh, got "
+            f"{type(mesh).__name__}", field="mesh")
+    if int(mesh.shape.get(plan.axis, 0)) != plan.num_shards:
+        raise PlanMismatchError(
+            f"plan was built for {plan.num_shards} shards but mesh axis "
+            f"{plan.axis!r} has {int(mesh.shape.get(plan.axis, 0))} devices "
+            "— re-plan with this mesh",
+            observed=int(mesh.shape.get(plan.axis, 0)),
+            planned=plan.num_shards, plan_key=_plan_key_id(plan))
+    first = mesh.devices[0]
+    if plan.n_panels:
+        # the structure checks are O(nnz) host passes — the PLANNED operands
+        # (the common serving identity) skip them
+        planned = (plan._planned_pair[0] if plan._planned_pair is not None
+                   else (None, None))
+        if b is not planned[1]:
+            b = _check_panel_operand(plan, b, "b")
+        if a is not planned[0]:
+            # the gather baked A's remapped columns too
+            a = _check_panel_operand(plan, a, "a")
+        ad = _coerce_one(plan, a, "a", 0)
+        ops = _panel_dist_operands(plan, ad, b, mesh)
+        metas = tuple(_panel_meta(bk, db, t.capacity)
+                      for bk, db, t in zip(plan.binning.buckets,
+                                           plan.panel_deg_b,
+                                           plan.shard_tables))
+        unit = "dist-panels"
+    else:
+        ops = _dist_operands(plan, _coerce_one(plan, a, "a", 0),
+                             _coerce_one(plan, b, "b", 1), mesh)
+        metas = tuple(_bucket_meta(bk, t.capacity)
+                      for bk, t in zip(plan.binning.buckets,
+                                       plan.shard_tables))
+        unit = "dist"
+    if not plan.binning.buckets:
+        return DistSpgemmOut((), (), (), np.zeros(plan.num_shards,
+                                                  dtype=np.int64))
+    run = cache.executor(_executor_key(plan, mesh),
+                         lambda: _build_dist_executor(metas,
+                                                      plan.use_kernel))
+    try:
+        cols, vals, nnzs = _invoke_executor(
+            run, dict(unit=unit), ops, _shard_args(plan, mesh),
+            plan.shard_flop_bounds(), _shard_live(plan), first,
+            **_wave_budget(plan, mesh))
+    except ShardFailureError as e:
+        # the wave is all-or-nothing; recovery re-executes it as (bucket ×
+        # shard) units, checkpointing each as it lands, and re-homes a lost
+        # shard's rows on the survivors (DESIGN.md §12)
+        from . import recovery as recovery_mod
+        if plan.n_panels:
+            return recovery_mod.recover_dist_panels(plan, ops, mesh, cache,
+                                                    e)
+        return recovery_mod.recover_dist(plan, ops, mesh, cache, e)
+    nnz_host = _nnz_to_host(nnzs)
+    out = DistSpgemmOut(cols, vals, nnzs, _shard_overflow(
+        plan.shard_tables, nnz_host,
+        [t.capacity for t in plan.shard_tables]))
+    if plan.retry_policy is not None:
+        replan = _replan_dist_panels if plan.n_panels else _replan_dist
+        out = replan(plan, ops, out, nnz_host, cache, mesh)
+    return out
+
+
 def _execute_panels(plan: SpgemmPlan, a, b, cache: PlanCache
                     ) -> PanelSpgemmOut:
     """The panel branch of :func:`execute`."""
@@ -1545,7 +2381,8 @@ def _execute_panels(plan: SpgemmPlan, a, b, cache: PlanCache
     return out
 
 
-def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None):
+def execute(plan: SpgemmPlan, a, b, *, mesh=None,
+            cache: PlanCache | None = None):
     """Run the planned numeric phase on the plan's device.
 
     ``a``/``b`` may be host ``CSR`` (converted at the plan's padded
@@ -1567,9 +2404,16 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None):
     Plans armed with a :class:`DispatchBudget` time the wave; a straggling
     wave (:class:`StragglerError`) replays unit by unit through
     ``core.recovery`` (ledger in ``plan.recoveries``), then re-planning
-    runs on the replayed result as on the wave's."""
+    runs on the replayed result as on the wave's.
+
+    Distributed plans run on ``mesh`` (default: the plan's) and return a
+    :class:`DistSpgemmOut`; a wave that fails — an executor error, a lost
+    shard or a straggler — re-executes unit by unit and re-homes a lost
+    shard's rows on the survivors (``core.recovery``)."""
     cache = cache if cache is not None else _DEFAULT_CACHE
     plan.recoveries = []               # observability covers the LAST execute
+    if plan.distributed:
+        return _execute_dist(plan, a, b, mesh, cache)
     if plan.n_panels:
         return _execute_panels(plan, a, b, cache)
     ad = _coerce_one(plan, a, "a", 0)
@@ -1591,6 +2435,40 @@ def execute(plan: SpgemmPlan, a, b, *, cache: PlanCache | None = None):
     if plan.retry_policy is not None:
         out = _replan_local(plan, ad, bd, out, cache)
     return out
+
+
+def _gather_runs(kept_n: torch.Tensor, src: torch.Tensor, flat_c: list,
+                 flat_v: list, nrows: int, ncols: int) -> tuple[CSR, int]:
+    """One host CSR from runs of kept slots, without a sort.
+
+    ``kept_n[r, p]`` is the number of slots row ``r`` keeps in its run of
+    group ``p`` (a panel; one group without panels) and ``src[r, p]`` that
+    run's offset in the concatenation of ``flat_c``/``flat_v``.  A row's
+    entries are its runs in group order.  The row pointers (the only
+    read-back) are the running sum of the kept counts, and one gather
+    compacts every run.  Returns the CSR and the number of sentinel slots
+    the gather picked up (0 unless a count was wrong; a device scalar, so
+    the caller reads it back with its own checks)."""
+    dev = kept_n.device
+    rpt_d = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(kept_n.sum(dim=1), dim=0, out=rpt_d[1:])
+    rpt = rpt_d.cpu().numpy()
+    total = int(rpt[-1])
+    col = torch.empty(0, dtype=torch.int32, device=dev)
+    val = torch.empty(0, dtype=torch.float32, device=dev)
+    holes = torch.zeros((), dtype=torch.int64, device=dev)
+    if flat_c:
+        # the runs tile [0, total) in (row, group) order: output slot t
+        # reads flat slot t + (src - start) of the run it falls in
+        start = rpt_d[:-1, None] + torch.cumsum(kept_n, dim=1) - kept_n
+        idx = torch.arange(total, dtype=torch.int64, device=dev) \
+            + torch.repeat_interleave((src - start).reshape(-1),
+                                      kept_n.reshape(-1), output_size=total)
+        col = torch.cat(flat_c)[idx]
+        val = torch.cat(flat_v)[idx]
+        holes = (col == COL_SENTINEL).sum()
+    return CSR(rpt=rpt, col=col.cpu().numpy(), val=val.cpu().numpy(),
+               shape=(nrows, ncols)), holes
 
 
 def _reassemble_panels(plan: SpgemmPlan, out: PanelSpgemmOut, nrows: int,
@@ -1622,37 +2500,68 @@ def _reassemble_panels(plan: SpgemmPlan, out: PanelSpgemmOut, nrows: int,
         src[rows, p] = off + c.shape[1] * torch.arange(
             c.shape[0], dtype=torch.int64, device=dev)
         off += c.numel()
-    rpt_d = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(kept_n.sum(dim=1), dim=0, out=rpt_d[1:])
-    rpt = rpt_d.cpu().numpy()
-    total = int(rpt[-1])
-    col = torch.empty(0, dtype=torch.int32, device=dev)
-    val = torch.empty(0, dtype=torch.float32, device=dev)
+    flat_c = [out.cols[i][p].reshape(-1) for i, p in keys]
+    c, holes = _gather_runs(kept_n, src, flat_c,
+                            [out.vals[i][p].reshape(-1) for i, p in keys],
+                            nrows, ncols)
     if keys:
-        # the runs tile [0, total) in (row, panel) order: output slot d
-        # reads flat slot d + (src - start) of the run it falls in
-        start = rpt_d[:-1, None] + torch.cumsum(kept_n, dim=1) - kept_n
-        idx = torch.arange(total, dtype=torch.int64, device=dev) \
-            + torch.repeat_interleave((src - start).reshape(-1),
-                                      kept_n.reshape(-1), output_size=total)
-        flat_c = torch.cat([out.cols[i][p].reshape(-1) for i, p in keys])
-        col = flat_c[idx]
-        val = torch.cat([out.vals[i][p].reshape(-1) for i, p in keys])[idx]
-        kept, holes = torch.stack([(flat_c != COL_SENTINEL).sum(),
-                                   (col == COL_SENTINEL).sum()]).tolist()
-        if kept != total or holes:
+        kept, holes = torch.stack([
+            sum((f != COL_SENTINEL).sum() for f in flat_c), holes]).tolist()
+        if kept != c.nnz or holes:
             raise RuntimeError(
                 f"reassemble: {kept} entries kept in the panel blocks but "
                 f"their row counts clamped to the plan's capacities sum to "
-                f"{total}")
-    return CSR(rpt=rpt, col=col.cpu().numpy(), val=val.cpu().numpy(),
-               shape=(nrows, ncols))
+                f"{c.nnz}")
+    return c
+
+
+def _reassemble_dist(plan: SpgemmPlan, out: DistSpgemmOut, nrows: int,
+                     ncols: int) -> CSR:
+    """One host CSR from the stacked shard blocks, on the device.
+
+    Each VALID block row is one row's run (one per panel with panels,
+    device ``d`` holding panel ``d % P``); pad rows — a shard's repeats of
+    its last row, or any bucket row where it owns none — are never read.
+    A run keeps its slots up to the first sentinel (the columns of a block
+    row ascend, and the sentinel is the largest int32), found by one
+    ``searchsorted`` a block, whatever width each unit ran at; the runs
+    are then compacted by one gather, as the panel blocks are."""
+    npan = max(1, plan.n_panels)
+    dev = out.cols[0].device if out.cols else plan.device
+    kept_n = torch.zeros((nrows, npan), dtype=torch.int64, device=dev)
+    src = torch.zeros_like(kept_n)
+    flat_c, flat_v = [], []
+    off = 0
+    for t, c, v in zip(plan.shard_tables, out.cols, out.vals):
+        n_sh, pb, width = c.shape
+        flat = c.reshape(n_sh * pb, width)
+        keep = np.flatnonzero(t.valid.reshape(-1))
+        if keep.size:
+            cnt = torch.searchsorted(
+                flat, torch.full((n_sh * pb, 1), COL_SENTINEL,
+                                 dtype=torch.int32, device=dev)).squeeze(1)
+            sel = torch.from_numpy(keep).to(dev)
+            rows = torch.from_numpy(
+                t.table.reshape(-1)[keep].astype(np.int64)).to(dev)
+            grp = (sel // pb) % npan
+            kept_n[rows, grp] = cnt[sel]
+            src[rows, grp] = off + sel * width
+        flat_c.append(c.reshape(-1))
+        flat_v.append(v.reshape(-1))
+        off += c.numel()
+    csr, holes = _gather_runs(kept_n, src, flat_c, flat_v, nrows, ncols)
+    holes = int(holes)
+    if holes:
+        raise RuntimeError(f"reassemble: {holes} sentinel slots inside the "
+                           "shard blocks' kept runs")
+    return csr
 
 
 def reassemble(plan: SpgemmPlan, out, ncols: int | None = None, *,
                on_overflow: str = "raise") -> CSR:
-    """Stitch an :func:`execute` result (a ``SpGEMMOut``, or a panel plan's
-    ``PanelSpgemmOut``) back into one host CSR.
+    """Stitch an :func:`execute` result (a ``SpGEMMOut``, a panel plan's
+    ``PanelSpgemmOut`` or a distributed plan's ``DistSpgemmOut``) back into
+    one host CSR.
 
     Overflow (entries dropped for capacity) RAISES by default instead of
     silently truncating the result — pass ``on_overflow="ignore"`` to get
@@ -1663,6 +2572,15 @@ def reassemble(plan: SpgemmPlan, out, ncols: int | None = None, *,
                                 f"got {on_overflow!r}")
     ncols = int(ncols if ncols is not None else plan.shape_b[1])
     nrows = plan.shape_a[0]
+    if isinstance(out, DistSpgemmOut):
+        total = int(np.asarray(out.shard_overflow).sum())
+        if total and on_overflow == "raise":
+            shards = [int(s) for s in np.asarray(out.shard_overflow)]
+            raise CapacityExhaustedError(
+                f"SpGEMM overflow: {total} entries dropped (per shard: "
+                f"{shards}); re-plan with a higher safety factor or pass "
+                "on_overflow='ignore'", observed=total, shards=shards)
+        return _reassemble_dist(plan, out, nrows, ncols)
     overflow = int(out.overflow)
     if overflow and on_overflow == "raise":
         raise CapacityExhaustedError(

@@ -226,6 +226,14 @@ def _drop_tables(key: int, ref) -> None:
         del _PLAN_TABLES[key]
 
 
+def drop_plan_tables(plan: BinningPlan) -> None:
+    """Forget ``plan``'s cached tables on every device (they are rebuilt on
+    the next call of :func:`plan_tables`)."""
+    entry = _PLAN_TABLES.get(id(plan))
+    if entry is not None and entry[0]() is plan:
+        del _PLAN_TABLES[id(plan)]
+
+
 def plan_tables(plan: BinningPlan, device) -> PlanTables:
     """``plan``'s :class:`PlanTables` on ``device``, built and uploaded on
     the first call for that plan and device (one copy), then reused for as

@@ -51,11 +51,14 @@ The service is a synchronous event loop (``submit`` / ``step`` /
 which is what makes the chaos soak (the ``core.faults`` classes armed over
 mixed traffic) deterministic.
 
-This is the JAX package's service on one device.  ``ServiceConfig.device``
-(default: the CUDA card) is passed to ``plan_spgemm``; a ``mesh`` is
-accepted in the config but every request planned with one ends FAILED
-with the planner's typed :class:`~repro_torch.core.errors.
-PlanMismatchError` until the port plans distributed execution.
+This is the JAX package's service.  ``ServiceConfig.device`` (default:
+the CUDA card, or the mesh's first device) is passed to ``plan_spgemm``; a
+``mesh`` (:class:`~repro_torch.core.mesh.Mesh`) routes every plan through
+the distributed executors, and a request whose wave lost a shard ends
+DEGRADED with the recovery ledger attached.  On a CUDA plan admission
+reserves the larger of JAX's estimate and the port's price of its real
+device allocation (``admission.device_price``), so ``device_budget_bytes``
+bounds the card's memory.
 """
 from __future__ import annotations
 
@@ -224,10 +227,8 @@ class CircuitBreaker:
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     queue_capacity: int = 64
-    # admission reserves serve.admission's estimate (the JAX package's
-    # bucket-slot formula); an unpanelled execute also holds the
-    # (M, row_capacity) output and temporaries, so this does not bound the
-    # device's memory
+    # admission reserves CostEstimate.reserve_bytes: on a CUDA plan the
+    # larger of JAX's bucket-slot estimate and the port's device price
     device_budget_bytes: int = 256 << 20
     default_deadline: float | None = None   # seconds from submit
     max_batch: int = 8
@@ -240,13 +241,14 @@ class ServiceConfig:
     validate: bool = True
     breaker_threshold: int = 3
     breaker_cooldown: float = 1.0
-    # degraded-mesh knobs: a mesh routes plans through the distributed
-    # executors (refused by the port's planner until it has them); a
+    # degraded-mesh knobs: a mesh (core.mesh.Mesh) routes plans through the
+    # distributed executors (shard-loss recovery territory); a
     # DispatchBudget arms the straggler watchdog on every wave the service
     # issues
     mesh: object = None
     dispatch_budget: object = None
-    # where plans run: None → the CUDA card, "cpu" → the plain versions
+    # where plans run: None → the mesh's first device or the CUDA card,
+    # "cpu" → the plain versions
     device: object = None
     # base policy keeps the ladder short and surfaces exhaustion as a typed
     # CapacityExhaustedError; the escalated policy (one requeue later) turns
@@ -302,6 +304,9 @@ class SpgemmService:
             req.stats.setdefault("recoveries",
                                  [dict(e) for e in req.plan.recoveries])
             req.stats.setdefault("retries", int(req.plan.retries))
+            # the reservation is released at terminal, so is the device
+            # memory the plan still caches (its record stays)
+            req.plan.release_device()
         if req.estimate is not None:
             req.stats.setdefault("estimate", req.estimate.stats())
 
@@ -429,7 +434,12 @@ class SpgemmService:
             batch.append(cand)
         # passed-over mates go back to the FRONT: they were popped from
         # ahead of everything still queued, so a tail restore would rotate
-        # the queue whenever the scan stops early
+        # the queue whenever the scan stops early.  They hold no
+        # reservation, so they hold no device memory either (their plans
+        # upload again when they run)
+        for cand in keep:
+            if cand.plan is not None:
+                cand.plan.release_device()
         self._queue.restore_front(keep)
         return batch
 
@@ -500,10 +510,10 @@ class SpgemmService:
             self._finish(head, RequestState.FAILED,
                          error=AdmissionRejectedError(
                              f"request {head.id} estimate "
-                             f"{head.estimate.total_bytes} bytes exceeds the "
-                             f"device budget {self._budget.total}",
+                             f"{head.estimate.reserve_bytes} bytes exceeds "
+                             f"the device budget {self._budget.total}",
                              reason="over_budget", request=head.id,
-                             observed=int(head.estimate.total_bytes),
+                             observed=int(head.estimate.reserve_bytes),
                              planned=int(self._budget.total)))
             finished.append(head)
             return finished

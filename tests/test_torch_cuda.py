@@ -1482,3 +1482,105 @@ def test_service_results_equal_direct_runs_on_the_card(card):
             np.testing.assert_array_equal(r.result.val.view(np.int32),
                                           want.val.view(np.int32))
     assert svc.stats()["plan_cache"]["traces"] == traces
+
+
+def _mesh_units(p):
+    bounds = p.shard_flop_bounds()
+    return sum(1 for i, t in enumerate(p.shard_tables)
+               for s in range(p.num_shards)
+               if t.valid[s].any() and bounds[i][s])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin", "auto"])
+@pytest.mark.parametrize("n_panels", [0, 2])
+def test_mesh_plan_equals_the_single_device_plan_on_the_card(card, route,
+                                                             n_panels):
+    """A 4-shard mesh of the one card: one numeric launch a (bucket ×
+    shard) unit with rows and products, the blocks on the card, and the
+    single-device plan's CSR of the same mode (whole-B, or the same
+    panels) bit for bit.  A row's panel parts may take another kernel
+    unit than the whole row and add in another order, so panel runs equal
+    the whole-B run within tolerance only."""
+    from repro_torch.core.mesh import make_mesh
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=91), 92)
+
+    def single(n):
+        sp = plan.plan_spgemm(m, m, route=route, use_kernel=True,
+                              device=card, safety=4.0, n_panels=n)
+        return plan.reassemble(sp, plan.execute(sp, m, m,
+                                                cache=plan.PlanCache()))
+
+    whole = single(0)
+    want = single(n_panels) if n_panels else whole
+    mesh = make_mesh((4,), ("data",), devices=[card] * 4)
+    p = plan.plan_spgemm(m, m, route=route, use_kernel=True, mesh=mesh,
+                         safety=4.0, n_panels=n_panels)
+    before = _numeric_launches()
+    out = plan.execute(p, m, m, cache=plan.PlanCache())
+    assert _numeric_launches() - before == _mesh_units(p)
+    assert out.cols[0].is_cuda and int(out.shard_overflow.sum()) == 0
+    c = plan.reassemble(p, out)
+    np.testing.assert_array_equal(c.rpt, want.rpt)
+    np.testing.assert_array_equal(c.col, want.col)
+    np.testing.assert_array_equal(c.val.view(np.int32),
+                                  want.val.view(np.int32))
+    np.testing.assert_array_equal(c.col, whole.col)
+    np.testing.assert_allclose(c.val, whole.val, rtol=VAL_RTOL, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["esc", "spa", "bin"])
+@pytest.mark.parametrize("n_panels", [0, 2])
+def test_lost_shard_rehomes_bitwise_on_the_card(card, route, n_panels):
+    """Shard 1 of a 4-shard mesh of the card is lost: its rows (its whole
+    units, with panels) re-run on the survivors and the product equals the
+    clean run bit for bit."""
+    from repro_torch.core import faults
+    from repro_torch.core.mesh import make_mesh
+    m = _valued(sprand.power_law(3000, 3000, 40, 1.4, seed=93), 94)
+    mesh = make_mesh((4,), ("data",), devices=[card] * 4)
+    p = plan.plan_spgemm(m, m, route=route, use_kernel=True, mesh=mesh,
+                         safety=4.0, n_panels=n_panels,
+                         retry_policy=plan.RetryPolicy())
+    cache = plan.PlanCache()
+    clean = plan.reassemble(p, plan.execute(p, m, m, cache=cache))
+    with faults.inject(lose_shard=1):
+        c = plan.reassemble(p, plan.execute(p, m, m, cache=cache))
+    kinds = [e["kind"] for e in p.recoveries]
+    assert kinds[0] == "wave_failed" and "rehome" in kinds
+    assert {e["shard"] for e in p.recoveries if e["kind"] == "rehome"} == {1}
+    np.testing.assert_array_equal(c.rpt, clean.rpt)
+    np.testing.assert_array_equal(c.col, clean.col)
+    np.testing.assert_array_equal(c.val.view(np.int32),
+                                  clean.val.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["whole", "panels", "mesh",
+                                     "mesh_panels"])
+@pytest.mark.parametrize("family", ["power_law", "banded"])
+def test_reservation_covers_the_peak_on_the_card(card, family, variant):
+    """What admission reserves for a CUDA plan covers the device bytes its
+    plan → execute → reassemble peak at, above what was allocated before
+    planning."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.serve import admission
+    m = _valued(sprand.power_law(20_000, 20_000, 6, 1.6, seed=95)
+                if family == "power_law"
+                else sprand.banded(20_000, 20_000, 16, 24, seed=96), 97)
+    kw = dict(n_panels=2 if variant.endswith("panels") else 0)
+    if variant.startswith("mesh"):
+        kw["mesh"] = make_mesh((4,), ("data",), devices=[card] * 4)
+    else:
+        kw["device"] = card
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p = plan.plan_spgemm(m, m, use_kernel=True, **kw)
+    est = admission.estimate_cost(p)
+    plan.reassemble(p, plan.execute(p, m, m, cache=plan.PlanCache()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert isinstance(est, admission.DeviceCostEstimate)
+    assert est.reserve_bytes >= peak

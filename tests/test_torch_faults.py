@@ -12,10 +12,11 @@ after the prediction, gather starvation on the panel operands, and executor
 failure in :func:`repro_torch.core.plan._invoke_executor`, which every
 dispatch goes through with JAX's unit names.  The straggler class
 (``delay``) runs through the dispatch budget and single-device recovery:
-JAX's recovery ledger and CSR.  The shard-loss class (``lose``) needs the
-mesh, which the port still refuses with ``PlanMismatchError``, and
-``inject`` refuses to arm its hook the same way: pinned so here.  On the
-CPU ``use_kernel`` runs the kernel wrappers' plain versions."""
+JAX's recovery ledger and CSR.  The shard-loss class (``lose``) runs on a
+mesh of CPU devices: on one shard recovery has no survivor and raises
+JAX's typed error; on four the lost shard's rows re-home on the survivors,
+bitwise equal to the no-fault run.  On the CPU ``use_kernel`` runs the
+kernel wrappers' plain versions."""
 import functools
 from collections import Counter
 
@@ -28,9 +29,10 @@ from repro.core import plan as jplan_mod
 from repro.sparse import random as sprand
 from repro_torch.core import faults
 from repro_torch.core import plan as tplan_mod
+from repro_torch.core.mesh import make_mesh
 from repro_torch.core.errors import (CapacityExhaustedError,
                                      OperandValidationError,
-                                     PlanMismatchError, ShardFailureError,
+                                     ShardFailureError,
                                      SpgemmError, StragglerError)
 from repro_torch.sparse.formats import CSR, spgemm_dense_oracle
 
@@ -164,19 +166,52 @@ def test_containment_matrix_matches_jax(family, fault, inj, pkw, outcome,
                                        error="StragglerError")
 
 
-@pytest.mark.parametrize("fault,inj,pkw", [
-    ("lose", dict(lose_shard=0), dict(mesh=object())),
-], ids=["lose"])
+@pytest.mark.parametrize("shards", [1, 4])
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_watchdog_and_shard_faults_are_refused_until_ported(family, fault,
-                                                            inj, pkw):
-    """The shard-loss class needs a mesh, which the port does not plan yet:
-    it refuses it, typed."""
+def test_shard_loss_class(family, shards):
+    """The shard-loss class (``lose``).  On a one-shard mesh every shard is
+    the lost shard: recovery has no survivor, and the run raises JAX's
+    :class:`ShardFailureError` with JAX's context (a one-device JAX mesh,
+    in-process).  On four shards the lost shard's rows re-home on the
+    survivors — each survivor's units run once — and the result equals the
+    port's no-fault run bit for bit."""
     a, b = (_host(m) for m in FAMILIES[family])
-    kind, res, _ = _run(tplan_mod, faults, a, b, inj, pkw, device="cpu")
-    assert kind == "raise" and isinstance(res, PlanMismatchError)
-    assert res.context["field"] == "mesh"
+    mesh = make_mesh((shards,), ("data",), devices=["cpu"] * shards)
+    lost = 0 if shards == 1 else 2
+    kind, res, p = _run(tplan_mod, faults, a, b, dict(lose_shard=lost),
+                        dict(mesh=mesh), device="cpu")
     assert not faults.armed()
+    if shards == 1:
+        import jax
+        jkind, jres, _ = _run(jplan_mod, jfaults, *FAMILIES[family],
+                              dict(lose_shard=0),
+                              dict(mesh=jax.make_mesh((1,), ("data",))),
+                              cache=_jax_cache(family))
+        assert kind == jkind == "raise", (kind, res)
+        assert type(res).__name__ == type(jres).__name__ \
+            == "ShardFailureError"
+        assert _context(res) == _context(jres)
+        assert isinstance(res.__cause__, ShardFailureError)
+        return
+    assert kind == "ok", res
+    _, clean, _ = _run(tplan_mod, faults, a, b, None, dict(mesh=mesh),
+                       device="cpu")
+    np.testing.assert_array_equal(res.rpt, clean.rpt)
+    np.testing.assert_array_equal(res.col, clean.col)
+    np.testing.assert_array_equal(res.val.view(np.int32),
+                                  clean.val.view(np.int32))
+    np.testing.assert_allclose(res.to_dense(), spgemm_dense_oracle(a, b),
+                               rtol=1e-4, atol=1e-4)
+    kinds = [e["kind"] for e in p.recoveries]
+    assert kinds[0] == "wave_failed" and "shard_lost" in kinds
+    assert {e["shard"] for e in p.recoveries if e["kind"] == "shard_lost"} \
+        == {lost}
+    units = [(e["bucket"], e["shard"]) for e in p.recoveries
+             if e["kind"] == "unit"]
+    assert len(units) == len(set(units)) and lost not in {s for _, s in units}
+    rehomes = [e for e in p.recoveries if e["kind"] == "rehome"]
+    assert rehomes and {e["shard"] for e in rehomes} == {lost}
+    assert {e["to"] for e in rehomes} <= {0, 1, 3}
 
 
 # --------------------------------------------------------------------------- #
@@ -437,10 +472,21 @@ def test_hooks_match_jax():
         with pytest.raises(faults.InjectedFault):
             faults.check_executor(dict(unit="exact-fallback", bucket=1))
         faults.check_executor(dict(unit="exact-fallback", bucket=1))
-    with pytest.raises(PlanMismatchError) as err:
-        with faults.inject(lose_shard=1):
-            pass
-    assert err.value.context["field"] == "mesh"
+    def fires(check, info):
+        try:
+            check(info)
+        except Exception:          # InjectedFault, each package its own
+            return True
+        return False
+
+    infos = (dict(unit="dist"), dict(unit="dist-panels"),
+             dict(unit="recover", bucket=0, shard=1),
+             dict(unit="recover", bucket=0, shard=0), dict(unit="local"),
+             dict(unit="bucket-retry", bucket=1))
+    with faults.inject(lose_shard=1), jfaults.inject(lose_shard=1):
+        got = [fires(faults.check_executor, i) for i in infos]
+        assert got == [fires(jfaults.check_executor, i) for i in infos]
+    assert got == [True, True, True, False, False, False]
     assert not faults.armed()
     infos = (dict(unit="dist"), dict(unit="local"),
              dict(unit="recover", bucket=2), dict(unit="dist", shard=1))

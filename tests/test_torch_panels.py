@@ -36,6 +36,7 @@ from repro_torch.core import partition as tpartition
 from repro_torch.core import plan as tplan_mod
 from repro_torch.core import predictor as tpredictor
 from repro_torch.core.errors import PlanMismatchError
+from repro_torch.core.mesh import make_mesh
 from repro_torch.sparse.formats import CSR, spgemm_dense_oracle
 
 torch.set_num_threads(1)
@@ -518,9 +519,21 @@ def test_panel_operand_with_moved_entries_is_refused(how):
     assert p.validation["fingerprint_checks"] == 1
 
 
-@pytest.mark.parametrize("option", [dict(num_shards=4), dict(num_shards=2),
-                                    dict(mesh=object())])
-def test_panels_with_shards_are_refused(option):
+@pytest.mark.parametrize("option,n_panels", [
+    (dict(num_shards=4), 3), (dict(num_shards=2), 4), ("mesh", 3)])
+def test_panels_must_divide_the_mesh(option, n_panels):
+    """``tests/test_panels.py``'s pin: panels fold onto the mesh axis, so
+    ``n_panels`` must divide its size — refused typed, as in JAX, with the
+    same message."""
     a = _host(sprand.banded(100, 100, 4, 6, seed=1))
-    with pytest.raises(PlanMismatchError):
-        tplan_mod.plan_spgemm(a, a, n_panels=2, device="cpu", **option)
+    if option == "mesh":
+        option = dict(mesh=make_mesh((4,), ("data",), devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match="divide") as err:
+        tplan_mod.plan_spgemm(a, a, n_panels=n_panels, device="cpu",
+                              **option)
+    assert isinstance(err.value, PlanMismatchError)
+    shards = option.get("num_shards", 4)
+    with pytest.raises(ValueError, match="divide"):
+        jplan_mod.plan_spgemm(sprand.banded(100, 100, 4, 6, seed=1),
+                              sprand.banded(100, 100, 4, 6, seed=1),
+                              n_panels=n_panels, num_shards=shards)

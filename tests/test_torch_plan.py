@@ -2,9 +2,10 @@
 the port against the JAX package on all five mini families (same operands,
 same sample rows), with the default ``route="auto"``, and forced ESC, SPA
 and BIN, and against the dense oracle;
-plus the executor cache, the options the port still refuses (distributed
-plans, column panels, the straggler watchdog), and the rule that
-the plan runs on the CUDA card unless the CPU is asked for."""
+plus the executor cache, the mesh checks of ``execute`` (a plan's shard
+count against the mesh's, and a mesh that is not a ``Mesh``), the
+straggler watchdog's settings, and the rule that the plan runs on the CUDA
+card unless the CPU is asked for."""
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,7 @@ from repro.sparse import suite as jsuite
 from repro.sparse.formats import spgemm_dense_oracle
 from repro_torch.core import csr as tcsr
 from repro_torch.core import plan as tplan_mod
+from repro_torch.core.mesh import make_mesh
 from repro_torch.core.errors import (CapacityExhaustedError,
                                      PlanMismatchError)
 from repro_torch.sparse.formats import CSR
@@ -134,13 +136,33 @@ def test_overflow_is_counted_like_jax_and_refused_by_reassemble():
     assert c.nnz == int((tout.col != tcsr.COL_SENTINEL).sum())
 
 
-@pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("num_shards", 4)])
-def test_unported_options_are_refused(option, value):
+def test_execute_rejects_mismatched_mesh():
+    """``tests/test_plan.py``'s pin: a plan for four shards refuses a
+    one-device mesh, typed, naming both counts."""
+    a = _host(jsuite.mini_suite(scale=200)[3][1])
+    p = tplan_mod.plan_spgemm(a, a, num_shards=4, safety=2.0, device="cpu")
+    mesh = make_mesh((1,), ("data",), devices=["cpu"])
+    with pytest.raises(ValueError, match="4 shards") as err:
+        tplan_mod.execute(p, a, a, mesh=mesh)
+    assert isinstance(err.value, PlanMismatchError)
+    assert (err.value.context["observed"], err.value.context["planned"]) \
+        == (1, 4)
+
+
+@pytest.mark.parametrize("where", ["plan", "execute"])
+def test_a_mesh_that_is_not_a_mesh_is_refused(where):
+    """Only a :class:`repro_torch.core.mesh.Mesh` drives the distributed
+    path: anything else is refused typed, at planning or at execute."""
     tm = _host(_MINI["mini_er"])
-    with pytest.raises(PlanMismatchError, match="not ported yet"):
-        tplan_mod.plan_spgemm(tm, tm, route="esc", device="cpu",
-                              **{option: value})
+    if where == "plan":
+        with pytest.raises(PlanMismatchError) as err:
+            tplan_mod.plan_spgemm(tm, tm, route="esc", device="cpu",
+                                  mesh=object())
+    else:
+        p = tplan_mod.plan_spgemm(tm, tm, num_shards=2, device="cpu")
+        with pytest.raises(PlanMismatchError) as err:
+            tplan_mod.execute(p, tm, tm, mesh=object())
+    assert err.value.context["field"] == "mesh"
 
 
 @pytest.mark.parametrize("n_panels", [0, 2])

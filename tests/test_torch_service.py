@@ -36,6 +36,7 @@ from repro.serve import spgemm_service as jsvc
 from repro.sparse import random as sprand
 from repro_torch.core import faults as tfaults
 from repro_torch.core import plan as tplan_mod
+from repro_torch.core.mesh import make_mesh
 from repro_torch.core import profiles as tprofiles
 from repro_torch.core.errors import AdmissionRejectedError
 from repro_torch.serve import admission as tadmission
@@ -153,6 +154,72 @@ def test_estimate_cost_covers_template_growth_like_jax():
         assert est.total_bytes == est.capacity_bytes + est.operand_bytes
         got[name] = (dataclasses.asdict(est), adm.planned_bytes(p))
     assert got["port"] == got["jax"]
+
+
+def _tensor_bytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(_tensor_bytes(y) for y in x)
+    return 0
+
+
+PRICE_VARIANTS = [("whole", {}), ("panels", dict(n_panels=2)),
+                  ("dist", dict(shards=4)),
+                  ("dist_panels", dict(shards=4, n_panels=2))]
+
+
+@pytest.mark.parametrize("variant", [v for v, _ in PRICE_VARIANTS])
+@pytest.mark.parametrize("family", [f for f, _, _ in FAMILIES])
+def test_device_price_covers_what_execute_returns(family, variant):
+    """The port's price of its device allocation (``admission.
+    device_price``) is at or above the bytes of the tensors ``execute``
+    returns plus the operands at their padded capacities — whole-B, with
+    panels, and on a mesh (four CPU devices, per device) — and on a CPU
+    plan admission still reserves JAX's price."""
+    _, a, b = next(f for f in FAMILIES if f[0] == family)
+    a, b = _host(a), _host(b)
+    kw = dict(dict(PRICE_VARIANTS)[variant])
+    shards = kw.pop("shards", 0)
+    if shards:
+        kw["mesh"] = make_mesh((shards,), ("data",), devices=["cpu"] * shards)
+    for use_kernel in (False, True):
+        p = tplan_mod.plan_spgemm(a, b, sample_rows=_rows(a), device="cpu",
+                                  use_kernel=use_kernel, **kw)
+        out = tplan_mod.execute(p, a, b, cache=tplan_mod.PlanCache())
+        operands = (tadmission._csr_bytes(a.nrows, p.cap_a)
+                    + tadmission._csr_bytes(b.nrows, p.cap_b))
+        price = tadmission.device_price(p)
+        assert price["total"] >= _tensor_bytes(tuple(out)) + operands
+        assert price["total"] == max(d["total"] for d in price["devices"])
+        if shards:
+            assert [d["shards"] for d in price["devices"]] == [[0, 1, 2, 3]]
+        est = tadmission.estimate_cost(p)
+        assert type(est) is tadmission.CostEstimate
+        assert est.reserve_bytes == est.total_bytes
+        assert est.reserved_by == "jax_estimate"
+        budget = tadmission.MemoryBudget(est.total_bytes)
+        budget.reserve(est)
+        assert budget.remaining == 0
+
+
+def test_a_device_estimate_reserves_the_larger_price():
+    """A CUDA plan's estimate carries the device price: admission reserves
+    the larger of it and JAX's, and ``stats()`` says which set it."""
+    base = dict(flop=0, predicted_nnz=0.0, compression_ratio=1.0,
+                operand_bytes=0, capacity_bytes=100, total_bytes=100,
+                est_seconds=0.0)
+    lo = tadmission.DeviceCostEstimate(**base, device_bytes=60)
+    hi = tadmission.DeviceCostEstimate(**base, device_bytes=250)
+    assert (lo.reserve_bytes, lo.reserved_by) == (100, "jax_estimate")
+    assert (hi.reserve_bytes, hi.reserved_by) == (250, "device_price")
+    assert hi.stats()["reserve_bytes"] == 250
+    assert hi.stats()["reserved_by"] == "device_price"
+    budget = tadmission.MemoryBudget(300)
+    budget.reserve(hi)
+    assert budget.remaining == 50 and not budget.fits_now(lo)
+    budget.release(hi)
+    assert budget.remaining == 300
 
 
 def test_memory_budget_ledger_matches_jax():
@@ -691,16 +758,47 @@ def test_repeat_traffic_builds_no_executor(use_kernel):
     assert svc.stats()["templates"]["misses"] == len(env.fams)
 
 
-def test_a_mesh_is_refused_typed():
-    """The port plans no distributed execution yet: a service configured
-    with a mesh ends every request FAILED with the planner's typed
-    refusal, and the queue drains."""
+@pytest.mark.parametrize("shards", [1, 4])
+def test_a_mesh_routes_plans_through_the_distributed_path(shards):
+    """``ServiceConfig(mesh=...)`` plans every request on the mesh.  On one
+    shard, under ``lose_shard``, recovery has no survivor: every request
+    ends FAILED with JAX's typed :class:`ShardFailureError` and context
+    (``tests/test_service.py``'s class 7, a one-device JAX mesh
+    in-process).  On four CPU shards the clean pass is DONE and the pass
+    under ``lose_shard`` DEGRADED with its recovery ledger, each result
+    bitwise equal to the clean one, and no breaker trips."""
     env = Env("port")
-    svc = env.service(mesh=object())
-    reqs = [svc.submit(a, b) for a, b in env.fams]
+    mesh = make_mesh((shards,), ("data",), devices=["cpu"] * shards)
+    svc = env.service(queue_capacity=16, breaker_cooldown=0.0, mesh=mesh)
+    if shards == 1:
+        import jax
+        jenv = Env("jax")
+        jsv = jenv.service(queue_capacity=16, breaker_cooldown=0.0,
+                           mesh=jax.make_mesh((1,), ("data",)))
+        got, want = [], []
+        for e, sv, out in ((env, svc, got), (jenv, jsv, want)):
+            reqs = [sv.submit(a, b) for a, b in e.fams]
+            with e.faults.inject(lose_shard=0):
+                sv.drain()
+            out += [(r.state, type(r.error).__name__,
+                     {k: v for k, v in r.error.context.items()
+                      if k != "plan_key"}) for r in reqs]
+        assert got == want
+        assert {g[:2] for g in got} == {("FAILED", "ShardFailureError")}
+        return
+    warm = [svc.submit(a, b) for a, b in env.fams]
     svc.drain()
-    for r in reqs:
-        assert r.state == tsvc.RequestState.FAILED
-        assert type(r.error).__name__ == "PlanMismatchError"
-        assert r.error.context == {"field": "mesh"}
+    reqs = [svc.submit(a, b) for a, b in env.fams]
+    with tfaults.inject(lose_shard=2):
+        svc.drain()
+    assert [r.state for r in warm] == ["DONE"] * len(env.fams)
+    assert [r.state for r in reqs] == ["DEGRADED"] * len(env.fams)
+    for r, w in zip(reqs, warm):
+        assert r.error is None and r.stats["recoveries"]
+        assert r.stats["recoveries"][0]["kind"] == "wave_failed"
+        np.testing.assert_array_equal(r.result.rpt, w.result.rpt)
+        np.testing.assert_array_equal(r.result.col, w.result.col)
+        np.testing.assert_array_equal(r.result.val.view(np.int32),
+                                      w.result.val.view(np.int32))
+    assert sum(b["trips"] for b in svc.stats()["breakers"]) == 0
     assert svc.stats()["queue"]["depth"] == 0

@@ -11,8 +11,10 @@ and context (the plan-key hash aside), or with JAX's CSR (``rpt``/``col``
 exactly, ``val`` within rtol 1e-5); the queues drain, straggler waves
 recover DEGRADED with their ledgers, no breaker of the straggler service
 trips, and repeat traffic after the storm builds no executor.  The
-shard-loss class needs a mesh, which the port does not plan yet.  The
-port runs plain and through the kernel wrappers' CPU path."""
+shard-loss class (``tests/test_service.py``'s class 7) runs on a one-shard
+mesh, where recovery has no survivor: every request ends FAILED with
+JAX's typed error.  The port runs plain and through the kernel wrappers'
+CPU path."""
 import functools
 
 import numpy as np
@@ -25,6 +27,7 @@ from repro.serve import spgemm_service as jsvc
 from repro.sparse import random as sprand
 from repro_torch.core import faults as tfaults
 from repro_torch.core import plan as tplan_mod
+from repro_torch.core.mesh import make_mesh
 from repro_torch.serve import spgemm_service as tsvc
 from repro_torch.sparse.formats import CSR
 
@@ -53,7 +56,8 @@ WAVES = [
     ("composed", dict(capacity_scale=0.3, sketch_scale=0.5)),
     ("control", None),
 ]
-CLASSES = [w for w, _ in WAVES] + ["operand", "gather", "straggler"]
+CLASSES = [w for w, _ in WAVES] + ["operand", "gather", "straggler",
+                                   "shard_loss"]
 
 
 def _host(jm):
@@ -83,11 +87,14 @@ def _soak(pkg, use_kernel=False):
     """The soak through one package: per fault class, each request's
     summary and result; and the checks that need no other package."""
     if pkg == "jax":
+        import jax
         svc_mod, plan_mod, fmod, host, extra = (jsvc, jplan_mod, jfaults,
                                                 lambda m: m, {})
+        mesh = jax.make_mesh((1,), ("data",))
     else:
         svc_mod, plan_mod, fmod, host = tsvc, tplan_mod, tfaults, _host
         extra = dict(device="cpu", use_kernel=use_kernel)
+        mesh = make_mesh((1,), ("data",), devices=["cpu"])
 
     def service(**cfg):
         return svc_mod.SpgemmService(svc_mod.ServiceConfig(**extra, **cfg))
@@ -127,7 +134,14 @@ def _soak(pkg, use_kernel=False):
         rec_svc.drain()
     out["straggler"] = batch
     assert all(b["trips"] == 0 for b in rec_svc.stats()["breakers"])
-    for s in (svc, panel_svc, rec_svc):
+    # the shard-loss class: on a one-shard mesh every shard is the lost
+    # shard, so recovery is impossible and containment is a typed failure
+    dist_svc = service(queue_capacity=16, breaker_cooldown=0.0, mesh=mesh)
+    batch = [dist_svc.submit(a, b) for a, b in fams]
+    with fmod.inject(lose_shard=0):
+        dist_svc.drain()
+    out["shard_loss"] = batch
+    for s in (svc, panel_svc, rec_svc, dist_svc):
         st = s.stats()
         assert st["queue"]["depth"] == 0 and st["in_flight"] == 0
     # steady state after the storm: repeat traffic builds nothing
@@ -172,6 +186,9 @@ def test_chaos_class_matches_jax(cls, use_kernel):
                    for s, _ in got[cls])
     if cls in ("operand", "executor"):
         assert "FAILED" in states
+    if cls == "shard_loss":
+        assert states == {"FAILED"}
+        assert {s["error"] for s, _ in got[cls]} == {"ShardFailureError"}
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
