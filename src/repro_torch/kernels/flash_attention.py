@@ -9,15 +9,20 @@ q's dtype and head dim alone, before the launch (:func:`variant`):
 
 * ``sm90`` (``csrc/flash_attention_sm90.cu``): bfloat16 and float16 at
   head dims 64, 96 and 128, on the tensor cores (``wgmma``, TMA);
-* ``simt`` (``csrc/flash_attention.cu``): everything else — float32 at any
-  head dim, 16-bit types at other widths up to 256 — with fp32 FMAs on the
-  CUDA cores.
+* ``mma`` (``csrc/flash_attention.cu``): everything else — float32 at any
+  head dim, 16-bit types at other widths up to 256 — on the TF32 tensor
+  cores (``mma.sync`` m16n8k8) with float32 operands split into a TF32
+  ``hi`` and ``lo`` (:func:`tf32_split`) and each product taken as
+  ``lo·hi + hi·lo + hi·hi`` ("3xTF32"): three passes for both products in
+  float32; for 16-bit inputs, exact in TF32, one pass for ``Q·Kᵀ`` and two
+  (``P_hi·V + P_lo·V``) for ``P·V``.
 
 Query head ``h`` reads kv head ``h // (Hq // Hkv)``, as JAX's
 ``reshape(b, hkv, group, sq, d)`` maps them.  The scores, the softmax and
 its state are float32 whatever the input dtype, and the output has q's
-dtype; the ``sm90`` kernel rounds the probabilities to q's 16-bit type for
-their product with V, where JAX keeps them in float32.
+dtype.  The ``mma`` kernel keeps the probabilities at float32 precision
+for their product with V, as JAX does; the ``sm90`` kernel rounds them to
+q's 16-bit type.
 
 The causal mask is top-left aligned: query ``i`` sees keys ``j <= i`` for
 any ``Sq`` and ``Sk``, as the TPU kernel's ``qpos >= kpos`` does.  The JAX
@@ -103,8 +108,29 @@ def _check_inputs(q, k, v, block_q: int, block_k: int) -> None:
 def variant(dtype: torch.dtype, d: int) -> str:
     """The kernel that attention at ``dtype`` and head dim ``d`` launches:
     ``"sm90"`` for a 16-bit type at a width of :data:`SM90_HEAD_DIMS`,
-    else ``"simt"``."""
-    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS else "simt"
+    else ``"mma"``."""
+    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS else "mma"
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero (add half a TF32 unit to the magnitude's bits, then
+    drop the low 13), as ``cvt.rna.tf32.f32`` does; inf and NaN pass."""
+    bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = torch.where(torch.isfinite(x), (bits + 0x1000) & 0xFFFFE000, bits)
+    return torch.where(r >= 1 << 31, r - (1 << 32), r).to(
+        torch.int32).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: the ``mma`` kernel's split of each float32 operand,
+    ``hi = rna_tf32(x)`` and ``lo = rna_tf32(x - hi)``, as float32 tensors
+    whose low 13 mantissa bits are zero.  ``hi + lo`` is ``x`` within
+    2**-21 relative; a bfloat16 or float16 value gives ``lo = 0``.  Plain
+    torch, for the tests that hold the kernel's arithmetic to JAX's."""
+    x = x.float()
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -155,13 +181,14 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_sm90.launches = 0
 
 
-def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
-    """One launch of ``csrc/flash_attention.cu`` (fp32 arithmetic on the
-    CUDA cores, head dims up to 256) on contiguous CUDA tensors of one
+def flash_attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/flash_attention.cu`` (3xTF32 products on the
+    tensor cores, head dims up to 256) on contiguous CUDA tensors of one
     dtype, as :func:`flash_attention` checked them."""
     b, hq, d = q.shape[0], q.shape[1], q.shape[3]
-    need = _build.function(_LIB, "flash_attention_smem_bytes", "i", "q")(d)
+    need = _build.function(_LIB, "flash_attention_smem_bytes", "ii", "q")(
+        d, _build.FLOAT_CODES[q.dtype])
     if need < 0 or need + _build.STATIC_SMEM_RESERVE > _build.max_smem(
             _LIB, q.device):
         raise ValueError(f"flash_attention: head dim {d} does not fit the "
@@ -171,11 +198,11 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: batch {b} and q heads {hq} must "
                          "each be at most 65535 (grid dimensions)")
     out = _launch(_LIB, q, k, v, causal)
-    flash_attention_simt.launches += 1
+    flash_attention_mma.launches += 1
     return out
 
 
-flash_attention_simt.launches = 0
+flash_attention_mma.launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -195,7 +222,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.numel() == 0:
         return torch.empty_like(q)
     launch = (flash_attention_sm90 if variant(q.dtype, q.shape[3]) == "sm90"
-              else flash_attention_simt)
+              else flash_attention_mma)
     out = launch(q, k, v, causal=causal)
     flash_attention.launches += 1
     return out

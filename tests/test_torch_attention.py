@@ -160,10 +160,10 @@ def test_plain_runs_on_the_cpu_without_counting_a_launch():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_variant_follows_dtype_and_head_dim(dtype, d):
-    """bf16 and f16 at D 64, 96 and 128 go to the tensor-core kernel, every
-    other (dtype, D) to the CUDA-core one."""
+    """bf16 and f16 at D 64, 96 and 128 go to the wgmma kernel, every other
+    (dtype, D) to the mma.sync (3xTF32) one."""
     want = ("sm90" if dtype != torch.float32 and d in (64, 96, 128)
-            else "simt")
+            else "mma")
     assert tfa_k.variant(dtype, d) == want
 
 
@@ -178,7 +178,7 @@ def test_a_cuda_call_launches_its_variant_and_no_other(monkeypatch, dtype,
     """The wrapper picks the kernel before the launch from dtype and D; the
     launches count under the variant and under ``flash_attention``."""
     picked = []
-    for name in ("flash_attention_sm90", "flash_attention_simt"):
+    for name in ("flash_attention_sm90", "flash_attention_mma"):
         fake = (lambda name: lambda q, k, v, *, causal: picked.append(name)
                 or torch.zeros_like(q))(name)
         monkeypatch.setattr(tfa_k, name, fake)
@@ -197,10 +197,10 @@ def test_a_failed_sm90_launch_raises_without_a_fallback(monkeypatch):
         raise RuntimeError("flash_attention_sm90: CUDA error")
 
     def other(q, k, v, *, causal):
-        raise AssertionError("fell back to the simt kernel")
+        raise AssertionError("fell back to the mma kernel")
 
     monkeypatch.setattr(tfa_k, "flash_attention_sm90", broken)
-    monkeypatch.setattr(tfa_k, "flash_attention_simt", other)
+    monkeypatch.setattr(tfa_k, "flash_attention_mma", other)
     monkeypatch.setattr(tfa_k, "flash_attention_plain", other)
     monkeypatch.setattr(tfa_k._build, "kernel_device",
                         lambda name, *ts: torch.device("cpu"))
@@ -271,3 +271,114 @@ def test_sm90_schedule_visits_exactly_the_tiles_with_a_visible_key(sq, sk,
         for k0, masked in tiles:
             block = rows[:, k0:k0 + bn]
             assert masked or (bool(block.all()) and block.shape[1] == bn)
+
+
+# --------------------------------------------------------------------------- #
+# The mma kernel's arithmetic on the CPU: TF32 splits and 3xTF32 products
+# --------------------------------------------------------------------------- #
+def _tf32_exact(x):
+    """float32 values whose low 13 mantissa bits are zero (TF32 values)."""
+    return bool(((x.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+def test_tf32_split_rounds_to_nearest_with_ties_away_from_zero():
+    """``cvt.rna.tf32.f32``'s rounding: a TF32 unit at 1.0 is 2**-10, so
+    1 + 2**-11 (a tie) rounds away from zero, to 1 + 2**-10, and so does its
+    negative; just under the tie rounds down; inf and 0 pass."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 1.5 * ulp, 3.0, 0.0, float("inf")])
+    hi, _ = tfa_k.tf32_split(x)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0, 0.0,
+                         float("inf")])
+    assert torch.equal(hi, want)
+
+
+def test_tf32_split_reconstructs_float32_within_2_to_the_minus_21():
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(20_000),
+        rng.standard_normal(5_000) * 10.0 ** rng.integers(-30, 30, 5_000)])
+        .astype(np.float32))
+    hi, lo = tfa_k.tf32_split(x)
+    assert _tf32_exact(hi) and _tf32_exact(lo)
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+    # lo is the smaller term: at most half a TF32 unit of hi
+    assert bool((lo.abs() <= 2.0 ** -11 * hi.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tf32_split_of_16_bit_values_has_no_lo(dtype):
+    """bf16 and f16 are exact in TF32 (f16's subnormals included), so the
+    kernel takes one pass for their products."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(20_000).astype(np.float32)
+                         * 10.0 ** rng.integers(-6, 4, 20_000)).to(dtype)
+    bits = torch.arange(0, 1 << 16, dtype=torch.int32).to(torch.int16)
+    every = bits.view(dtype)
+    for vals in (x, every[torch.isfinite(every.float())]):
+        hi, lo = tfa_k.tf32_split(vals)
+        assert torch.equal(hi, vals.float())
+        assert not bool(lo.any())
+
+
+def _split_matmul(a, b, passes):
+    """``a @ b`` as the mma kernel forms it from TF32 splits: 3 passes
+    ``lo·hi + hi·lo + hi·hi`` (the small terms first), 2 ``a_lo·b + a_hi·b``
+    (b exact in TF32), 1 ``a·b`` (both exact); each pass a float32 product
+    of TF32 values, so exact products summed in float32."""
+    a_hi, a_lo = tfa_k.tf32_split(a)
+    b_hi, b_lo = tfa_k.tf32_split(b)
+    if passes == 1:
+        return torch.matmul(a_hi, b_hi)
+    if passes == 2:
+        return torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + \
+        torch.matmul(a_hi, b_hi)
+
+
+def attention_3xtf32(q, k, v, *, causal, s_passes, pv_passes):
+    """:func:`flash_attention_plain`'s arithmetic with its two matmuls
+    replaced by the mma kernel's split products (``s_passes`` for Q·Kᵀ,
+    ``pv_passes`` for P·V, with P float32)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qg = q.float().reshape(b, hkv, group * sq, d)
+    s = _split_matmul(qg, k.float().transpose(-1, -2), s_passes)
+    s = (s * (1.0 / d ** 0.5)).view(b, hkv, group, sq, sk)
+    if causal:
+        mask = torch.arange(sq)[:, None] < torch.arange(sk)[None, :]
+        s = s.masked_fill(mask, tfa_k.NEG_INF)
+    p = torch.softmax(s, dim=-1).view(b, hkv, group * sq, sk)
+    out = _split_matmul(p, v.float(), pv_passes)
+    return out.view(b, hq, sq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,d,causal,hq,hkv", CASES)
+def test_3xtf32_attention_matches_the_pallas_kernel(sq, sk, d, causal, hq,
+                                                    hkv, dtype):
+    """The mma kernel's passes by dtype (float32: 3 and 3; 16-bit: 1 and 2)
+    keep JAX's contract: within the float32 tolerance of 1e-5 in float32,
+    one rounding of the output in bfloat16."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(sq, sk, d, hq, hkv, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=BLOCK,
+                                block_k=BLOCK)
+    passes = (3, 3) if dtype == "float32" else (1, 2)
+    got = attention_3xtf32(tq, tk, tv, causal=causal, s_passes=passes[0],
+                           pv_passes=passes[1])
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_one_tf32_pass_would_miss_the_float32_tolerance():
+    """The split is needed: plain TF32 products (raw operands rounded once)
+    miss JAX's float32 kernel by more than 1e-5 on the same inputs."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(128, 128, 64, 4, 2, "float32")
+    want = _f32(jops.flash_attention(jq, jk, jv, causal=True, block_q=BLOCK,
+                                     block_k=BLOCK))
+    got = attention_3xtf32(tq, tk, tv, causal=True, s_passes=1,
+                           pv_passes=1)
+    assert np.abs(_f32(got) - want).max() > 1e-5

@@ -943,8 +943,10 @@ def test_flop_per_row_kernel_on_a_skewed_matrix(card):
 # (tests/test_torch_attention.py), a 1024-token case at qwen2.5-32b's
 # attention width (40 heads, 8 kv heads, D 128), phi3-mini's (32 heads,
 # D 96), and ragged tiles (Sq, Sk off the kernels' 64- and 128-row tiles,
-# D 48); for the tensor-core kernel, D 128 causal with Sq < Sk and Sq > Sk
-# over groups of five, and ragged tiles at D 128 and 96
+# D 48); for the wgmma kernel, D 128 causal with Sq < Sk and Sq > Sk over
+# groups of five, and ragged tiles at D 128 and 96; for the mma kernel, a
+# head dim off a multiple of 8 (D 20, padded), zamba2-7b's D 112 and the
+# wide buckets (D 192 and 256, 4 warps and narrower key tiles)
 ATTN_CASES = [(128, 128, 64, True, 4, 2), (128, 256, 64, False, 4, 2),
               (256, 256, 32, True, 4, 2),
               (64, 128, 32, True, 4, 2), (128, 64, 32, True, 4, 2),
@@ -953,7 +955,9 @@ ATTN_CASES = [(128, 128, 64, True, 4, 2), (128, 256, 64, False, 4, 2),
               (1024, 1024, 128, True, 40, 8), (1024, 1024, 96, True, 32, 32),
               (96, 160, 48, True, 4, 2),
               (128, 384, 128, True, 10, 2), (384, 128, 128, True, 10, 2),
-              (96, 160, 128, True, 4, 2), (96, 160, 96, False, 4, 4)]
+              (96, 160, 128, True, 4, 2), (96, 160, 96, False, 4, 4),
+              (96, 160, 20, True, 4, 2), (128, 128, 112, True, 4, 4),
+              (128, 256, 192, False, 4, 2), (128, 128, 256, True, 4, 2)]
 # fp32: the same sums in another order; bf16/f16: one rounding of the output
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
@@ -983,6 +987,25 @@ def test_flash_attention_kernel_matches_plain_version(card, sq, sk, d, causal,
     want = fa_k.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_kernel_is_bitwise_across_launches(card, dtype):
+    """No atomics: two launches on the same inputs give the same bits, on
+    the mma kernel (D 112, ragged tiles; float32 also at D 128) and, for
+    the 16-bit types, the sm90 one (D 128)."""
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for sq, sk, d in ((96, 160, 112), (96, 160, 128)):
+        q, k, v = _attn_inputs(card, (2, 4, sq, d), (2, 2, sk, d), dtype,
+                               sq + d)
+        first = fa_k.flash_attention(q, k, v, causal=True, block_q=32,
+                                     block_k=32)
+        again = fa_k.flash_attention(q, k, v, causal=True, block_q=32,
+                                     block_k=32)
+        assert bool(first.isfinite().all())
+        assert torch.equal(first.view(bits), again.view(bits))
 
 
 @pytest.mark.cuda

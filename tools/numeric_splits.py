@@ -28,7 +28,7 @@ the planned path passes it.  With ``--ptxas`` it also prints ``nvcc
 object per line on stdout, and the same lines in ``--out``.
 
 ``--attention`` times ``ops.flash_attention`` on ``chip_smoke.py``'s
-attention cases G1-G4 (CUDA events, the device time ``torch.profiler``
+attention cases G1-G5 (CUDA events, the device time ``torch.profiler``
 sees, TFLOP/s) beside ``scaled_dot_product_attention`` on the same inputs;
 ``--global`` times the global-pad predictor's sampled symbolic kernel
 (kernel 7) on the five predict products' seed-0 samples at their global
@@ -269,7 +269,8 @@ def main() -> int:
     if args.ptxas:
         names = (("flop_rows", "esc_symbolic") if args.predict
                  else ("bitmask_symbolic",) if args.bitmask
-                 else ("flash_attention_sm90",) if args.attention
+                 else ("flash_attention", "flash_attention_sm90")
+                 if args.attention
                  else ("spa_numeric", "flop_rows") if args.spa or args.flop_all
                  else ("esc_numeric", "bin_numeric"))
         for ln in ptxas(os.path.abspath(args.src), names):
@@ -812,7 +813,8 @@ ATTENTION_CASES = (
     ("G2", (1, 40, 4096, 128), (1, 8, 4096, 128), "float32", True),
     ("G3", (2, 32, 4096, 96), (2, 32, 4096, 96), "bfloat16", True),
     ("G4", (1, 40, 1024, 128), (1, 8, 4096, 128), "bfloat16", True),
-    ("G4_full", (1, 40, 1024, 128), (1, 8, 4096, 128), "bfloat16", False))
+    ("G4_full", (1, 40, 1024, 128), (1, 8, 4096, 128), "bfloat16", False),
+    ("G5", (2, 32, 4096, 112), (2, 32, 4096, 112), "bfloat16", True))
 
 
 def attention_splits(torch, dev, emit) -> None:
