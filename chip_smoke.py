@@ -87,6 +87,21 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        ``SpgemmService`` on the mesh over (h)'s template families, DONE and
        then DEGRADED under a lost shard, each result bitwise equal to its
        direct run;
+   (l) first of all, the LM serving path, which reaches no kernel of the
+       port (its counts must stay 0): deepseek-v3-671b at its published
+       widths cut to 4 layers in bf16 (31.6 GB, random weights from a
+       seed), ``serve.engine.generate`` of 32 tokens for 4 prompts of 16,
+       greedy twice (equal) and at temperature 0.7, every served logit
+       held to ``transformer.forward`` of the same tokens within a bf16
+       bound, prefill and decode steps timed and one decode window
+       profiled; (l2) the paper's MoE capacity on that MoE layer at 4 ×
+       512 tokens under a skewed router (the sampled block estimate
+       against the exact count, the torch twin on the card against
+       numpy, and ``apply_moe`` at the predicted and the default
+       capacity); (l3) the eight attention-family smoke configs in
+       float32, card against host within 1e-4, greedy tokens equal.
+       ``python3 chip_smoke.py --lm-only`` runs (l) alone, without the
+       kernel build, and prints no ``ok`` line;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
@@ -172,6 +187,37 @@ PAD_ROW_SEED = 405
 PAD_ROW_HUB = 2000
 # (j4) serves each template family's members this many times a pass
 SERVICE_COPIES = 2
+
+
+# (l) the LM serving path: deepseek-v3-671b at its published widths, cut
+# to its 3 dense layers and one MoE layer (15.8 B parameters, 31.6 GB in
+# bf16), serving 4 requests of 16 prompt tokens and 32 generated ones
+LM_CONFIG = "deepseek-v3-671b"
+LM_LAYERS = 4
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 16, 32
+LM_SEED = 0
+LM_TEMPERATURE = 0.7
+LM_FWD_CAPACITY = 64       # ≥ 47 tokens a group: the forward drops nothing
+# decode against forward in bf16: the two paths round q, k and the
+# residual stream at different points (MLA decode scores the absorbed
+# query against the latent cache, the forward expands the latent), and
+# this schema's scales (1/sqrt of shape[-2]) make attention scores ~7
+# standard deviations wide, so one bf16 rounding of a score moves its
+# softmax weight by up to ~3% of itself.  At a cut width (d_model 512,
+# 64 experts) on the host the paths part by 0.24 of the largest |logit| at
+# most and 0.05 of the logits' standard deviation on average; the bound is
+# twice each.  A misplaced position or cache row moves the mean to ~1.4
+# standard deviations.
+LM_BF16_MAX_REL = 0.5
+LM_BF16_MEAN_REL = 0.10
+# (l2) the capacity example's flow at full width: 4 groups of 512 tokens
+LM_MOE_GROUPS, LM_MOE_GROUP = 4, 512
+LM_MOE_SKEW = 0.35
+LM_MOE_SAFETY = 1.1        # predict_group_capacity's default
+# (l3) the eight attention-family smoke configs in float32, card against
+# host: within 1e-4 relative plus 1e-4 × the largest |logit|
+LM_SMOKE_TOL = 1e-4
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_P = 2, 10, 5
 
 
 def emit(obj) -> None:
@@ -335,6 +381,313 @@ def sdpa_backends(torch, q, k, v, want, emit, attn) -> None:
               flash_attention_variant={c: a[2] for c, a in attn.items()}))
 
 
+def lm_within(got, want, tol: float) -> tuple[float, bool]:
+    """(max |got − want|, whether every element is within ``tol`` relative
+    plus ``tol`` × the largest |want|)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = max(float(want.abs().max()), 1.0)
+    return (float(diff.max()),
+            bool((diff <= tol * want.abs() + tol * scale).all()))
+
+
+def lm_decode_profile(torch, engine, sess, decode_fn, prompt,
+                      steps: int = 8) -> dict:
+    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
+    steps (after two untraced ones), the device's kernel time a step, its
+    idle share of the traced wall time, and the kernels that take most of
+    it (empty where the profiler sees no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(2):
+        engine.prefill(sess, prompt[:, i:i + 1], decode_fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(2, 2 + steps):
+            engine.prefill(sess, prompt[:, i:i + 1], decode_fn)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kern) / 1e3
+    if not busy_ms:
+        return dict(profile_device_ms=None)
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:8]
+    return dict(profile_device_ms=busy_ms / steps,
+                profile_wall_ms=wall_ms / steps,
+                profile_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                profile_kernels_a_step=sum(e.count for e in kern) / steps,
+                profile_top=[[e.key[:70], e.device_time_total / 1e3 / steps,
+                              e.count // steps] for e in top])
+
+
+def lm_serving(torch, np, dev) -> None:
+    """Phase (l): the LM serving path on the card, through the engine a
+    user calls.  It launches no kernel of the port: the JAX package's model
+    reaches none of its Pallas kernels, and its attention and expert
+    products are plain tensor products here as there."""
+    from repro_torch.configs.base import (get_config, get_smoke_config,
+                                          smoke_registry)
+    from repro_torch.core import moe_capacity
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import schema
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    t_phase = time.perf_counter()
+
+    # ---- (l1) deepseek-v3 at its published widths, 4 layers, bf16
+    cfg = dataclasses.replace(get_config(LM_CONFIG), num_layers=LM_LAYERS)
+    sch = T.build_schema(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    params = schema.init_params(sch, gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = schema.param_count(sch)
+    p_bytes = schema.param_bytes(params)
+    if p_bytes != 2 * n_params:
+        fail(f"lm: {p_bytes} parameter bytes for {n_params} bf16 parameters")
+    emit(dict(phase="lm_params", config=cfg.name, num_layers=cfg.num_layers,
+              d_model=cfg.d_model, experts=cfg.moe_num_experts,
+              vocab=cfg.vocab_size, parameters=n_params, bytes=p_bytes,
+              init_seconds=init_s))
+    rng = np.random.default_rng(LM_SEED)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
+    max_len = LM_PROMPT + LM_NEW + 1
+
+    def session():
+        return engine.start_session(cfg, params, LM_BATCH, max_len,
+                                    device=dev)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, logits = engine.generate(session(), prompt, LM_NEW,
+                                   return_logits=True)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t
+    again = engine.generate(session(), prompt, LM_NEW)
+    sampled = engine.generate(session(), prompt, LM_NEW,
+                              temperature=LM_TEMPERATURE, seed=LM_SEED)
+    for what, tk in (("greedy", toks), ("sampled", sampled)):
+        if (tuple(tk.shape) != (LM_BATCH, LM_NEW)
+                or not bool(((tk >= 0) & (tk < cfg.vocab_size)).all())):
+            fail(f"lm: {what} tokens of shape {tuple(tk.shape)} outside "
+                 f"[0, {cfg.vocab_size})")
+    if not torch.equal(toks, again):
+        fail("lm: two greedy runs of one prompt gave different tokens")
+    if not bool(torch.isfinite(logits).all()):
+        fail("lm: a served logit is not finite")
+    # decode against the teacher-forced forward of the same tokens
+    seq = torch.cat([prompt, toks[:, :-1]], dim=1)
+    with torch.no_grad():
+        full, aux, mtp = T.forward(params, cfg, {"tokens": seq},
+                                   capacity=LM_FWD_CAPACITY)
+    # the dropped fraction is 1 − a float32 mean of the kept flags: an
+    # all-kept mean may round to 1 − 2^-24
+    if float(aux.moe_dropped) > 1e-6:
+        fail(f"lm: the forward at capacity {LM_FWD_CAPACITY} dropped "
+             f"{float(aux.moe_dropped)}")
+    if not (bool(torch.isfinite(full).all())
+            and bool(torch.isfinite(mtp).all())):
+        fail("lm: a forward or MTP logit is not finite")
+    diff = (logits[:, :-1] - full).abs()
+    max_d, mean_d = float(diff.max()), float(diff.mean())
+    max_bound = LM_BF16_MAX_REL * float(full.abs().max())
+    mean_bound = LM_BF16_MEAN_REL * float(full.std())
+    v = cfg.vocab_size
+    agree = float((logits[:, :-1, :v].argmax(-1)
+                   == full[..., :v].argmax(-1)).float().mean())
+    if max_d > max_bound or mean_d > mean_bound:
+        fail(f"lm: decode against forward max |diff| {max_d} (bound "
+             f"{max_bound}), mean {mean_d} (bound {mean_bound})")
+    del full, mtp, diff, seq
+    # timed: the prompt's prefill, then each decode step on CUDA events
+    decode_fn = engine.make_decode_fn(cfg)
+    sess = session()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last = engine.prefill(sess, prompt, decode_fn)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    events, picks = [], []
+    for i in range(LM_NEW):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        picks.append(last[:, -1, :v].argmax(-1))
+        start.record()
+        last = engine.prefill(sess, toks[:, i:i + 1], decode_fn)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    if not torch.equal(torch.stack(picks, 1).to(torch.int32), toks):
+        fail("lm: the timed decode steps pick other tokens than generate")
+    median_ms = step_ms[len(step_ms) // 2]
+    # the step's bytes: every weight but the embedding table (a gather of
+    # one row a request) and the MTP module (not run when serving), the
+    # rows gathered, and the latent cache at its full length
+    tok_bytes = params["embed"]["tok"].numel() * 2
+    mtp_bytes = schema.param_bytes(params["mtp"])
+    cache_bytes = sum(a.numel() * a.element_size()
+                      for seg in sess.cache.values() for c in seg.values()
+                      for a in c)
+    step_bytes = (p_bytes - tok_bytes - mtp_bytes + LM_BATCH * cfg.d_model * 2
+                  + cache_bytes)
+    profile = lm_decode_profile(torch, engine, session(), decode_fn, prompt)
+    line = dict(phase="lm_serve", config=cfg.name, num_layers=cfg.num_layers,
+                batch=LM_BATCH, prompt=LM_PROMPT, generated=LM_NEW,
+                param_bytes=p_bytes, generate_seconds=generate_s,
+                prefill_seconds=prefill_s, decode_ms_median=median_ms,
+                decode_ms_min=step_ms[0], decode_ms_max=step_ms[-1],
+                tokens_per_s=LM_BATCH * 1e3 / median_ms,
+                step_bytes=step_bytes,
+                step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                all_weights_ms=p_bytes / HBM_BYTES_PER_S * 1e3,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                decode_vs_forward_max_abs=max_d, max_abs_bound=max_bound,
+                decode_vs_forward_mean_abs=mean_d, mean_abs_bound=mean_bound,
+                argmax_agreement=agree,
+                greedy_first=toks[0, :8].tolist(),
+                sampled_first=sampled[0, :8].tolist(), **profile)
+    emit(line)
+    del sess, last, logits, again, sampled
+
+    # ---- (l2) the paper's MoE capacity at full width, on (l1)'s MoE layer
+    # (examples/moe_capacity_planning.py's flow: a skewed router, 4 groups
+    # of 512 tokens)
+    moe_p = schema.tree_map(lambda a: a[0], params["seg1"]["pos0"]["moe"])
+    router = moe_p["router"].clone()
+    router[:, :2] += LM_MOE_SKEW
+    moe_p = dict(moe_p, router=router)
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    tokens = LM_MOE_GROUPS * LM_MOE_GROUP
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (LM_MOE_GROUPS, LM_MOE_GROUP, cfg.d_model)).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    ids = torch.topk((x @ router).float(), k, dim=-1).indices.reshape(
+        tokens, k)
+    ids_np = ids.cpu().numpy()
+    plan = moe_capacity.predict_dispatch_capacity(
+        ids_np, e, group_size=64, seed=0, sample_fraction=0.05)
+    exact = moe_capacity.exact_dispatch_blocks(ids_np, group_size=64)
+    gids = torch.from_numpy(moe_capacity.dispatch_sample_groups(
+        tokens, 64, 0, 0.05)).to(dev)
+    blocks, cr, flopr = moe_capacity.predict_dispatch_capacity_torch(
+        ids, e, 64, gids)
+    z, f = moe_capacity.sampled_dispatch_counts_torch(ids, 64, gids)
+    if (int(z), f) != (plan.exact_sample_blocks, plan.sampled_assignments):
+        fail(f"lm: the torch twin's (z*, f*) {(int(z), f)} != numpy's "
+             f"{(plan.exact_sample_blocks, plan.sampled_assignments)}")
+    if not np.array_equal(flopr.cpu().numpy(),
+                          np.bincount(ids_np.reshape(-1), minlength=e)):
+        fail("lm: the torch twin's flopr_e != numpy's")
+    blocks_rel = abs(float(blocks) - plan.predicted_blocks) / \
+        plan.predicted_blocks
+    if blocks_rel > 1e-6:
+        fail(f"lm: the torch twin's blocks* {float(blocks)} != numpy's "
+             f"{plan.predicted_blocks}")
+    pred_cap = moe_capacity.predict_group_capacity(
+        ids_np, e, group_size=LM_MOE_GROUP, sample_fraction=0.2, seed=1)
+    guess_cap = moe_mod.default_capacity(cfg, LM_MOE_GROUP)
+    # the most a group can need: every token on one expert, × the safety
+    cap_bound = -(-int(np.ceil(LM_MOE_GROUP * LM_MOE_SAFETY)) // 4) * 4
+    bound_bytes = moe_mod.dispatch_buffer_bytes(cfg, LM_MOE_GROUPS,
+                                                cap_bound, torch.bfloat16)
+    dropped = {}
+    for label, cap in (("default", guess_cap), ("predicted", pred_cap)):
+        buf_bytes = moe_mod.dispatch_buffer_bytes(cfg, LM_MOE_GROUPS, cap,
+                                                  torch.bfloat16)
+        free = torch.cuda.mem_get_info()[0]
+        # the buffer, the expert outputs of its size and the hidden layer
+        if cap > cap_bound or 2.6 * buf_bytes > free:
+            fail(f"lm: capacity {cap} (bound {cap_bound}) needs "
+                 f"{buf_bytes} buffer bytes, {free} free")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            y, maux = moe_mod.apply_moe(moe_p, cfg, x, capacity=cap)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(y).all()):
+            fail(f"lm: apply_moe at capacity {cap} is not finite")
+        dropped[label] = float(maux.dropped_fraction)
+        emit(dict(phase="lm_moe_capacity", capacity_from=label,
+                  capacity=cap, capacity_bound=cap_bound,
+                  buffer_bytes=buf_bytes, bound_buffer_bytes=bound_bytes,
+                  dropped_fraction=dropped[label],
+                  seconds=time.perf_counter() - t))
+        del y, maux
+    if dropped["predicted"] > dropped["default"]:
+        fail(f"lm: the predicted capacity drops more {dropped}")
+    emit(dict(phase="lm_moe_blocks", tokens=tokens, group_size=64,
+              exact_blocks=exact, predicted_blocks=plan.predicted_blocks,
+              rel_error=(plan.predicted_blocks - exact) / exact,
+              compression_ratio=plan.compression_ratio,
+              sampled_groups=int(gids.numel()), twin_blocks=float(blocks),
+              twin_rel_diff=blocks_rel, twin_cr=float(cr)))
+    del params, moe_p, router, x, ids, toks
+    torch.cuda.empty_cache()
+
+    # ---- (l3) the smoke configs in float32: the card against the host
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm: TF32 is on for float32 products")
+    cpu = torch.device("cpu")
+    for name in sorted(smoke_registry()):
+        scfg = get_smoke_config(name)
+        try:
+            sch = T.build_schema(scfg)
+        except NotImplementedError:
+            emit(dict(phase="lm_smoke", config=name, served=False))
+            continue
+        gen = torch.Generator().manual_seed(LM_SEED)
+        p_host = schema.init_params(sch, gen, torch.float32, cpu)
+        rng = np.random.default_rng(LM_SEED)
+        tok_np = rng.integers(0, scfg.vocab_size,
+                              (LM_SMOKE_B, LM_SMOKE_S)).astype(np.int32)
+        fe_np = None
+        if scfg.frontend == "audio_stub":
+            fe_np = rng.standard_normal((LM_SMOKE_B, scfg.encoder_seq_len,
+                                         scfg.d_model)).astype(np.float32)
+        res = {}
+        for where, device in (("host", cpu), ("card", dev)):
+            p = schema.tree_map(lambda a: a.to(device), p_host)
+            tok = torch.from_numpy(tok_np).to(device)
+            fe = None if fe_np is None else torch.from_numpy(fe_np).to(device)
+            batch = {"tokens": tok}
+            if fe is not None:
+                batch["frame_embeds"] = fe
+            with torch.no_grad():
+                full, _, mtp = T.forward(p, scfg, batch,
+                                         capacity=LM_FWD_CAPACITY)
+            steps = engine.prefill(engine.start_session(
+                scfg, p, LM_SMOKE_B, LM_SMOKE_S, frame_embeds=fe,
+                device=device), tok, all_logits=True)
+            greedy = engine.generate(engine.start_session(
+                scfg, p, LM_SMOKE_B, LM_SMOKE_S + 1, frame_embeds=fe,
+                device=device), tok[:, :LM_SMOKE_P], LM_SMOKE_S - LM_SMOKE_P)
+            res[where] = [a.cpu() if a is not None else None
+                          for a in (full, mtp, steps, greedy)]
+        (hf, hm, hs, hg), (cf, cm, cs, cg) = res["host"], res["card"]
+        checks = dict(decode_vs_forward=lm_within(cs, cf, LM_SMOKE_TOL),
+                      forward_vs_host=lm_within(cf, hf, LM_SMOKE_TOL),
+                      decode_vs_host=lm_within(cs, hs, LM_SMOKE_TOL))
+        if hm is not None:
+            checks["mtp_vs_host"] = lm_within(cm, hm, LM_SMOKE_TOL)
+        bad = [c for c, (_, ok) in checks.items() if not ok]
+        if bad or not torch.equal(cg, hg):
+            fail(f"lm smoke {name}: {bad} past {LM_SMOKE_TOL} or greedy "
+                 f"tokens {cg.tolist()} != host {hg.tolist()}")
+        emit(dict(phase="lm_smoke", config=name, served=True,
+                  tolerance=LM_SMOKE_TOL, greedy_equal=True,
+                  **{c: err for c, (err, _) in checks.items()}))
+    emit(dict(phase="lm_seconds", seconds=time.perf_counter() - t_phase))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -368,6 +721,9 @@ def main() -> int:
     emit(dict(phase="device", kind=kind, count=torch.cuda.device_count(),
               nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda))
+    if "--lm-only" in sys.argv[1:]:
+        lm_serving(torch, np, dev)
+        return 0
     built = _build.build_all()
     emit(dict(phase="build", seconds=built["seconds"], built=built["built"]))
 
@@ -393,7 +749,7 @@ def main() -> int:
                              "service", "mesh", "global_bitmask",
                              "global_spgemm",
                              "experiment",
-                             "attention")}
+                             "attention", "lm_serving")}
 
     def drive(path, fn):
         """One call of a main path, every launch count set to 0 just before
@@ -405,6 +761,14 @@ def main() -> int:
         for k, n in counts.items():
             launches[path][k] += n
         return out, counts
+
+    # ---- (l) the LM serving path first, on an empty card (it holds 31.6 GB
+    # of weights and up to ~9 GB of dispatch buffers, all freed after); it
+    # reaches no kernel of the port, as the JAX package's model reaches
+    # none of its Pallas kernels
+    _, counts = drive("lm_serving", lambda: lm_serving(torch, np, dev))
+    if any(counts.values()):
+        fail(f"a kernel of the port launched on the LM serving path: {counts}")
 
     def vals_close(got, want):
         vmax = want.abs().amax(dim=1, keepdim=True)

@@ -59,3 +59,40 @@ def dense_from_numpy(x, dtype=torch.float32, device=None) -> torch.Tensor:
     get the same inputs (numpy has no bfloat16)."""
     t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
     return t.to(resolve_device(device)).to(dtype)
+
+
+def _tensor_from_numpy(x, dtype, device) -> torch.Tensor:
+    """One leaf: numpy's (or ``ml_dtypes``') array as a tensor, bfloat16
+    carried bit for bit through its 16-bit pattern."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def params_from_numpy(tree, dtype=None, device=None):
+    """The port's parameter tree from JAX parameters: a nested dict of
+    numpy arrays (``np.asarray`` on each leaf).  ``dtype`` casts every leaf
+    (default: keep each leaf's own); ``device`` defaults to the card."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dtype, dev) for k, v in tree.items()}
+    return _tensor_from_numpy(tree, dtype, dev)
+
+
+def cache_from_numpy(tree, dtype=None, device=None):
+    """The port's KV cache tree from a JAX cache whose leaves went through
+    ``np.asarray``: nested dicts of ``KVCache``-like pairs (fields ``k``
+    and ``v``) of stacked arrays."""
+    from repro_torch.models.attention import KVCache
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: cache_from_numpy(v, dtype, dev) for k, v in tree.items()}
+    if hasattr(tree, "_fields") and tuple(tree._fields) == ("k", "v"):
+        return KVCache(_tensor_from_numpy(tree.k, dtype, dev),
+                       _tensor_from_numpy(tree.v, dtype, dev))
+    return _tensor_from_numpy(tree, dtype, dev)

@@ -2557,6 +2557,19 @@ def _reassemble_dist(plan: SpgemmPlan, out: DistSpgemmOut, nrows: int,
     return csr
 
 
+def _check_overflow(total: int, per_shard, on_overflow: str) -> None:
+    if on_overflow not in ("raise", "ignore"):
+        raise PlanMismatchError(f"on_overflow must be 'raise' or 'ignore', "
+                                f"got {on_overflow!r}")
+    if total and on_overflow == "raise":
+        shards = [int(s) for s in np.asarray(per_shard)]
+        raise CapacityExhaustedError(
+            f"SpGEMM overflow: {total} entries dropped "
+            f"(per shard: {shards}); re-plan with a higher safety factor "
+            "or pass on_overflow='ignore'",
+            observed=int(total), shards=shards)
+
+
 def reassemble(plan: SpgemmPlan, out, ncols: int | None = None, *,
                on_overflow: str = "raise") -> CSR:
     """Stitch an :func:`execute` result (a ``SpGEMMOut``, a panel plan's
@@ -2567,26 +2580,15 @@ def reassemble(plan: SpgemmPlan, out, ncols: int | None = None, *,
     silently truncating the result — pass ``on_overflow="ignore"`` to get
     the truncated matrix anyway.
     """
-    if on_overflow not in ("raise", "ignore"):
-        raise PlanMismatchError(f"on_overflow must be 'raise' or 'ignore', "
-                                f"got {on_overflow!r}")
     ncols = int(ncols if ncols is not None else plan.shape_b[1])
     nrows = plan.shape_a[0]
     if isinstance(out, DistSpgemmOut):
-        total = int(np.asarray(out.shard_overflow).sum())
-        if total and on_overflow == "raise":
-            shards = [int(s) for s in np.asarray(out.shard_overflow)]
-            raise CapacityExhaustedError(
-                f"SpGEMM overflow: {total} entries dropped (per shard: "
-                f"{shards}); re-plan with a higher safety factor or pass "
-                "on_overflow='ignore'", observed=total, shards=shards)
+        shard_overflow = np.asarray(out.shard_overflow)
+        _check_overflow(int(shard_overflow.sum()), shard_overflow,
+                        on_overflow)
         return _reassemble_dist(plan, out, nrows, ncols)
     overflow = int(out.overflow)
-    if overflow and on_overflow == "raise":
-        raise CapacityExhaustedError(
-            f"SpGEMM overflow: {overflow} entries dropped; re-plan with a "
-            "higher safety factor or pass on_overflow='ignore'",
-            observed=overflow)
+    _check_overflow(overflow, [overflow], on_overflow)
     if isinstance(out, PanelSpgemmOut):
         return _reassemble_panels(plan, out, nrows, ncols)
     # each row keeps its first min(row_nnz, its bucket's capacity) slots,

@@ -1,0 +1,325 @@
+"""Unified model stack for the attention families of the assigned configs.
+
+Layers are grouped into *segments* of identical repeating period (e.g.
+deepseek-v3 = [3×dense] + [58×moe]); each segment's params are stacked over
+repeats (a leading layer axis on every leaf) and applied by a loop over
+that axis.
+
+The recurrent block kinds (``mamba``, ``mlstm``, ``slstm``) and zamba2's
+shared attention (``attn_every``) need ``models/ssm.py``, which the port
+does not have yet (ROADMAP Queue A): every entry point here raises
+``NotImplementedError`` for a config that uses them.
+
+Public API:
+  build_schema(cfg, mesh_model)                → PSpec tree
+  forward(params, cfg, batch, ...)             → (logits, Aux, mtp_logits)
+  init_cache / decode_step                     → serving
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core.csr import resolve_device
+
+from . import attention as attn_mod
+from . import moe as moe_mod
+from .layers import (norm_schema, apply_norm, mlp_schema, apply_mlp,
+                     embed_schema, embed_tokens, lm_head)
+from .schema import PSpec, stack_layers
+
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot run yet."""
+    kinds = set(cfg.block_pattern) & set(RECURRENT_KINDS)
+    if kinds or cfg.attn_every:
+        what = sorted(kinds) + (["attn_every"] if cfg.attn_every else [])
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(what)} need models/ssm.py, which the "
+            "port does not have yet (ROADMAP Queue A)")
+
+
+# --------------------------------------------------------------------------- #
+# segment planning
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    kinds: tuple[str, ...]   # block kinds within one period
+    repeats: int             # stacked layers
+    layer_offset: int        # global index of the segment's first layer
+
+
+def segment_plan(cfg) -> list[SegmentPlan]:
+    if cfg.block_pattern:
+        period = tuple(cfg.block_pattern)
+        assert cfg.num_layers % len(period) == 0, (cfg.num_layers, period)
+        return [SegmentPlan(period, cfg.num_layers // len(period), 0)]
+    if cfg.moe_num_experts:
+        segs = []
+        off = 0
+        if cfg.moe_dense_layers:
+            segs.append(SegmentPlan(("attn",), cfg.moe_dense_layers, 0))
+            off = cfg.moe_dense_layers
+        segs.append(SegmentPlan(("moe",), cfg.num_layers - off, off))
+        return segs
+    return [SegmentPlan(("attn",), cfg.num_layers, 0)]
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, attn_mod.KVCache):
+        return attn_mod.KVCache(tree.k[i], tree.v[i])
+    return tree[i]
+
+
+# --------------------------------------------------------------------------- #
+# per-kind block schemas
+# --------------------------------------------------------------------------- #
+def _block_schema(cfg, kind: str, mesh_model: int) -> dict:
+    if kind == "attn":
+        sch = {"ln1": norm_schema(cfg),
+               "attn": attn_mod.attention_schema(cfg, mesh_model)}
+        if cfg.d_ff:
+            sch["ln2"] = norm_schema(cfg)
+            sch["mlp"] = mlp_schema(cfg)
+        return sch
+    if kind == "moe":
+        return {"ln1": norm_schema(cfg),
+                "attn": attn_mod.attention_schema(cfg, mesh_model),
+                "ln2": norm_schema(cfg),
+                "moe": moe_mod.moe_schema(cfg)}
+    raise ValueError(kind)
+
+
+def build_schema(cfg, mesh_model: int = 1) -> dict:
+    check_supported(cfg)
+    pv = cfg.padded_vocab()
+    sch: dict[str, Any] = {"embed": embed_schema(cfg, pv)}
+    for si, seg in enumerate(segment_plan(cfg)):
+        period = {f"pos{j}": _block_schema(cfg, k, mesh_model)
+                  for j, k in enumerate(seg.kinds)}
+        sch[f"seg{si}"] = stack_layers(period, seg.repeats)
+    if cfg.is_encoder_decoder:
+        enc_period = {"pos0": _block_schema(cfg, "attn", mesh_model)}
+        sch["encoder"] = stack_layers(enc_period, cfg.num_encoder_layers)
+        sch["enc_norm"] = norm_schema(cfg)
+        # decoder blocks get cross attention
+        cross_period = {"pos0": {"ln_x": norm_schema(cfg),
+                                 "cross": attn_mod.cross_schema(cfg, mesh_model)}}
+        sch["cross"] = stack_layers(cross_period, cfg.num_layers)
+    if cfg.mtp_heads:  # deepseek multi-token prediction module
+        sch["mtp"] = {
+            "proj": PSpec((2 * cfg.d_model, cfg.d_model), (None, "embed")),
+            "block": _block_schema(cfg, "attn", mesh_model),
+            "norm": norm_schema(cfg),
+        }
+    sch["final_norm"] = norm_schema(cfg)
+    return sch
+
+
+# --------------------------------------------------------------------------- #
+# block application (full sequence)
+# --------------------------------------------------------------------------- #
+class Aux(NamedTuple):
+    moe_lb: torch.Tensor
+    moe_z: torch.Tensor
+    moe_dropped: torch.Tensor
+
+
+def _zero_aux(device) -> Aux:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return Aux(z, z, z)
+
+
+def _apply_block(p, cfg, kind, x, positions, aux: Aux, *, causal=True,
+                 capacity=None):
+    h = apply_norm(p["ln1"], x)
+    if cfg.attention_type == "mla":
+        a = attn_mod.mla_forward(p["attn"], cfg, h, positions, causal=causal)
+    else:
+        a = attn_mod.gqa_forward(p["attn"], cfg, h, positions, causal=causal)
+    x = x + a
+    if kind == "moe":
+        h = apply_norm(p["ln2"], x)
+        y, maux = moe_mod.apply_moe(p["moe"], cfg, h, capacity=capacity)
+        x = x + y
+        aux = Aux(aux.moe_lb + maux.load_balance_loss,
+                  aux.moe_z + maux.router_z_loss,
+                  aux.moe_dropped + maux.dropped_fraction)
+    elif cfg.d_ff:
+        h = apply_norm(p["ln2"], x)
+        x = x + apply_mlp(p["mlp"], h)
+    return x, aux
+
+
+def _run_segments(params, cfg, x, positions, aux, *, capacity, causal=True):
+    for si, seg in enumerate(segment_plan(cfg)):
+        seg_params = params[f"seg{si}"]
+        for r in range(seg.repeats):
+            layer_p = _layer(seg_params, r)
+            for j, kind in enumerate(seg.kinds):
+                x, aux = _apply_block(layer_p[f"pos{j}"], cfg, kind, x,
+                                      positions, aux, causal=causal,
+                                      capacity=capacity)
+    return x, aux
+
+
+# --------------------------------------------------------------------------- #
+# encoder (whisper)
+# --------------------------------------------------------------------------- #
+def _run_encoder(params, cfg, frame_embeds):
+    x = frame_embeds
+    pos = torch.arange(x.shape[1], dtype=torch.int32,
+                       device=x.device)[None].expand(x.shape[:2])
+    for r in range(cfg.num_encoder_layers):
+        x, _ = _apply_block(_layer(params["encoder"], r)["pos0"], cfg, "attn",
+                            x, pos, _zero_aux(x.device), causal=False)
+    return apply_norm(params["enc_norm"], x)
+
+
+def _apply_cross(params, cfg, x, enc_out, r: int):
+    """Decoder layer ``r``'s cross attention over the encoder output."""
+    cross_p = _layer(params["cross"], r)["pos0"]
+    h = apply_norm(cross_p["ln_x"], x)
+    return x + attn_mod.cross_forward(cross_p["cross"], cfg, h, enc_out)
+
+
+# --------------------------------------------------------------------------- #
+# full-sequence forward
+# --------------------------------------------------------------------------- #
+def forward(params, cfg, batch, *, capacity: int | None = None):
+    """batch: tokens (B,S) [+ positions, patch_embeds, frame_embeds], all on
+    the parameters' device.
+
+    Returns (logits (B,S,V_padded) fp32, Aux, mtp_logits or None).
+    """
+    check_supported(cfg)
+    dtype = _dtype(cfg)
+    tokens = batch["tokens"]
+    dev = tokens.device
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=dev)[None].expand(tokens.shape)
+    x = embed_tokens(params["embed"], tokens, dtype)
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        # early fusion: precomputed patch embeddings replace the first P slots
+        pe = batch["patch_embeds"].to(dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    if capacity is None and cfg.moe_num_experts:
+        # per-group (= per batch row) capacity
+        capacity = moe_mod.default_capacity(cfg, tokens.shape[1])
+    aux = _zero_aux(dev)
+
+    if cfg.is_encoder_decoder:
+        enc_out = _run_encoder(params, cfg, batch["frame_embeds"].to(dtype))
+        # decoder: interleave self-attn blocks with cross-attn per layer
+        seg = segment_plan(cfg)[0]
+        for r in range(seg.repeats):
+            x, aux = _apply_block(_layer(params["seg0"], r)["pos0"], cfg,
+                                  "attn", x, positions, aux, causal=True,
+                                  capacity=capacity)
+            x = _apply_cross(params, cfg, x, enc_out, r)
+    else:
+        x, aux = _run_segments(params, cfg, x, positions, aux,
+                               capacity=capacity)
+
+    x = apply_norm(params["final_norm"], x)
+    logits = lm_head(params["embed"], x)
+
+    if cfg.mtp_heads:  # deepseek MTP: predict t+2 from [h_t ; emb(t+1)]
+        emb_next = embed_tokens(params["embed"],
+                                torch.roll(tokens, -1, dims=1), dtype)
+        h_mtp = torch.cat([x.to(dtype), emb_next], dim=-1)
+        h_mtp = h_mtp @ params["mtp"]["proj"].to(dtype)
+        h_mtp, _ = _apply_block(params["mtp"]["block"], cfg, "attn", h_mtp,
+                                positions, _zero_aux(dev), capacity=capacity)
+        h_mtp = apply_norm(params["mtp"]["norm"], h_mtp)
+        mtp_logits = lm_head(params["embed"], h_mtp)
+        return logits, aux, mtp_logits
+    return logits, aux, None
+
+
+# --------------------------------------------------------------------------- #
+# serving: cache init / decode
+# --------------------------------------------------------------------------- #
+def _block_cache(cfg, batch, max_len, dtype, device, mesh_model=1):
+    if cfg.attention_type == "mla":
+        return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
+    return attn_mod.init_gqa_cache(cfg, batch, max_len, dtype, device,
+                                   mesh_model)
+
+
+def init_cache(cfg, batch: int, max_len: int, mesh_model: int = 1, *,
+               device=None):
+    """Stacked-over-repeats cache tree mirroring the segment structure, on
+    ``device`` (default: the CUDA card)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    cache: dict[str, Any] = {}
+    eff_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    for si, seg in enumerate(segment_plan(cfg)):
+        period = {}
+        for j, _kind in enumerate(seg.kinds):
+            c = _block_cache(cfg, batch, eff_len, dtype, dev, mesh_model)
+            period[f"pos{j}"] = attn_mod.KVCache(
+                *(torch.zeros((seg.repeats,) + a.shape, dtype=a.dtype,
+                              device=dev) for a in c))
+        cache[f"seg{si}"] = period
+    return cache
+
+
+def _decode_block(p, cfg, kind, x, positions, cache, cur_len, *, window=0):
+    h = apply_norm(p["ln1"], x)
+    if cfg.attention_type == "mla":
+        a, cache = attn_mod.mla_decode(p["attn"], cfg, h, positions, cache,
+                                       cur_len)
+    else:
+        a, cache = attn_mod.gqa_decode(p["attn"], cfg, h, positions, cache,
+                                       cur_len, window=window)
+    x = x + a
+    if kind == "moe":
+        h = apply_norm(p["ln2"], x)
+        # decode: groups of one token → k distinct experts, ≤1 slot each
+        y, _ = moe_mod.apply_moe(p["moe"], cfg, h, capacity=4)
+        x = x + y
+    elif cfg.d_ff:
+        x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x))
+    return x, cache
+
+
+def decode_step(params, cfg, tokens, cache, cur_len, *, enc_out=None):
+    """One-token decode.  tokens (B, 1); cur_len a 0-d integer tensor (the
+    current cache fill) on the cache's device.  Returns (logits (B,1,V)
+    fp32, cache): the cache is updated in place and returned."""
+    check_supported(cfg)
+    dtype = _dtype(cfg)
+    b = tokens.shape[0]
+    positions = cur_len.to(torch.int32).reshape(1, 1).expand(b, 1)
+    x = embed_tokens(params["embed"], tokens, dtype)
+    window = cfg.sliding_window
+    for si, seg in enumerate(segment_plan(cfg)):
+        seg_params = params[f"seg{si}"]
+        seg_cache = cache[f"seg{si}"]
+        for r in range(seg.repeats):
+            layer_p = _layer(seg_params, r)
+            rep_cache = _layer(seg_cache, r)
+            for j, kind in enumerate(seg.kinds):
+                x, _ = _decode_block(layer_p[f"pos{j}"], cfg, kind, x,
+                                     positions, rep_cache[f"pos{j}"],
+                                     cur_len, window=window)
+            if cfg.is_encoder_decoder and enc_out is not None:
+                x = _apply_cross(params, cfg, x, enc_out, r)
+    x = apply_norm(params["final_norm"], x)
+    return lm_head(params["embed"], x), cache

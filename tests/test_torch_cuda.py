@@ -1607,3 +1607,122 @@ def test_reservation_covers_the_peak_on_the_card(card, family, variant):
     peak = torch.cuda.max_memory_allocated() - base
     assert isinstance(est, admission.DeviceCostEstimate)
     assert est.reserve_bytes >= peak
+
+
+# --------------------------------------------------------------------------- #
+# The LM serving path (no kernel of the port: the model's products are plain
+# tensor products): the smoke configs in float32 on the card against the
+# host, the MoE dispatch and the sampled dispatch capacity's torch twin.
+# --------------------------------------------------------------------------- #
+LM_RECURRENT = ("xlstm-125m", "zamba2-7b")
+LM_TOL = 1e-4        # relative, plus LM_TOL × the largest |logit|
+
+
+def _lm_close(got, want, tol=LM_TOL):
+    got, want = got.cpu().float(), want.cpu().float()
+    scale = max(float(want.abs().max()), 1.0)
+    assert bool(((got - want).abs()
+                 <= tol * want.abs() + tol * scale).all())
+
+
+def _lm_names():
+    from repro_torch.configs.base import smoke_registry
+    return sorted(n for n in smoke_registry() if n not in LM_RECURRENT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _lm_names())
+def test_lm_smoke_config_on_the_card_matches_the_host(card, name):
+    """Forward (and MTP) logits, every decode step's logits and greedy
+    tokens on the card equal the host's on the same weights (float32, no
+    TF32), and decode reproduces the forward on the card."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import schema
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_smoke_config(name)
+    host = schema.init_params(T.build_schema(cfg),
+                              torch.Generator().manual_seed(3),
+                              torch.float32, "cpu")
+    rng = np.random.default_rng(4)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 10)).astype(
+        np.int32))
+    fe = None
+    if cfg.frontend == "audio_stub":
+        fe = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        p = schema.tree_map(lambda a: a.to(dev), host)
+        t = tok.to(dev)
+        f = None if fe is None else fe.to(dev)
+        batch = {"tokens": t, **({} if f is None else {"frame_embeds": f})}
+        with torch.no_grad():
+            full, _, mtp = T.forward(p, cfg, batch, capacity=64)
+        steps = engine.prefill(engine.start_session(
+            cfg, p, 2, 10, frame_embeds=f, device=dev), t, all_logits=True)
+        greedy = engine.generate(engine.start_session(
+            cfg, p, 2, 11, frame_embeds=f, device=dev), t[:, :5], 5)
+        out[str(dev)] = (full, mtp, steps, greedy)
+    (hf, hm, hs, hg), (cf, cm, cs, cg) = out["cpu"], out[str(card)]
+    assert cf.is_cuda and cs.is_cuda and cg.is_cuda
+    _lm_close(cs, cf)
+    _lm_close(cf, hf)
+    _lm_close(cs, hs)
+    if hm is not None:
+        _lm_close(cm, hm)
+    assert torch.equal(cg.cpu(), hg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [64, 4])
+def test_moe_dispatch_on_the_card_matches_the_host(card, capacity):
+    """apply_moe's output, aux losses and dropped fraction on the card
+    equal the host's (float32), starved or not."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import schema
+    cfg = get_smoke_config("deepseek-v3-671b")
+    host = schema.init_params(moe_mod.moe_schema(cfg),
+                              torch.Generator().manual_seed(5),
+                              torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4, 32, cfg.d_model)).astype(np.float32))
+    hy, haux = moe_mod.apply_moe(host, cfg, x, capacity=capacity)
+    dev_p = schema.tree_map(lambda a: a.to(card), host)
+    cy, caux = moe_mod.apply_moe(dev_p, cfg, x.to(card), capacity=capacity)
+    assert cy.is_cuda
+    _lm_close(cy, hy)
+    for f in moe_mod.MoEAux._fields:
+        _lm_close(getattr(caux, f), getattr(haux, f))
+    assert (float(caux.dropped_fraction) > 1e-6) == (capacity == 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,frac", [(512, 0.003), (64, 0.05)])
+def test_dispatch_capacity_twin_on_the_card(card, group, frac):
+    """predict_dispatch_capacity_torch on CUDA tensors equals the host
+    twin bit for bit, and the numpy plan's z*, f* and flopr_e exactly."""
+    from repro_torch.core import moe_capacity as mc
+    rng = np.random.default_rng(0)
+    e, k, tokens = 64, 8, 200_000
+    p = np.arange(1, e + 1) ** -0.8
+    ids = rng.choice(e, size=(tokens, k), p=p / p.sum())
+    plan_np = mc.predict_dispatch_capacity(ids, e, group, seed=1,
+                                           sample_fraction=frac)
+    gids = torch.from_numpy(mc.dispatch_sample_groups(tokens, group, 1, frac))
+    tids = torch.from_numpy(ids.astype(np.int32))
+    host = mc.predict_dispatch_capacity_torch(tids, e, group, gids)
+    got = mc.predict_dispatch_capacity_torch(tids.to(card), e, group,
+                                             gids.to(card))
+    assert all(g.is_cuda for g in got)
+    for g, h in zip(got, host):
+        assert torch.equal(g.cpu(), h)
+    z, f = mc.sampled_dispatch_counts_torch(tids.to(card), group,
+                                            gids.to(card))
+    assert (int(z), f) == (plan_np.exact_sample_blocks,
+                           plan_np.sampled_assignments)
+    np.testing.assert_array_equal(got[2].cpu().numpy(),
+                                  np.bincount(ids.reshape(-1), minlength=e))
+    assert float(got[0]) == pytest.approx(plan_np.predicted_blocks, rel=1e-6)
