@@ -219,6 +219,38 @@ LM_MOE_SAFETY = 1.1        # predict_group_capacity's default
 LM_SMOKE_TOL = 1e-4
 LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_P = 2, 10, 5
 
+# (m) the recurrent families and training.  (m1) zamba2-7b whole (81
+# layers, 6.75 B parameters, 13.5 GB in bf16) and (m2) xlstm-125m whole,
+# each serving (l1)'s 4 requests of 16 prompt and 32 generated tokens,
+# decode held to the forward within (l1)'s bf16 bounds; (m3) their smoke
+# configs in float32, card against host
+LM_RECURRENT = ("zamba2-7b", "xlstm-125m")
+# zamba2's decode is held to its forward on the same weights in float32
+# (27 GB at all 81 layers): under the schema's random scales its shared
+# attention's scores are ~110 standard deviations wide, so one bf16
+# rounding can change the key a query attends to, and the bf16 paths part
+# by more than (l1)'s mean bound on a correct model (at 7 layers on the
+# host: 0.130 of the logits' standard deviation against 0.100; in float32
+# 8.4e-6).  Its bf16 differences are reported, not gated.
+LM_F32_GATE = ("zamba2-7b",)
+# (m4) xlstm-125m trained whole through launch.train: batch 8 of 512
+# tokens (two SSD chunks), 30 steps, a checkpoint every 10; a restart from
+# step 10's checkpoint; launch.serve on the last
+TRAIN_CONFIG = "xlstm-125m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 512, 30, 10
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
+TRAIN_RESUME_AT = 10
+# (m5) phi3-mini-3.8b at published widths cut to 4 layers (651,193,344
+# parameters): the whole model's parameters, gradients and float32 moments
+# (~61 GB) leave no room for activations on one card
+TRAIN_CUT_CONFIG, TRAIN_CUT_LAYERS = "phi3-mini-3.8b", 4
+TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, TRAIN_CUT_STEPS = 4, 1024, 10
+# (m6) one train step of these smoke configs in float32, card against
+# host: loss and grad norm within 1e-4 relative
+TRAIN_SMOKE = ("deepseek-v3-671b", "xlstm-125m", "zamba2-7b")
+TRAIN_SMOKE_SEQ = 29       # two SSD chunks of the smoke configs' 16
+TRAIN_SMOKE_TOL = 1e-4
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -423,13 +455,69 @@ def lm_decode_profile(torch, engine, sess, decode_fn, prompt,
                               e.count // steps] for e in top])
 
 
+def lm_smoke(torch, np, dev, names) -> None:
+    """(l3)/(m3): each named smoke config in float32 on the card against
+    the host on the same weights: forward (and MTP) logits, every decode
+    step's and greedy tokens."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import schema
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm: TF32 is on for float32 products")
+    cpu = torch.device("cpu")
+    for name in names:
+        scfg = get_smoke_config(name)
+        sch = T.build_schema(scfg)
+        gen = torch.Generator().manual_seed(LM_SEED)
+        p_host = schema.init_params(sch, gen, torch.float32, cpu)
+        rng = np.random.default_rng(LM_SEED)
+        tok_np = rng.integers(0, scfg.vocab_size,
+                              (LM_SMOKE_B, LM_SMOKE_S)).astype(np.int32)
+        fe_np = None
+        if scfg.frontend == "audio_stub":
+            fe_np = rng.standard_normal((LM_SMOKE_B, scfg.encoder_seq_len,
+                                         scfg.d_model)).astype(np.float32)
+        res = {}
+        for where, device in (("host", cpu), ("card", dev)):
+            p = schema.tree_map(lambda a: a.to(device), p_host)
+            tok = torch.from_numpy(tok_np).to(device)
+            fe = None if fe_np is None else torch.from_numpy(fe_np).to(device)
+            batch = {"tokens": tok}
+            if fe is not None:
+                batch["frame_embeds"] = fe
+            with torch.no_grad():
+                full, _, mtp = T.forward(p, scfg, batch,
+                                         capacity=LM_FWD_CAPACITY)
+            steps = engine.prefill(engine.start_session(
+                scfg, p, LM_SMOKE_B, LM_SMOKE_S, frame_embeds=fe,
+                device=device), tok, all_logits=True)
+            greedy = engine.generate(engine.start_session(
+                scfg, p, LM_SMOKE_B, LM_SMOKE_S + 1, frame_embeds=fe,
+                device=device), tok[:, :LM_SMOKE_P], LM_SMOKE_S - LM_SMOKE_P)
+            res[where] = [a.cpu() if a is not None else None
+                          for a in (full, mtp, steps, greedy)]
+        (hf, hm, hs, hg), (cf, cm, cs, cg) = res["host"], res["card"]
+        checks = dict(decode_vs_forward=lm_within(cs, cf, LM_SMOKE_TOL),
+                      forward_vs_host=lm_within(cf, hf, LM_SMOKE_TOL),
+                      decode_vs_host=lm_within(cs, hs, LM_SMOKE_TOL))
+        if hm is not None:
+            checks["mtp_vs_host"] = lm_within(cm, hm, LM_SMOKE_TOL)
+        bad = [c for c, (_, ok) in checks.items() if not ok]
+        if bad or not torch.equal(cg, hg):
+            fail(f"lm smoke {name}: {bad} past {LM_SMOKE_TOL} or greedy "
+                 f"tokens {cg.tolist()} != host {hg.tolist()}")
+        emit(dict(phase="lm_smoke", config=name, served=True,
+                  tolerance=LM_SMOKE_TOL, greedy_equal=True,
+                  **{c: err for c, (err, _) in checks.items()}))
+
+
 def lm_serving(torch, np, dev) -> None:
     """Phase (l): the LM serving path on the card, through the engine a
     user calls.  It launches no kernel of the port: the JAX package's model
     reaches none of its Pallas kernels, and its attention and expert
     products are plain tensor products here as there."""
-    from repro_torch.configs.base import (get_config, get_smoke_config,
-                                          smoke_registry)
+    from repro_torch.configs.base import get_config, smoke_registry
     from repro_torch.core import moe_capacity
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import schema
@@ -633,59 +721,387 @@ def lm_serving(torch, np, dev) -> None:
     del params, moe_p, router, x, ids, toks
     torch.cuda.empty_cache()
 
-    # ---- (l3) the smoke configs in float32: the card against the host
-    if torch.backends.cuda.matmul.allow_tf32:
-        fail("lm: TF32 is on for float32 products")
-    cpu = torch.device("cpu")
-    for name in sorted(smoke_registry()):
-        scfg = get_smoke_config(name)
-        try:
-            sch = T.build_schema(scfg)
-        except NotImplementedError:
-            emit(dict(phase="lm_smoke", config=name, served=False))
-            continue
-        gen = torch.Generator().manual_seed(LM_SEED)
-        p_host = schema.init_params(sch, gen, torch.float32, cpu)
-        rng = np.random.default_rng(LM_SEED)
-        tok_np = rng.integers(0, scfg.vocab_size,
-                              (LM_SMOKE_B, LM_SMOKE_S)).astype(np.int32)
-        fe_np = None
-        if scfg.frontend == "audio_stub":
-            fe_np = rng.standard_normal((LM_SMOKE_B, scfg.encoder_seq_len,
-                                         scfg.d_model)).astype(np.float32)
-        res = {}
-        for where, device in (("host", cpu), ("card", dev)):
-            p = schema.tree_map(lambda a: a.to(device), p_host)
-            tok = torch.from_numpy(tok_np).to(device)
-            fe = None if fe_np is None else torch.from_numpy(fe_np).to(device)
-            batch = {"tokens": tok}
-            if fe is not None:
-                batch["frame_embeds"] = fe
-            with torch.no_grad():
-                full, _, mtp = T.forward(p, scfg, batch,
-                                         capacity=LM_FWD_CAPACITY)
-            steps = engine.prefill(engine.start_session(
-                scfg, p, LM_SMOKE_B, LM_SMOKE_S, frame_embeds=fe,
-                device=device), tok, all_logits=True)
-            greedy = engine.generate(engine.start_session(
-                scfg, p, LM_SMOKE_B, LM_SMOKE_S + 1, frame_embeds=fe,
-                device=device), tok[:, :LM_SMOKE_P], LM_SMOKE_S - LM_SMOKE_P)
-            res[where] = [a.cpu() if a is not None else None
-                          for a in (full, mtp, steps, greedy)]
-        (hf, hm, hs, hg), (cf, cm, cs, cg) = res["host"], res["card"]
-        checks = dict(decode_vs_forward=lm_within(cs, cf, LM_SMOKE_TOL),
-                      forward_vs_host=lm_within(cf, hf, LM_SMOKE_TOL),
-                      decode_vs_host=lm_within(cs, hs, LM_SMOKE_TOL))
-        if hm is not None:
-            checks["mtp_vs_host"] = lm_within(cm, hm, LM_SMOKE_TOL)
-        bad = [c for c, (_, ok) in checks.items() if not ok]
-        if bad or not torch.equal(cg, hg):
-            fail(f"lm smoke {name}: {bad} past {LM_SMOKE_TOL} or greedy "
-                 f"tokens {cg.tolist()} != host {hg.tolist()}")
-        emit(dict(phase="lm_smoke", config=name, served=True,
-                  tolerance=LM_SMOKE_TOL, greedy_equal=True,
-                  **{c: err for c, (err, _) in checks.items()}))
+    # ---- (l3) the attention-family smoke configs in float32: the card
+    # against the host
+    lm_smoke(torch, np, dev, sorted(n for n in smoke_registry()
+                                    if n not in LM_RECURRENT))
     emit(dict(phase="lm_seconds", seconds=time.perf_counter() - t_phase))
+
+
+def cache_step_bytes(cache) -> int:
+    """Bytes a decode step moves in the serving cache: a recurrent state
+    (SSM, conv, sLSTM) is read and written whole, a KV cache read whole
+    (its one new position's write is left out)."""
+    from repro_torch.models.attention import KVCache
+    if isinstance(cache, dict):
+        return sum(cache_step_bytes(c) for c in cache.values())
+    n = sum(a.numel() * a.element_size() for a in cache)
+    return n if isinstance(cache, KVCache) else 2 * n
+
+
+def decode_vs_forward(torch, T, cfg, params, prompt, toks, logits) -> dict:
+    """The served logits (prompt then generated tokens) against the
+    teacher-forced forward of the same tokens: the largest and the mean
+    |difference|, (l1)'s bounds on each, and the arg-max agreement."""
+    seq = torch.cat([prompt, toks[:, :-1]], dim=1)
+    with torch.no_grad():
+        full, _, _ = T.forward(params, cfg, {"tokens": seq})
+    if not bool(torch.isfinite(full).all()):
+        fail(f"{cfg.name}: a forward logit is not finite")
+    diff = (logits[:, :-1] - full).abs()
+    v = cfg.vocab_size
+    return dict(
+        decode_vs_forward_max_abs=float(diff.max()),
+        max_abs_bound=LM_BF16_MAX_REL * float(full.abs().max()),
+        decode_vs_forward_mean_abs=float(diff.mean()),
+        mean_abs_bound=LM_BF16_MEAN_REL * float(full.std()),
+        argmax_agreement=float((logits[:, :-1, :v].argmax(-1)
+                                == full[..., :v].argmax(-1)).float().mean()))
+
+
+def check_decode_vs_forward(what: str, g: dict) -> None:
+    if (g["decode_vs_forward_max_abs"] > g["max_abs_bound"]
+            or g["decode_vs_forward_mean_abs"] > g["mean_abs_bound"]):
+        fail(f"{what}: decode against forward max |diff| "
+             f"{g['decode_vs_forward_max_abs']} (bound {g['max_abs_bound']})"
+             f", mean {g['decode_vs_forward_mean_abs']} (bound "
+             f"{g['mean_abs_bound']})")
+
+
+def lm_serve_whole(torch, np, dev, name: str) -> None:
+    """(m1)/(m2): ``name`` at its published widths and depth in bf16,
+    random weights drawn on the card, served through ``engine.generate``;
+    decode held to the forward, greedy twice equal, timed and profiled."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import schema
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    cfg = get_config(name)
+    sch = T.build_schema(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    params = schema.init_params(sch, gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = schema.param_count(sch)
+    p_bytes = schema.param_bytes(params)
+    if p_bytes != 2 * n_params:
+        fail(f"{name}: {p_bytes} parameter bytes for {n_params} bf16 "
+             "parameters")
+    emit(dict(phase="lm_recurrent_params", config=name,
+              num_layers=cfg.num_layers, d_model=cfg.d_model,
+              vocab=cfg.vocab_size, parameters=n_params, bytes=p_bytes,
+              by_part={k: schema.param_count(v) for k, v in sch.items()},
+              init_seconds=init_s))
+    rng = np.random.default_rng(LM_SEED)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
+    max_len = LM_PROMPT + LM_NEW + 1
+
+    def session():
+        return engine.start_session(cfg, params, LM_BATCH, max_len,
+                                    device=dev)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, logits = engine.generate(session(), prompt, LM_NEW,
+                                   return_logits=True)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t
+    again = engine.generate(session(), prompt, LM_NEW)
+    if (tuple(toks.shape) != (LM_BATCH, LM_NEW)
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+        fail(f"{name}: greedy tokens of shape {tuple(toks.shape)} outside "
+             f"[0, {cfg.vocab_size})")
+    if not torch.equal(toks, again):
+        fail(f"{name}: two greedy runs of one prompt gave different tokens")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{name}: a served logit is not finite")
+    # decode against the teacher-forced forward of the same tokens (within
+    # zamba2's 4096-token window the two agree, ROADMAP R9)
+    v = cfg.vocab_size
+    gate = decode_vs_forward(torch, T, cfg, params, prompt, toks, logits)
+    if name not in LM_F32_GATE:
+        check_decode_vs_forward(name, gate)
+    del logits, again
+    decode_fn = engine.make_decode_fn(cfg)
+    sess = session()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last = engine.prefill(sess, prompt, decode_fn)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    events, picks = [], []
+    for i in range(LM_NEW):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        picks.append(last[:, -1, :v].argmax(-1))
+        start.record()
+        last = engine.prefill(sess, toks[:, i:i + 1], decode_fn)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    if not torch.equal(torch.stack(picks, 1).to(torch.int32), toks):
+        fail(f"{name}: the timed decode steps pick other tokens than "
+             "generate")
+    median_ms = step_ms[len(step_ms) // 2]
+    # the step's bytes: every weight once but the embedding table (a
+    # gather of one row a request), zamba2's shared block once each time
+    # it runs, and the caches (cache_step_bytes)
+    n_shared = sum(1 for i in range(cfg.num_layers)
+                   if cfg.attn_every and (i + 1) % cfg.attn_every == 0)
+    shared_bytes = (schema.param_bytes(params["shared_attn"])
+                    if n_shared else 0)
+    tok_bytes = params["embed"]["tok"].numel() * 2
+    cache_bytes = cache_step_bytes(sess.cache)
+    step_bytes = (p_bytes - tok_bytes + LM_BATCH * cfg.d_model * 2
+                  + max(n_shared - 1, 0) * shared_bytes + cache_bytes)
+    profile = lm_decode_profile(torch, engine, session(), decode_fn, prompt)
+    serve_peak = torch.cuda.max_memory_allocated()
+    del sess, last
+    if name in LM_F32_GATE:
+        # the same weights in float32: decode held to the forward there
+        bf16_gate = gate
+        params = schema.tree_map(lambda a: a.float(), params)
+        torch.cuda.empty_cache()
+        f32_cfg = dataclasses.replace(cfg, dtype="float32")
+        toks32, logits32 = engine.generate(
+            engine.start_session(f32_cfg, params, LM_BATCH, max_len,
+                                 device=dev), prompt, LM_NEW,
+            return_logits=True)
+        gate = decode_vs_forward(torch, T, f32_cfg, params, prompt, toks32,
+                                 logits32)
+        check_decode_vs_forward(f"{name} (float32)", gate)
+        gate = dict(gate, gated_in="float32",
+                    float32_peak_bytes=torch.cuda.max_memory_allocated(),
+                    **{f"bf16_{k}": x for k, x in bf16_gate.items()})
+        del toks32, logits32
+    emit(dict(phase="lm_recurrent_serve", config=name,
+              num_layers=cfg.num_layers, batch=LM_BATCH, prompt=LM_PROMPT,
+              generated=LM_NEW, param_bytes=p_bytes,
+              shared_block_runs=n_shared, cache_step_bytes=cache_bytes,
+              generate_seconds=generate_s, prefill_seconds=prefill_s,
+              decode_ms_median=median_ms, decode_ms_min=step_ms[0],
+              decode_ms_max=step_ms[-1],
+              tokens_per_s=LM_BATCH * 1e3 / median_ms,
+              step_bytes=step_bytes,
+              step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+              peak_bytes=serve_peak, greedy_first=toks[0, :8].tolist(),
+              **gate, **profile))
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_recurrent(torch, np, dev) -> None:
+    """Phase (m1)–(m3): the recurrent families served on the card.  No
+    kernel of the port runs: the JAX package's SSD scan and recurrences
+    are plain array code, as the port's are."""
+    t_phase = time.perf_counter()
+    for name in LM_RECURRENT:
+        lm_serve_whole(torch, np, dev, name)
+    lm_smoke(torch, np, dev, LM_RECURRENT)
+    emit(dict(phase="lm_recurrent_seconds",
+              seconds=time.perf_counter() - t_phase))
+
+
+def _tree_bits(torch, tree) -> list:
+    """Every leaf of a (params, AdamState) tree on the host, bfloat16 as
+    its 16-bit pattern (for a bit-for-bit comparison)."""
+    from repro_torch.models import schema
+    params, state = tree
+    leaves = (schema.tree_leaves(params) + [state.step]
+              + schema.tree_leaves(state.mu) + schema.tree_leaves(state.nu))
+    return [(a.view(torch.int16) if a.dtype == torch.bfloat16 else a)
+            .detach().cpu().clone() for a in leaves]
+
+
+def lm_training(torch, np, dev) -> None:
+    """Phase (m4)–(m6): training on the card."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import schema
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step
+    t_phase = time.perf_counter()
+
+    # ---- (m4) xlstm-125m whole through launch.train, restart, serve
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        run_a, run_b = os.path.join(root, "a"), os.path.join(root, "b")
+        argv = ["--arch", TRAIN_CONFIG, "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup",
+                str(TRAIN_WARMUP), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+                "--log-every", str(TRAIN_CKPT_EVERY), "--device", "cuda"]
+        losses, stamps, saved = {}, {}, {}
+
+        def on_step(step, metrics, params, opt_state):
+            losses[step] = float(metrics["loss"])   # waits for the step
+            stamps[step] = time.perf_counter()
+            if step == TRAIN_RESUME_AT:
+                saved["tree"] = _tree_bits(torch, (params, opt_state))
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        first, last = launch_train.main(
+            argv + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", run_a],
+            on_step=on_step)
+        train_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        if sorted(losses) != list(range(1, TRAIN_STEPS + 1)):
+            fail(f"train: steps {sorted(losses)} ran")
+        if not all(np.isfinite(list(losses.values()))):
+            fail(f"train: a loss is not finite: {losses}")
+        if not last < first:
+            fail(f"train: the loss did not fall: first {first}, last five "
+                 f"{last}")
+        gaps = sorted(stamps[i + 1] - stamps[i]
+                      for i in range(1, TRAIN_STEPS))
+        step_ms = gaps[len(gaps) // 2] * 1e3
+        kept = sorted(os.listdir(run_a))
+        # restart from step 10's checkpoint in a directory of its own
+        shutil.copytree(os.path.join(run_a, f"step_{TRAIN_RESUME_AT:010d}"),
+                        os.path.join(run_b,
+                                     f"step_{TRAIN_RESUME_AT:010d}"))
+        cfg = get_config(TRAIN_CONFIG)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        like = schema.init_params(T.build_schema(cfg), gen, torch.bfloat16,
+                                  dev)
+        like_state = opt_mod.init_state(
+            opt_mod.AdamWConfig(state_dtype=cfg.opt_state_dtype), like)
+        restored, _, step = ckpt_mod.restore(run_b, (like, like_state))
+        got = _tree_bits(torch, restored)
+        if step != TRAIN_RESUME_AT or len(got) != len(saved["tree"]) or \
+                not all(torch.equal(a, b) for a, b in zip(got,
+                                                          saved["tree"])):
+            fail(f"train: the tree restored at step {step} is not the "
+                 "one saved bit for bit")
+        del like, like_state, restored, got, saved["tree"]
+        resumed = {}
+        launch_train.main(
+            argv + ["--steps", str(TRAIN_RESUME_AT + 1), "--ckpt-dir", run_b],
+            on_step=lambda i, m, *_: resumed.__setitem__(i, float(m["loss"])))
+        want = losses[TRAIN_RESUME_AT + 1]
+        if resumed != {TRAIN_RESUME_AT + 1: want}:
+            fail(f"train: the resumed step's loss {resumed} != the "
+                 f"uninterrupted run's {want}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            served = launch_serve.main([
+                "--arch", TRAIN_CONFIG, "--batch", str(LM_BATCH),
+                "--prompt-len", str(LM_PROMPT), "--gen", str(LM_PROMPT),
+                "--ckpt-dir", run_a, "--device", "cuda"])
+        if f"restored step {TRAIN_STEPS}" not in out.getvalue():
+            fail(f"serve: did not restore step {TRAIN_STEPS}: "
+                 f"{out.getvalue()[:300]}")
+        if (served.shape != (LM_BATCH, LM_PROMPT)
+                or not ((served >= 0) & (served < cfg.vocab_size)).all()):
+            fail(f"serve: tokens of shape {served.shape} out of range")
+        emit(dict(phase="train_whole", config=TRAIN_CONFIG,
+                  parameters=cfg.param_count_estimate(), batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR,
+                  warmup=TRAIN_WARMUP, seconds=train_s,
+                  step_ms_median=step_ms, step_ms_min=gaps[0] * 1e3,
+                  step_ms_max=gaps[-1] * 1e3,
+                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * 1e3 / step_ms,
+                  peak_bytes=peak, first_loss=first, last5_loss=float(last),
+                  losses=[losses[i] for i in sorted(losses)],
+                  checkpoints_kept=kept, resumed_at=TRAIN_RESUME_AT,
+                  resumed_loss=resumed[TRAIN_RESUME_AT + 1],
+                  resume_bit_exact=True, served_first=served[0].tolist()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- (m5) phi3-mini at published widths, 4 layers, 10 steps
+    cfg = dataclasses.replace(get_config(TRAIN_CUT_CONFIG),
+                              num_layers=TRAIN_CUT_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = schema.init_params(T.build_schema(cfg), gen,
+                                getattr(torch, cfg.dtype), dev)
+    n_params = schema.param_count(T.build_schema(cfg))
+    opt_cfg = opt_mod.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                                  total_steps=TRAIN_CUT_STEPS,
+                                  state_dtype=cfg.opt_state_dtype)
+    state = opt_mod.init_state(opt_cfg, params)
+    step_fn = make_train_step(cfg, opt_cfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_CUT_SEQ,
+                                  TRAIN_CUT_BATCH, seed=LM_SEED))
+    cut_losses, cut_ms = [], []
+    for i in range(TRAIN_CUT_STEPS):
+        b = data.batch(i)
+        batch = {k: torch.from_numpy(b[k]).to(dev)
+                 for k in ("tokens", "labels", "positions")}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        cut_losses.append(float(m["loss"]))
+        cut_ms.append((time.perf_counter() - t) * 1e3)
+    tokens = TRAIN_CUT_BATCH * TRAIN_CUT_SEQ
+    cut_sorted = sorted(cut_ms[1:])
+    median = cut_sorted[len(cut_sorted) // 2]
+    if not np.isfinite(cut_losses).all():
+        fail(f"train cut: a loss is not finite: {cut_losses}")
+    if not np.mean(cut_losses[-3:]) < cut_losses[0]:
+        fail(f"train cut: the loss did not fall: {cut_losses}")
+    emit(dict(phase="train_cut", config=cfg.name,
+              num_layers=cfg.num_layers, parameters=n_params,
+              reduced="depth 32 → 4 layers: the whole model's parameters, "
+                      "gradients and float32 moments leave no room on one "
+                      "card", batch=TRAIN_CUT_BATCH, seq=TRAIN_CUT_SEQ,
+              steps=TRAIN_CUT_STEPS, step_ms_median=median,
+              step_ms_first=cut_ms[0], tokens_per_s=tokens * 1e3 / median,
+              flop_bound_ms=6 * n_params * tokens / BF16_FLOP_PER_S * 1e3,
+              peak_bytes=torch.cuda.max_memory_allocated(),
+              losses=cut_losses))
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+
+    # ---- (m6) one train step of three smoke configs, card against host
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("train: TF32 is on for float32 products")
+    for name in TRAIN_SMOKE:
+        scfg = get_smoke_config(name)
+        host = schema.init_params(T.build_schema(scfg),
+                                  torch.Generator().manual_seed(LM_SEED),
+                                  torch.float32, torch.device("cpu"))
+        b = SyntheticLM(DataConfig(scfg.vocab_size, TRAIN_SMOKE_SEQ, 2,
+                                   seed=LM_SEED)).batch(0)
+        opt_cfg = opt_mod.AdamWConfig(warmup_steps=1, total_steps=2)
+        res = {}
+        for where, device in (("host", torch.device("cpu")), ("card", dev)):
+            p = schema.tree_map(lambda a: a.to(device), host)
+            batch = {k: torch.from_numpy(b[k]).to(device)
+                     for k in ("tokens", "labels")}
+            _, _, m = make_train_step(scfg, opt_cfg)(
+                p, opt_mod.init_state(opt_cfg, p), batch)
+            res[where] = {k: float(v) for k, v in m.items()}
+        rel = {k: abs(res["card"][k] - res["host"][k])
+               / max(abs(res["host"][k]), 1e-30)
+               for k in ("loss", "grad_norm")}
+        if any(r > TRAIN_SMOKE_TOL for r in rel.values()):
+            fail(f"train smoke {name}: card against host {rel}")
+        emit(dict(phase="train_smoke", config=name,
+                  tolerance=TRAIN_SMOKE_TOL, card=res["card"],
+                  host=res["host"], rel_diff=rel))
+    emit(dict(phase="train_seconds", seconds=time.perf_counter() - t_phase))
 
 
 def main() -> int:
@@ -723,6 +1139,8 @@ def main() -> int:
               cuda=torch.version.cuda))
     if "--lm-only" in sys.argv[1:]:
         lm_serving(torch, np, dev)
+        lm_recurrent(torch, np, dev)
+        lm_training(torch, np, dev)
         return 0
     built = _build.build_all()
     emit(dict(phase="build", seconds=built["seconds"], built=built["built"]))
@@ -749,7 +1167,8 @@ def main() -> int:
                              "service", "mesh", "global_bitmask",
                              "global_spgemm",
                              "experiment",
-                             "attention", "lm_serving")}
+                             "attention", "lm_serving", "lm_recurrent",
+                             "train")}
 
     def drive(path, fn):
         """One call of a main path, every launch count set to 0 just before
@@ -769,6 +1188,13 @@ def main() -> int:
     _, counts = drive("lm_serving", lambda: lm_serving(torch, np, dev))
     if any(counts.values()):
         fail(f"a kernel of the port launched on the LM serving path: {counts}")
+    # ---- (m) the recurrent families served, then training: no kernel of
+    # the port either
+    for path, phase in (("lm_recurrent", lm_recurrent),
+                        ("train", lm_training)):
+        _, counts = drive(path, lambda: phase(torch, np, dev))
+        if any(counts.values()):
+            fail(f"a kernel of the port launched on path {path}: {counts}")
 
     def vals_close(got, want):
         vmax = want.abs().amax(dim=1, keepdim=True)

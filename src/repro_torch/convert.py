@@ -84,15 +84,39 @@ def params_from_numpy(tree, dtype=None, device=None):
     return _tensor_from_numpy(tree, dtype, dev)
 
 
-def cache_from_numpy(tree, dtype=None, device=None):
-    """The port's KV cache tree from a JAX cache whose leaves went through
-    ``np.asarray``: nested dicts of ``KVCache``-like pairs (fields ``k``
-    and ``v``) of stacked arrays."""
+def _cache_types() -> dict:
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import MambaCache, MLSTMCache, SLSTMCache
+    return {t.__name__: t for t in (KVCache, MambaCache, MLSTMCache,
+                                    SLSTMCache)}
+
+
+def cache_from_numpy(tree, dtype=None, device=None):
+    """The port's cache tree from a JAX cache whose leaves went through
+    ``np.asarray``: nested dicts of cache named tuples (``KVCache``,
+    ``MambaCache``, ``MLSTMCache``, ``SLSTMCache``, matched by class name
+    and fields) of stacked arrays.  ``dtype`` casts every leaf (the SSM
+    states stay float32 only if it is None)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: cache_from_numpy(v, dtype, dev) for k, v in tree.items()}
-    if hasattr(tree, "_fields") and tuple(tree._fields) == ("k", "v"):
-        return KVCache(_tensor_from_numpy(tree.k, dtype, dev),
-                       _tensor_from_numpy(tree.v, dtype, dev))
+    if hasattr(tree, "_fields"):
+        cls = _cache_types().get(type(tree).__name__)
+        if cls is None or tuple(cls._fields) != tuple(tree._fields):
+            raise TypeError(f"no cache of the port matches "
+                            f"{type(tree).__name__}{tuple(tree._fields)}")
+        return cls(*(_tensor_from_numpy(a, dtype, dev) for a in tree))
     return _tensor_from_numpy(tree, dtype, dev)
+
+
+def opt_state_from_numpy(state, device=None):
+    """The port's ``AdamState`` from JAX's, its leaves through
+    ``np.asarray``: ``step`` a 0-d int32 tensor, ``mu``/``nu`` parameter
+    trees (bfloat16 moments bit for bit)."""
+    from repro_torch.train.optimizer import AdamState
+    dev = resolve_device(device)
+    return AdamState(
+        torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                     device=dev),
+        params_from_numpy(state.mu, device=dev),
+        params_from_numpy(state.nu, device=dev))

@@ -1,14 +1,17 @@
-"""Unified model stack for the attention families of the assigned configs.
+"""Unified model stack for all assigned families.
 
 Layers are grouped into *segments* of identical repeating period (e.g.
-deepseek-v3 = [3×dense] + [58×moe]); each segment's params are stacked over
-repeats (a leading layer axis on every leaf) and applied by a loop over
-that axis.
+deepseek-v3 = [3×dense] + [58×moe]; xlstm = 3×(mlstm,mlstm,mlstm,slstm));
+each segment's params are stacked over repeats (a leading layer axis on
+every leaf) and applied by a loop over that axis.  zamba2's one shared
+attention+MLP block runs after every ``attn_every``-th layer: unwindowed
+in the forward, under ``cfg.sliding_window`` in decode, as the JAX
+package has it (the two agree only within the window).
 
-The recurrent block kinds (``mamba``, ``mlstm``, ``slstm``) and zamba2's
-shared attention (``attn_every``) need ``models/ssm.py``, which the port
-does not have yet (ROADMAP Queue A): every entry point here raises
-``NotImplementedError`` for a config that uses them.
+With ``cfg.remat`` other than ``"none"``, each repeat of a segment runs
+under ``torch.utils.checkpoint`` while gradients are being recorded
+(``"full"`` saves nothing inside it, ``"dots"`` saves its plain matrix
+products); it changes no value.
 
 Public API:
   build_schema(cfg, mesh_model)                → PSpec tree
@@ -21,30 +24,20 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils import checkpoint as ckpt_util
 
 from repro_torch.core.csr import resolve_device
 
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (norm_schema, apply_norm, mlp_schema, apply_mlp,
                      embed_schema, embed_tokens, lm_head)
 from .schema import PSpec, stack_layers
 
-RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
-
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run yet."""
-    kinds = set(cfg.block_pattern) & set(RECURRENT_KINDS)
-    if kinds or cfg.attn_every:
-        what = sorted(kinds) + (["attn_every"] if cfg.attn_every else [])
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what)} need models/ssm.py, which the "
-            "port does not have yet (ROADMAP Queue A)")
 
 
 # --------------------------------------------------------------------------- #
@@ -77,9 +70,14 @@ def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copy)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, attn_mod.KVCache):
-        return attn_mod.KVCache(tree.k[i], tree.v[i])
+    if isinstance(tree, tuple):  # a cache NamedTuple
+        return type(tree)(*(t[i] for t in tree))
     return tree[i]
+
+
+def _shared_at(cfg, gidx: int) -> bool:
+    """Whether zamba2's shared block runs after global layer ``gidx``."""
+    return bool(cfg.attn_every) and (gidx + 1) % cfg.attn_every == 0
 
 
 # --------------------------------------------------------------------------- #
@@ -98,17 +96,29 @@ def _block_schema(cfg, kind: str, mesh_model: int) -> dict:
                 "attn": attn_mod.attention_schema(cfg, mesh_model),
                 "ln2": norm_schema(cfg),
                 "moe": moe_mod.moe_schema(cfg)}
+    if kind == "mamba":
+        return {"ln1": norm_schema(cfg), "mamba": ssm_mod.mamba_schema(cfg)}
+    if kind == "mlstm":
+        return {"ln1": norm_schema(cfg), "mlstm": ssm_mod.mlstm_schema(cfg)}
+    if kind == "slstm":
+        return {"ln1": norm_schema(cfg), "slstm": ssm_mod.slstm_schema(cfg)}
     raise ValueError(kind)
 
 
 def build_schema(cfg, mesh_model: int = 1) -> dict:
-    check_supported(cfg)
     pv = cfg.padded_vocab()
     sch: dict[str, Any] = {"embed": embed_schema(cfg, pv)}
     for si, seg in enumerate(segment_plan(cfg)):
         period = {f"pos{j}": _block_schema(cfg, k, mesh_model)
                   for j, k in enumerate(seg.kinds)}
         sch[f"seg{si}"] = stack_layers(period, seg.repeats)
+    if cfg.attn_every:  # zamba2 shared attention+MLP block (one weight set)
+        sch["shared_attn"] = {
+            "ln1": norm_schema(cfg),
+            "attn": attn_mod.gqa_schema(cfg, mesh_model),
+            "ln2": norm_schema(cfg),
+            "mlp": mlp_schema(cfg),
+        }
     if cfg.is_encoder_decoder:
         enc_period = {"pos0": _block_schema(cfg, "attn", mesh_model)}
         sch["encoder"] = stack_layers(enc_period, cfg.num_encoder_layers)
@@ -141,8 +151,19 @@ def _zero_aux(device) -> Aux:
     return Aux(z, z, z)
 
 
+_SSM_FORWARD = {"mamba": ssm_mod.mamba_forward,
+                "mlstm": ssm_mod.mlstm_forward,
+                "slstm": ssm_mod.slstm_forward}
+_SSM_DECODE = {"mamba": ssm_mod.mamba_decode,
+               "mlstm": ssm_mod.mlstm_decode,
+               "slstm": ssm_mod.slstm_decode}
+
+
 def _apply_block(p, cfg, kind, x, positions, aux: Aux, *, causal=True,
                  capacity=None):
+    if kind in _SSM_FORWARD:
+        return x + _SSM_FORWARD[kind](p[kind], cfg,
+                                      apply_norm(p["ln1"], x)), aux
     h = apply_norm(p["ln1"], x)
     if cfg.attention_type == "mla":
         a = attn_mod.mla_forward(p["attn"], cfg, h, positions, causal=causal)
@@ -162,15 +183,64 @@ def _apply_block(p, cfg, kind, x, positions, aux: Aux, *, causal=True,
     return x, aux
 
 
+def _apply_shared_attn(p, cfg, x, positions):
+    """zamba2's shared block over the full sequence: unwindowed, as JAX's
+    forward runs it (decode applies ``cfg.sliding_window``; ROADMAP R9)."""
+    h = apply_norm(p["ln1"], x)
+    x = x + attn_mod.gqa_forward(p["attn"], cfg, h, positions, causal=True)
+    h = apply_norm(p["ln2"], x)
+    return x + apply_mlp(p["mlp"], h)
+
+
+def _save_dots():
+    """Selective checkpointing that keeps plain matrix products (JAX's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(_ctx, op, *_args, **_kw):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat_wrap(cfg, fn):
+    """``fn`` under activation checkpointing per ``cfg.remat``, where
+    gradients are being recorded; as it is otherwise."""
+    if cfg.remat == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
+        return ckpt_util.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def _repeat_fn(params, cfg, seg: SegmentPlan, positions, *, capacity,
+               causal):
+    """One repeat of ``seg``: (x, aux, layer params, repeat index) → (x,
+    aux), zamba2's shared block interleaved."""
+    def body(xx, aux_c, layer_p, r):
+        for j, kind in enumerate(seg.kinds):
+            xx, aux_c = _apply_block(layer_p[f"pos{j}"], cfg, kind, xx,
+                                     positions, aux_c, causal=causal,
+                                     capacity=capacity)
+            if _shared_at(cfg, seg.layer_offset + r * len(seg.kinds) + j):
+                xx = _apply_shared_attn(params["shared_attn"], cfg, xx,
+                                        positions)
+        return xx, aux_c
+    return _remat_wrap(cfg, body)
+
+
 def _run_segments(params, cfg, x, positions, aux, *, capacity, causal=True):
     for si, seg in enumerate(segment_plan(cfg)):
-        seg_params = params[f"seg{si}"]
+        body = _repeat_fn(params, cfg, seg, positions, capacity=capacity,
+                          causal=causal)
         for r in range(seg.repeats):
-            layer_p = _layer(seg_params, r)
-            for j, kind in enumerate(seg.kinds):
-                x, aux = _apply_block(layer_p[f"pos{j}"], cfg, kind, x,
-                                      positions, aux, causal=causal,
-                                      capacity=capacity)
+            x, aux = body(x, aux, _layer(params[f"seg{si}"], r), r)
     return x, aux
 
 
@@ -181,9 +251,14 @@ def _run_encoder(params, cfg, frame_embeds):
     x = frame_embeds
     pos = torch.arange(x.shape[1], dtype=torch.int32,
                        device=x.device)[None].expand(x.shape[:2])
+
+    def body(xx, layer_p):
+        return _apply_block(layer_p["pos0"], cfg, "attn", xx, pos,
+                            _zero_aux(xx.device), causal=False)[0]
+
+    body = _remat_wrap(cfg, body)
     for r in range(cfg.num_encoder_layers):
-        x, _ = _apply_block(_layer(params["encoder"], r)["pos0"], cfg, "attn",
-                            x, pos, _zero_aux(x.device), causal=False)
+        x = body(x, _layer(params["encoder"], r))
     return apply_norm(params["enc_norm"], x)
 
 
@@ -203,7 +278,6 @@ def forward(params, cfg, batch, *, capacity: int | None = None):
 
     Returns (logits (B,S,V_padded) fp32, Aux, mtp_logits or None).
     """
-    check_supported(cfg)
     dtype = _dtype(cfg)
     tokens = batch["tokens"]
     dev = tokens.device
@@ -225,11 +299,16 @@ def forward(params, cfg, batch, *, capacity: int | None = None):
         enc_out = _run_encoder(params, cfg, batch["frame_embeds"].to(dtype))
         # decoder: interleave self-attn blocks with cross-attn per layer
         seg = segment_plan(cfg)[0]
+
+        def body(xx, aux_c, r):
+            xx, aux_c = _apply_block(_layer(params["seg0"], r)["pos0"], cfg,
+                                     "attn", xx, positions, aux_c,
+                                     causal=True, capacity=capacity)
+            return _apply_cross(params, cfg, xx, enc_out, r), aux_c
+
+        body = _remat_wrap(cfg, body)
         for r in range(seg.repeats):
-            x, aux = _apply_block(_layer(params["seg0"], r)["pos0"], cfg,
-                                  "attn", x, positions, aux, causal=True,
-                                  capacity=capacity)
-            x = _apply_cross(params, cfg, x, enc_out, r)
+            x, aux = body(x, aux, r)
     else:
         x, aux = _run_segments(params, cfg, x, positions, aux,
                                capacity=capacity)
@@ -253,34 +332,50 @@ def forward(params, cfg, batch, *, capacity: int | None = None):
 # --------------------------------------------------------------------------- #
 # serving: cache init / decode
 # --------------------------------------------------------------------------- #
-def _block_cache(cfg, batch, max_len, dtype, device, mesh_model=1):
+def _block_cache(cfg, kind, batch, max_len, dtype, device, mesh_model=1):
+    if kind == "mamba":
+        return ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return ssm_mod.init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return ssm_mod.init_slstm_cache(cfg, batch, dtype, device)
     if cfg.attention_type == "mla":
         return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
     return attn_mod.init_gqa_cache(cfg, batch, max_len, dtype, device,
                                    mesh_model)
 
 
+def _stacked(c, n: int):
+    """A cache NamedTuple with ``n`` zeroed layers stacked in front."""
+    return type(c)(*(torch.zeros((n,) + a.shape, dtype=a.dtype,
+                                 device=a.device) for a in c))
+
+
 def init_cache(cfg, batch: int, max_len: int, mesh_model: int = 1, *,
                device=None):
     """Stacked-over-repeats cache tree mirroring the segment structure, on
     ``device`` (default: the CUDA card)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     cache: dict[str, Any] = {}
     eff_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     for si, seg in enumerate(segment_plan(cfg)):
-        period = {}
-        for j, _kind in enumerate(seg.kinds):
-            c = _block_cache(cfg, batch, eff_len, dtype, dev, mesh_model)
-            period[f"pos{j}"] = attn_mod.KVCache(
-                *(torch.zeros((seg.repeats,) + a.shape, dtype=a.dtype,
-                              device=dev) for a in c))
-        cache[f"seg{si}"] = period
+        cache[f"seg{si}"] = {
+            f"pos{j}": _stacked(_block_cache(cfg, kind, batch, eff_len, dtype,
+                                             dev, mesh_model), seg.repeats)
+            for j, kind in enumerate(seg.kinds)}
+    if cfg.attn_every:
+        n_shared = sum(1 for i in range(cfg.num_layers) if _shared_at(cfg, i))
+        cache["shared_attn"] = _stacked(attn_mod.init_gqa_cache(
+            cfg, batch, eff_len, dtype, dev, mesh_model), n_shared)
     return cache
 
 
 def _decode_block(p, cfg, kind, x, positions, cache, cur_len, *, window=0):
+    if kind in _SSM_DECODE:
+        y, cache = _SSM_DECODE[kind](p[kind], cfg, apply_norm(p["ln1"], x),
+                                     cache)
+        return x + y, cache
     h = apply_norm(p["ln1"], x)
     if cfg.attention_type == "mla":
         a, cache = attn_mod.mla_decode(p["attn"], cfg, h, positions, cache,
@@ -303,12 +398,12 @@ def decode_step(params, cfg, tokens, cache, cur_len, *, enc_out=None):
     """One-token decode.  tokens (B, 1); cur_len a 0-d integer tensor (the
     current cache fill) on the cache's device.  Returns (logits (B,1,V)
     fp32, cache): the cache is updated in place and returned."""
-    check_supported(cfg)
     dtype = _dtype(cfg)
     b = tokens.shape[0]
     positions = cur_len.to(torch.int32).reshape(1, 1).expand(b, 1)
     x = embed_tokens(params["embed"], tokens, dtype)
     window = cfg.sliding_window
+    shared_ct = 0
     for si, seg in enumerate(segment_plan(cfg)):
         seg_params = params[f"seg{si}"]
         seg_cache = cache[f"seg{si}"]
@@ -319,6 +414,15 @@ def decode_step(params, cfg, tokens, cache, cur_len, *, enc_out=None):
                 x, _ = _decode_block(layer_p[f"pos{j}"], cfg, kind, x,
                                      positions, rep_cache[f"pos{j}"],
                                      cur_len, window=window)
+                if _shared_at(cfg, seg.layer_offset + r * len(seg.kinds) + j):
+                    sp = params["shared_attn"]
+                    a, _ = attn_mod.gqa_decode(
+                        sp["attn"], cfg, apply_norm(sp["ln1"], x), positions,
+                        _layer(cache["shared_attn"], shared_ct), cur_len,
+                        window=window)
+                    x = x + a
+                    x = x + apply_mlp(sp["mlp"], apply_norm(sp["ln2"], x))
+                    shared_ct += 1
             if cfg.is_encoder_decoder and enc_out is not None:
                 x = _apply_cross(params, cfg, x, enc_out, r)
     x = apply_norm(params["final_norm"], x)

@@ -1610,11 +1610,11 @@ def test_reservation_covers_the_peak_on_the_card(card, family, variant):
 
 
 # --------------------------------------------------------------------------- #
-# The LM serving path (no kernel of the port: the model's products are plain
-# tensor products): the smoke configs in float32 on the card against the
-# host, the MoE dispatch and the sampled dispatch capacity's torch twin.
+# The LM serving and training paths (no kernel of the port: the model's
+# products are plain tensor products): the smoke configs in float32 on the
+# card against the host, the recurrent blocks, one train step, the MoE
+# dispatch and the sampled dispatch capacity's torch twin.
 # --------------------------------------------------------------------------- #
-LM_RECURRENT = ("xlstm-125m", "zamba2-7b")
 LM_TOL = 1e-4        # relative, plus LM_TOL × the largest |logit|
 
 
@@ -1627,7 +1627,7 @@ def _lm_close(got, want, tol=LM_TOL):
 
 def _lm_names():
     from repro_torch.configs.base import smoke_registry
-    return sorted(n for n in smoke_registry() if n not in LM_RECURRENT)
+    return sorted(smoke_registry())
 
 
 @pytest.mark.cuda
@@ -1673,6 +1673,82 @@ def test_lm_smoke_config_on_the_card_matches_the_host(card, name):
     if hm is not None:
         _lm_close(cm, hm)
     assert torch.equal(cg.cpu(), hg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name", [("mamba", "zamba2-7b"),
+                                       ("mlstm", "xlstm-125m"),
+                                       ("slstm", "xlstm-125m")])
+def test_ssm_block_on_the_card_matches_the_host(card, kind, name):
+    """A recurrent block's forward over two SSD chunks (the last padded)
+    and its decode step by step, with the cache it carries, on the card
+    equal the host's (float32)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import schema, ssm
+    cfg = get_smoke_config(name)
+    host = schema.init_params(getattr(ssm, f"{kind}_schema")(cfg),
+                              torch.Generator().manual_seed(7),
+                              torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 2 * cfg.ssm_chunk - 3, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        p = schema.tree_map(lambda a: a.to(dev), host)
+        xd = x.to(dev)
+        with torch.no_grad():
+            full = getattr(ssm, f"{kind}_forward")(p, cfg, xd)
+            cache = getattr(ssm, f"init_{kind}_cache")(cfg, 2, torch.float32,
+                                                       dev)
+            steps = []
+            for i in range(x.shape[1]):
+                y, cache = getattr(ssm, f"{kind}_decode")(
+                    p, cfg, xd[:, i:i + 1], cache)
+                steps.append(y)
+        out[str(dev)] = (full, torch.cat(steps, 1), cache)
+    (hf, hs, hc), (cf, cs, cc) = out["cpu"], out[str(card)]
+    assert cf.is_cuda and cs.is_cuda
+    _lm_close(cf, hf)
+    _lm_close(cs, hs)
+    _lm_close(cs, cf)
+    for c, h in zip(cc, hc):
+        _lm_close(c, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "xlstm-125m",
+                                  "zamba2-7b"])
+def test_train_step_on_the_card_matches_the_host(card, name):
+    """One AdamW train step (remat as configured) on the card: loss,
+    metrics and grad norm within LM_TOL of the host's, the new parameters
+    too (float32)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import schema
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step
+    cfg = get_smoke_config(name)
+    host = schema.init_params(T.build_schema(cfg),
+                              torch.Generator().manual_seed(9),
+                              torch.float32, "cpu")
+    b = SyntheticLM(DataConfig(cfg.vocab_size, 24, 2, seed=1)).batch(0)
+    # eps above the gradients' rounding noise (Adam's first step is their
+    # sign)
+    opt_cfg = opt_mod.AdamWConfig(warmup_steps=1, total_steps=2, eps=1e-3)
+    step = make_train_step(cfg, opt_cfg)
+    out = {}
+    for dev in ("cpu", card):
+        p = schema.tree_map(lambda a: a.to(dev), host)
+        batch = {k: torch.from_numpy(b[k]).to(dev)
+                 for k in ("tokens", "labels")}
+        out[str(dev)] = step(p, opt_mod.init_state(opt_cfg, p), batch)
+    (hp, _, hm), (cp, cs, cm) = out["cpu"], out[str(card)]
+    assert int(cs.step) == 1 and sorted(cm) == sorted(hm)
+    for k in hm:
+        _lm_close(cm[k], hm[k])
+    for c, h in zip(schema.tree_leaves(cp), schema.tree_leaves(hp)):
+        assert c.is_cuda
+        _lm_close(c, h)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 
 * ``configs``: every ``CONFIG`` and ``SMOKE`` equals JAX's field for field;
   ``param_count`` of each full ``CONFIG`` (the schema only, nothing
-  allocated) equals JAX's, and the two recurrent configs raise.
+  allocated) equals JAX's, the recurrent zamba2-7b and xlstm-125m
+  included.
 * ``models.schema``: logical axes, stacked layers, ``abstract_params`` and
   ``init_params``' scales.
 * ``models.layers``, ``models.attention`` (GQA and MLA, forward, prefill
@@ -39,7 +40,6 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 NAMES = sorted(jbase.registry())
-RECURRENT = ("xlstm-125m", "zamba2-7b")
 
 
 # --------------------------------------------------------------------------- #
@@ -67,10 +67,6 @@ def test_configs_equal_jax(name):
 @pytest.mark.parametrize("name", NAMES)
 def test_param_count_of_full_config_equals_jax(name):
     cfg = tbase.get_config(name)
-    if name in RECURRENT:
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            cfg.param_count_estimate()
-        return
     assert cfg.param_count_estimate() == \
         jbase.get_config(name).param_count_estimate()
     assert cfg.active_param_count_estimate() == \
@@ -94,7 +90,7 @@ def _flat(tree, prefix=()):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in RECURRENT])
+@pytest.mark.parametrize("name", NAMES)
 def test_schema_matches_jax(name):
     cfg_t, cfg_j = tbase.get_smoke_config(name), jbase.get_smoke_config(name)
     st, sj = tT.build_schema(cfg_t), jT.build_schema(cfg_j)

@@ -1,5 +1,5 @@
 """The port's transformer and serving engine against the JAX package's, for
-the eight attention-family smoke configs.
+all ten smoke configs (the recurrent xlstm-125m and zamba2-7b included).
 
 * ``transformer.forward`` (logits, aux losses and deepseek's MTP logits;
   qwen2-vl with early-fused patch embeddings and three M-RoPE position
@@ -8,14 +8,16 @@ the eight attention-family smoke configs.
   1e-4 × the result's largest |value| of JAX's.  The port's own decode
   reproduces its forward (the serving invariant of
   ``tests/test_decode_consistency.py``).
-* ``serve.engine.generate``: greedy tokens and the final cache equal JAX's
-  for qwen2.5-32b, deepseek-v3-671b and whisper-small; temperature
-  sampling is deterministic under one generator seed (JAX's
+* ``serve.engine.generate``: greedy tokens and the final cache (KV, SSM
+  and sLSTM states, zamba2's shared-attention cache) equal JAX's for
+  qwen2.5-32b, deepseek-v3-671b, whisper-small, xlstm-125m and zamba2-7b;
+  temperature sampling is deterministic under one generator seed (JAX's
   ``jax.random.categorical`` stream cannot be reproduced, so only greedy
   output is held to JAX).
-* The recurrent configs (xlstm-125m, zamba2-7b) raise
-  ``NotImplementedError``; an entry point called without ``device="cpu"``
-  raises where no card is present; a session never writes past its cache.
+* zamba2's shared attention: decode is windowed and the forward is not, as
+  in JAX (ROADMAP R9), so past the window the two part.
+* An entry point called without ``device="cpu"`` raises where no card is
+  present; a session never writes past its cache.
 
 JAX runs under ``jax.jit`` as its serving engine runs it; weights are
 carried across with ``convert.params_from_numpy``.
@@ -43,8 +45,7 @@ from repro_torch.serve import engine as tengine
 torch.set_num_threads(1)
 
 TOL = 1e-4
-RECURRENT = ("xlstm-125m", "zamba2-7b")
-SERVED = sorted(n for n in jbase.smoke_registry() if n not in RECURRENT)
+SERVED = sorted(jbase.smoke_registry())
 B, S = 2, 10
 CAP = 64           # no expert drops at S tokens a group
 
@@ -81,13 +82,19 @@ def _close(got, want, tol=TOL):
 def _assert_caches(got, want_jax):
     want = convert.cache_from_numpy(
         jax.tree_util.tree_map(np.asarray, want_jax), device="cpu")
-    assert sorted(got) == sorted(want)
-    for seg in want:
-        for pos in want[seg]:
-            g, w = got[seg][pos], want[seg][pos]
-            assert isinstance(g, tattn.KVCache)
-            _close(g.k, w.k)
-            _close(g.v, w.v)
+    _assert_cache_tree(got, want)
+
+
+def _assert_cache_tree(got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _assert_cache_tree(got[k], want[k])
+        return
+    assert type(got) is type(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g, w)
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,7 +236,8 @@ def _port_session(name, max_len=GEN_P + GEN_N + 1):
 
 
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "qwen2.5-32b",
-                                  "whisper-small"])
+                                  "whisper-small", "xlstm-125m",
+                                  "zamba2-7b"])
 def test_greedy_generate_matches_jax(name):
     tokens = _setup(name)[3]
     sess = _port_session(name)
@@ -288,19 +296,47 @@ def test_generate_refuses_more_tokens_than_the_cache_holds(window):
     assert sess.filled == GEN_P + 2
 
 
-@pytest.mark.parametrize("name", RECURRENT)
-def test_recurrent_configs_raise(name):
-    cfg = tbase.get_smoke_config(name)
-    tok = torch.zeros((1, 4), dtype=torch.int32)
-    calls = [lambda: tT.build_schema(cfg),
-             lambda: tT.forward({}, cfg, {"tokens": tok}),
-             lambda: tT.init_cache(cfg, 1, 8, device="cpu"),
-             lambda: tT.decode_step({}, cfg, tok[:, :1], {},
-                                    torch.tensor(0)),
-             lambda: tengine.start_session(cfg, {}, 1, 8, device="cpu")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="models/ssm.py"):
-            call()
+def test_zamba2_shared_attention_is_windowed_in_decode_only():
+    """zamba2's shared block runs after every ``attn_every``-th layer under
+    ``sliding_window`` in decode and unwindowed in the forward (JAX's
+    ``transformer.py:193, 407``): within the window the two agree, past it
+    they part, and JAX's decode parts the same way."""
+    name = "zamba2-7b"
+    jc, tc, _, tokens, _ = _setup(name)
+    window = 4
+    jcw = dataclasses.replace(jc, sliding_window=window)
+    tcw = dataclasses.replace(tc, sliding_window=window)
+    params = _port_params(name)
+    tok = torch.from_numpy(tokens)
+    cache = tT.init_cache(tcw, B, S, device="cpu")
+    # the window caps the shared block's cache; the SSM states are per step
+    assert cache["shared_attn"].k.shape[:4] == (2, B, tc.num_kv_heads,
+                                                window)
+    cache = tT.init_cache(tcw, B, window, device="cpu")
+    got = []
+    for i in range(window):
+        lg, cache = tT.decode_step(params, tcw, tok[:, i:i + 1], cache,
+                                   torch.tensor(i, dtype=torch.int32))
+        got.append(lg[:, 0])
+    full, _, _ = tT.forward(params, tcw, {"tokens": tok})
+    _close(torch.stack(got, 1), full[:, :window])
+    # past the window: a decode with a cache of S slots, masked to the
+    # window, against JAX's decode of the same
+    step = jengine.make_decode_fn(jcw)
+    jp = _jax_params(name)
+    jcache = jT.init_cache(jc, B, S)       # S slots: the mask does the window
+    tcache = tT.init_cache(tc, B, S, device="cpu")
+    want, got = [], []
+    for i in range(S):
+        jl, jcache = step(jp, jcache, jnp.asarray(tokens[:, i:i + 1]),
+                          jnp.asarray(i, jnp.int32), None)
+        tl, tcache = tT.decode_step(params, tcw, tok[:, i:i + 1], tcache,
+                                    torch.tensor(i, dtype=torch.int32))
+        want.append(np.asarray(jl[:, 0]))
+        got.append(tl[:, 0])
+    got = torch.stack(got, 1)
+    _close(got, np.stack(want, 1))
+    assert (got[:, window:] - full[:, window:]).abs().max() > 1e-3
 
 
 ENTRY_POINTS = {
