@@ -100,8 +100,22 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
        numpy, and ``apply_moe`` at the predicted and the default
        capacity); (l3) the eight attention-family smoke configs in
        float32, card against host within 1e-4, greedy tokens equal.
-       ``python3 chip_smoke.py --lm-only`` runs (l) alone, without the
-       kernel build, and prints no ``ok`` line;
+       ``python3 chip_smoke.py --lm-only`` runs (l), (m) and (n) alone,
+       without the kernel build, and prints no ``ok`` line;
+   (m) the recurrent families served, training and checkpoints, which
+       reach no kernel either;
+   (n) the LM stack sharded (``models/sharding.py``) on a (1, 1)
+       ("data", "model") NCCL mesh of the card: (n1) phi3-mini at published
+       widths cut to 4 layers, three train steps sharded and unsharded from
+       the same weights and batches, losses and parameters compared; (n2)
+       deepseek-v3 at 4 layers, decode steps with parameters and caches
+       laid out by the decode specs (the caches' sequence axis on
+       `model`), logits and caches against the unsharded ones; (n3)
+       ``roofline.hlo_cost`` counts (n1)'s sharded step, its bound on the
+       H100's rates against its CUDA-event time; (n4) the mini dry run
+       (``python -m repro_torch.launch.dryrun --mini``, fake 2 × 4 mesh of
+       ``cuda`` fake tensors) in a subprocess, which must count FLOPs and
+       collective bytes;
 2. checks what came out: z*, f* and floprC against the plain versions on the
    card and the host oracles, ``row_nnz``/``col``/``val`` against the plain
    numeric phase of each bucket's route on the card and the exact
@@ -250,6 +264,34 @@ TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, TRAIN_CUT_STEPS = 4, 1024, 10
 TRAIN_SMOKE = ("deepseek-v3-671b", "xlstm-125m", "zamba2-7b")
 TRAIN_SMOKE_SEQ = 29       # two SSD chunks of the smoke configs' 16
 TRAIN_SMOKE_TOL = 1e-4
+# (n) the LM stack on a device mesh, a (1, 1) ("data", "model") mesh of the
+# one card over NCCL.  (n1) (m5)'s phi3-mini at 4 layers: SHARD_STEPS train
+# steps sharded and unsharded from the same weights and batches, in the
+# config's bf16 and in float32; Adam's first steps are the sign of each
+# gradient, so ``eps`` is raised to keep a gradient within rounding of 0
+# from flipping a step.  The sharded loss takes its log-sum-exp as a max
+# and a sum (the vocab may be sharded), so the two runs part in rounding,
+# and training amplifies that: Adam divides each gradient by its own root
+# mean square, so parameters 1e-7 apart after one step give gradients
+# that differ by percents two steps later (measured on the card: at equal
+# parameters the float32 gradients agree within 2.9e-6 at every step, bf16
+# within 3.9%, one or a few bf16 steps).  Gated: the first step's loss
+# (before any update) within SHARD_LOSS_RTOL; in float32 the gradients at
+# the last step's parameters, taken sharded and unsharded, within
+# SHARD_GRAD_TOL of each leaf's largest |gradient|; every loss within
+# SHARD_STEP_LOSS_RTOL and the parameters within SHARD_PARAM_TOL of each
+# leaf's largest |value| (a misplaced shard moves them by their own size).
+# (n2) (l1)'s deepseek-v3 at 4 layers: SHARD_PROMPT decode steps and one
+# more, the caches' sequence axis laid out on `model`; its softmax is taken
+# as an exp over a max and a sum, so logits within
+# SHARD_LOGIT_MAX_REL of the largest |logit| (max) and SHARD_LOGIT_MEAN_REL
+# of their standard deviation (mean).  (n3) hlo_cost's counts of (n1)'s
+# sharded step against its CUDA-event time.  (n4) the mini dry run.
+SHARD_STEPS, SHARD_TIMED, SHARD_EPS = 3, 5, 1e-3
+SHARD_LOSS_RTOL, SHARD_GRAD_TOL = 1e-5, 1e-4
+SHARD_STEP_LOSS_RTOL, SHARD_PARAM_TOL = 1e-2, 0.1
+SHARD_PROMPT = 8
+SHARD_LOGIT_MAX_REL, SHARD_LOGIT_MEAN_REL = 0.05, 0.01
 
 
 def emit(obj) -> None:
@@ -1104,6 +1146,268 @@ def lm_training(torch, np, dev) -> None:
     emit(dict(phase="train_seconds", seconds=time.perf_counter() - t_phase))
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _whole(tree, specs, mesh):
+    """``tree``'s tensors as DTensors laid out by ``specs`` on a (1, 1)
+    mesh, where every shard is the whole tensor: the same storage, no
+    copy."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import sharding
+    if isinstance(tree, dict):
+        return {k: _whole(tree[k], specs[k], mesh) for k in tree}
+    if isinstance(tree, tuple) and not sharding.is_spec(specs):
+        return type(tree)(*(_whole(t, s, mesh) for t, s in zip(tree, specs)))
+    return DTensor.from_local(tree, mesh, sharding.placements(specs, mesh),
+                              run_check=False)
+
+
+def _tree_diff(torch, got, want) -> dict:
+    """Leaves equal bit for bit, and the largest |difference| over the
+    leaf's largest |value|, of two trees of the same structure."""
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, tuple):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+    equal, worst = 0, 0.0
+    a_s, b_s = leaves(got), leaves(want)
+    for a, b in zip(a_s, b_s):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        equal += bool(torch.equal(a, b))
+        d = (a.float() - b.float()).abs().max()
+        worst = max(worst, float(d / b.float().abs().max().clamp_min(1e-30)))
+    return dict(leaves=len(b_s), bitwise_leaves=equal, max_rel=worst)
+
+
+def lm_sharded(torch, np, dev) -> None:
+    """Phase (n): the LM stack sharded (``models/sharding.py``) on a (1, 1)
+    NCCL mesh of the card, held to the unsharded runs, its roofline counted
+    (``roofline/hlo_cost.py``), and the mini dry run in a subprocess.  No
+    kernel of the port runs."""
+    import contextlib
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import schema, sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline import analysis as roof
+    from repro_torch.roofline import hlo_cost
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import grads_of, make_train_step
+    t_phase = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+
+        # ---- (n1) phi3-mini at published widths, 4 layers: a sharded
+        # train step against the unsharded one, in bf16 and in float32
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            return out, (start, end)
+
+        def median_ms(events):
+            torch.cuda.synchronize()
+            ms = sorted(a.elapsed_time(b) for a, b in events)
+            return ms[len(ms) // 2]
+
+        def roofline(cfg, params, state, b, step):
+            """(n3): ``hlo_cost``'s counts of the sharded step against its
+            CUDA-event time."""
+            with sharding.use_mesh(mesh):
+                counts = hlo_cost.analyze(step, params, state, b)
+                events = []
+                for _ in range(SHARD_TIMED):
+                    (params, state, _), ev = timed(
+                        lambda: step(params, state, b))
+                    events.append(ev)
+            measured = median_ms(events)
+            six_nd = roof.model_flops_train(cfg,
+                                            TRAIN_CUT_BATCH * TRAIN_CUT_SEQ)
+            compute_ms = counts["flops"] / roof.PEAK_FLOPS * 1e3
+            memory_ms = counts["bytes"] / roof.HBM_BW * 1e3
+            bound = max(compute_ms, memory_ms)
+            emit(dict(phase="sharded_roofline", config=cfg.name,
+                      flops=counts["flops"], bytes=counts["bytes"],
+                      collectives=counts["collectives"],
+                      model_flops_6nd=six_nd, compute_ms=compute_ms,
+                      memory_ms=memory_ms, bound_ms=bound,
+                      bound_by="operations" if compute_ms >= memory_ms
+                      else "bytes", step_ms_median=measured,
+                      share=bound / measured,
+                      useful_ratio=six_nd / counts["flops"],
+                      peak_flops=roof.PEAK_FLOPS, hbm_bw=roof.HBM_BW))
+            if not counts["flops"] > six_nd / 2 or not measured > 0:
+                fail(f"sharded roofline: {counts} against 6ND {six_nd}")
+
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(get_config(TRAIN_CUT_CONFIG),
+                                      num_layers=TRAIN_CUT_LAYERS,
+                                      dtype=dtype)
+            sch = T.build_schema(cfg)
+            specs = sharding.specs_from_schema(sch, sharding.make_rules(
+                cfg, mesh_model=1, multi_pod=False))
+            opt_cfg = opt_mod.AdamWConfig(
+                lr_peak=TRAIN_LR, warmup_steps=2,
+                total_steps=TRAIN_CUT_STEPS, eps=SHARD_EPS,
+                state_dtype=cfg.opt_state_dtype)
+            data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_CUT_SEQ,
+                                          TRAIN_CUT_BATCH, seed=LM_SEED))
+            batches = [{k: torch.from_numpy(b[k]).to(dev)
+                        for k in ("tokens", "labels", "positions")}
+                       for b in map(data.batch, range(SHARD_STEPS))]
+            step = make_train_step(cfg, opt_cfg)
+
+            def init():
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(LM_SEED)
+                return schema.init_params(sch, gen, getattr(torch, dtype),
+                                          dev)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            params = init()
+            state = opt_mod.init_state(opt_cfg, params)
+            plain_losses, plain_ev = [], []
+            for b in batches:
+                (params, state, m), ev = timed(
+                    lambda: step(params, state, b))
+                plain_losses.append(float(m["loss"]))
+                plain_ev.append(ev)
+            plain, plain_ms = params, median_ms(plain_ev)
+            del state, params
+            torch.cuda.empty_cache()
+
+            params = _whole(init(), specs, mesh)
+            state = opt_mod.init_state(opt_cfg, params)
+            dbatches = [_whole(b, sharding.batch_specs(cfg, "train", False),
+                               mesh) for b in batches]
+            losses, ev_sharded = [], []
+            with sharding.use_mesh(mesh):
+                for b in dbatches:
+                    (params, state, m), ev = timed(
+                        lambda: step(params, state, b))
+                    losses.append(float(m["loss"].full_tensor()))
+                    ev_sharded.append(ev)
+            diff = _tree_diff(torch, params, plain)
+            rels = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                         plain_losses)]
+            # the gradients at one set of parameters, sharded and not
+            same = schema.tree_map(lambda t: t.to_local(), params)
+            _, want_g = grads_of(same, cfg, batches[-1])
+            with sharding.use_mesh(mesh):
+                _, got_g = grads_of(params, cfg, dbatches[-1])
+            grad_diff = _tree_diff(torch, got_g, want_g)
+            del same, want_g, got_g
+            emit(dict(phase="sharded_train", config=cfg.name, dtype=dtype,
+                      num_layers=cfg.num_layers, batch=TRAIN_CUT_BATCH,
+                      seq=TRAIN_CUT_SEQ, steps=SHARD_STEPS, mesh=[1, 1],
+                      eps=SHARD_EPS, losses=losses,
+                      plain_losses=plain_losses, loss_rel=rels,
+                      params=diff, grads_at_equal_params=grad_diff,
+                      bitwise=diff["bitwise_leaves"] == diff["leaves"]
+                      and losses == plain_losses,
+                      step_ms_median=median_ms(ev_sharded),
+                      plain_step_ms_median=plain_ms,
+                      peak_bytes=torch.cuda.max_memory_allocated()))
+            if not all(np.isfinite(losses)) or rels[0] > SHARD_LOSS_RTOL \
+                    or max(rels) > SHARD_STEP_LOSS_RTOL \
+                    or diff["max_rel"] > SHARD_PARAM_TOL or (
+                        dtype == "float32"
+                        and grad_diff["max_rel"] > SHARD_GRAD_TOL):
+                fail(f"sharded train ({dtype}): losses {losses} against "
+                     f"{plain_losses}, parameters {diff}, gradients at "
+                     f"equal parameters {grad_diff}")
+            del plain
+            if dtype == "bfloat16":     # (n3) on the model's own dtype
+                roofline(cfg, params, state, dbatches[0], step)
+            del params, state, dbatches, batches, step
+            torch.cuda.empty_cache()
+
+        # ---- (n2) deepseek-v3 at published widths, 4 layers: a sharded
+        # decode step against the unsharded one
+        cfg = dataclasses.replace(get_config(LM_CONFIG), num_layers=LM_LAYERS)
+        sch = T.build_schema(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(LM_SEED)
+        params = schema.init_params(sch, gen, torch.bfloat16, dev)
+        rng = np.random.default_rng(LM_SEED)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_BATCH, SHARD_PROMPT + 1)).astype(
+                np.int32)).to(dev)
+        max_len = SHARD_PROMPT + 2
+
+        def decode(p, cache, tok_spec, ctx):
+            with torch.no_grad(), ctx:
+                for t in range(SHARD_PROMPT + 1):
+                    cur = torch.tensor(t, dtype=torch.int32, device=dev)
+                    tt = toks[:, t:t + 1]
+                    if tok_spec is not None:
+                        tt = _whole(tt, tok_spec, mesh)
+                    logits, _ = T.decode_step(p, cfg, tt, cache, cur)
+            return logits
+
+        cache = T.init_cache(cfg, LM_BATCH, max_len, device=dev)
+        want = decode(params, cache, None, contextlib.nullcontext())
+        dparams = _whole(params, sharding.specs_from_schema(
+            sch, sharding.make_rules(cfg, mesh_model=1, multi_pod=False)),
+            mesh)
+        dcache = _whole(T.init_cache(cfg, LM_BATCH, max_len, device=dev),
+                        sharding.cache_spec_tree(cfg, 1, False), mesh)
+        got = decode(dparams, dcache, sharding.P("data", None),
+                     sharding.use_mesh(mesh)).full_tensor()
+        d = (got - want).abs()
+        max_d, mean_d = float(d.max()), float(d.mean())
+        max_bound = SHARD_LOGIT_MAX_REL * float(want.abs().max())
+        mean_bound = SHARD_LOGIT_MEAN_REL * float(want.std())
+        cache_diff = _tree_diff(torch, dcache, cache)
+        emit(dict(phase="sharded_decode", config=cfg.name,
+                  num_layers=cfg.num_layers, batch=LM_BATCH,
+                  steps=SHARD_PROMPT + 1, mesh=[1, 1],
+                  logits_bitwise=bool(torch.equal(got, want)),
+                  logits_max_abs=max_d, logits_max_bound=max_bound,
+                  logits_mean_abs=mean_d, logits_mean_bound=mean_bound,
+                  cache=cache_diff))
+        if not bool(torch.isfinite(got).all()) or max_d > max_bound \
+                or mean_d > mean_bound:
+            fail(f"sharded decode: max |diff| {max_d} (bound {max_bound}), "
+                 f"mean {mean_d} (bound {mean_bound})")
+        del params, dparams, cache, dcache
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (n4) the mini dry run, in a process of its own (its fake process
+    # group never meets this one's NCCL group)
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mini",
+         "--device", "cuda"], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    if out.returncode != 0:
+        fail(f"mini dry run: {out.stderr[-2000:]}")
+    mini = json.loads(out.stdout.strip().splitlines()[-1])
+    emit(dict(phase="mini_dryrun", seconds=time.perf_counter() - t, **mini))
+    if not (mini["flops"] > 0 and mini["collective_bytes"] > 0):
+        fail(f"mini dry run: no FLOPs or no collective bytes: {mini}")
+    emit(dict(phase="lm_sharded_seconds",
+              seconds=time.perf_counter() - t_phase))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1141,6 +1445,7 @@ def main() -> int:
         lm_serving(torch, np, dev)
         lm_recurrent(torch, np, dev)
         lm_training(torch, np, dev)
+        lm_sharded(torch, np, dev)
         return 0
     built = _build.build_all()
     emit(dict(phase="build", seconds=built["seconds"], built=built["built"]))
@@ -1168,7 +1473,7 @@ def main() -> int:
                              "global_spgemm",
                              "experiment",
                              "attention", "lm_serving", "lm_recurrent",
-                             "train")}
+                             "train", "lm_sharded")}
 
     def drive(path, fn):
         """One call of a main path, every launch count set to 0 just before
@@ -1191,7 +1496,7 @@ def main() -> int:
     # ---- (m) the recurrent families served, then training: no kernel of
     # the port either
     for path, phase in (("lm_recurrent", lm_recurrent),
-                        ("train", lm_training)):
+                        ("train", lm_training), ("lm_sharded", lm_sharded)):
         _, counts = drive(path, lambda: phase(torch, np, dev))
         if any(counts.values()):
             fail(f"a kernel of the port launched on path {path}: {counts}")

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import sharding
 from .schema import PSpec
 from .layers import apply_rope, apply_norm
 
@@ -105,10 +106,30 @@ def _write_at(buf: torch.Tensor, dim: int, cur_len: torch.Tensor,
     of ``cur_len`` back to the host.  Where JAX's ``dynamic_update_slice``
     would clamp a start past the end, this raises (on the host) instead."""
     idx = cur_len.reshape(1).to(device=buf.device, dtype=torch.long)
-    if buf.device.type == "cpu" and int(idx) >= buf.shape[dim]:
+    if (buf.device.type == "cpu" and not _is_fake(idx)
+            and int(idx) >= buf.shape[dim]):
         raise IndexError(f"decode position {int(idx)} is past the cache's "
                          f"{buf.shape[dim]} slots")
-    buf.index_copy_(dim, idx, new.to(buf.dtype))
+    if sharding.ambient_mesh() is None:
+        buf.index_copy_(dim, idx, new.to(buf.dtype))
+        return
+    # a cache sharded along ``dim``: each rank writes the position where it
+    # falls in its own shard, and writes back what it holds elsewhere
+    spec = sharding.P(*[None if d == dim else sharding.axes_of(buf, d)
+                        for d in range(buf.ndim)])
+    new = sharding.redistribute(new, spec, buf.device_mesh).to_local()
+    loc = buf.to_local()
+    at = idx - sharding.mesh_offset(buf, dim)
+    inside = (at >= 0) & (at < loc.shape[dim])
+    at = at.clamp(0, loc.shape[dim] - 1)
+    loc.index_copy_(dim, at, torch.where(inside, new.to(loc.dtype),
+                                         loc.index_select(dim, at)))
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    """A tensor with a shape and no values (the dry run's)."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
 
 
 # --------------------------------------------------------------------------- #
@@ -186,9 +207,56 @@ def _gqa_attend(p, x, q, kh, vh, *, causal, window):
 def gqa_forward(p, cfg, x, positions, *, causal: bool = True,
                 window: int = 0) -> torch.Tensor:
     """Full-sequence attention (training / prefill).  x: (B, S, d)."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    return _gqa_attend(p, x, q, k.transpose(1, 2), v.transpose(1, 2),
-                       causal=causal, window=window)
+    def local(pl, xl, posl, kv_idx):
+        q, k, v = _project_qkv(pl, cfg, xl, posl)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        if kv_idx is not None:
+            kh, vh = kh[:, kv_idx], vh[:, kv_idx]
+        return _gqa_attend(pl, xl, q, kh, vh, causal=causal, window=window)
+    return _by_heads(local, p, x, positions,
+                     _pos_spec(positions, sharding.axes_of(x, 0)),
+                     kv=("wq", "wk"))
+
+
+def _by_heads(fn, p, x, extra=None, extra_spec=None, *, kv=None):
+    """``fn(p, x, extra, None)``.  Inside a mesh each rank runs ``fn`` on
+    its batch rows and its shard of the heads (every weight's
+    `model`-sharded dimension kept, the rest gathered), and the block's
+    output is summed across the heads' shards (tensor parallelism).
+    ``extra`` (positions, or the encoder output) is laid out by
+    ``extra_spec``; a plain one holds the same row for every sequence.
+    With ``kv = (q weight, kv weight)`` naming q heads sharded and kv heads
+    whole, ``fn`` gets the kv heads its q heads read (JAX's head grouping:
+    q head i reads kv head i // ceil(Hq / KV))."""
+    if sharding.ambient_mesh() is None:
+        return fn(p, x, extra, None)
+    bx = sharding.axes_of(x, 0)
+    rows = sharding.P(bx, None, None)
+    heads = sharding.axes_of(p[kv[0]] if kv else p["wo"], 1 if kv else 0)
+    q_off = group = None
+    if kv and heads is not None and sharding.axes_of(p[kv[1]], 1) is None:
+        q_off = sharding.mesh_offset(p[kv[0]], 1)
+        group = -(-p[kv[0]].shape[1] // p[kv[1]].shape[1])
+
+    def local(pl, xl, el):
+        if extra_spec is None and el is not None:
+            el = el[..., :xl.shape[0], :]
+        kv_idx = None
+        if q_off is not None:
+            n = pl[kv[0]].shape[1]
+            kv_idx = (q_off + torch.arange(n, device=xl.device)) // group
+        return fn(pl, xl, el, kv_idx)
+    return sharding.local_map(local, (p, x, extra),
+                              (sharding.tp_specs(p), rows, extra_spec), rows,
+                              partial=heads)
+
+
+def _pos_spec(positions, bx):
+    """The layout of a DTensor of positions ((B, S) or M-RoPE's (3, B,
+    S)): batch over ``bx``; ``None`` for a plain one."""
+    if not sharding.is_dtensor(positions):
+        return None
+    return sharding.P(*[None] * (positions.ndim - 2), bx, None)
 
 
 def gqa_prefill(p, cfg, x, positions, cache: KVCache, *, window: int = 0):
@@ -207,41 +275,119 @@ def gqa_prefill(p, cfg, x, positions, cache: KVCache, *, window: int = 0):
 def gqa_decode(p, cfg, x, positions, cache: KVCache, cur_len, *,
                window: int = 0):
     """One-token decode.  x: (B, 1, d); cache k/v (B, KV, Smax, hd)."""
-    b = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _decode_heads(
+        lambda pl, xl, posl: _project_qkv(pl, cfg, xl, posl), p, x,
+        positions, (("wq", 1), ("wk", 1), ("wv", 1)))
     # append new kv at cur_len
     _write_at(cache.k, 2, cur_len, k.transpose(1, 2))
     _write_at(cache.v, 2, cur_len, v.transpose(1, 2))
-    ck, cv = cache.k, cache.v
-    smax = ck.shape[2]
-
     qh = q.transpose(1, 2)                                  # (B, Hp, 1, hd)
-    hp, kvh = qh.shape[1], ck.shape[1]
-    group = -(-hp // kvh)
+    out = _decode_attend(
+        lambda ql, kl, cl, s0: _gqa_scores(ql, kl, cl, s0, window),
+        _gqa_mix, (qh,), (cache.k,), cache.v, cur_len, seq_dim=2)
+    out = out.to(x.dtype).transpose(1, 2)                   # (B, 1, Hp, hd)
+    return _out_proj(lambda pl, ol: torch.einsum("bshk,hkd->bsd", ol,
+                                                 pl["wo"].to(x.dtype)),
+                     {"wo": p["wo"]}, out, "wo", 0), cache
+
+
+def _decode_heads(fn, p, x, positions, outs):
+    """``fn(p, x, positions)``: a decode step's projections.  Inside a mesh
+    on each rank's batch rows and heads; output ``i`` of (B, 1, H, ·) is
+    laid out with its heads as weight ``outs[i][0]``'s dimension
+    ``outs[i][1]`` (``None``: not by heads)."""
+    if sharding.ambient_mesh() is None:
+        return fn(p, x, positions)
+    bx = sharding.axes_of(x, 0)
+
+    def spec(o):
+        if o is None:
+            return sharding.P(bx, None, None)
+        return sharding.P(bx, None, sharding.axes_of(p[o[0]], o[1]), None)
+
+    pos_spec = _pos_spec(positions, bx)
+
+    def local(pl, xl, posl):
+        if pos_spec is None:
+            posl = posl[..., :xl.shape[0], :]
+        return fn(pl, xl, posl)
+    return sharding.local_map(
+        local, (p, x, positions),
+        (sharding.tp_specs(p), sharding.P(bx, None, None), pos_spec),
+        tuple(spec(o) for o in outs))
+
+
+def _out_proj(fn, p, h, name: str, dim: int):
+    """``fn(p, h)`` for h (B, 1, H, ·) whose heads weight ``name`` shards
+    on ``dim``; inside a mesh on each rank's heads, summed across them."""
+    if sharding.ambient_mesh() is None:
+        return fn(p, h)
+    bx, hx = sharding.axes_of(h, 0), sharding.axes_of(p[name], dim)
+    return sharding.local_map(
+        fn, (p, h), (sharding.tp_specs(p), sharding.P(bx, None, hx, None)),
+        sharding.P(bx, None, None), partial=hx)
+
+
+def _gqa_scores(qh, ck, cur_len, s0: int, window: int):
+    """Masked scores (B, Hp, 1, S) of qh (B, Hp, 1, hd) against cache
+    positions ``s0 + [0, S)`` of ``ck`` (B, KV, S, hd)."""
+    b, hp = qh.shape[:2]
+    kvh, smax = ck.shape[1], ck.shape[2]
     if hp % kvh != 0:
-        kk = torch.repeat_interleave(ck, group, dim=1)[:, :hp]
-        vv = torch.repeat_interleave(cv, group, dim=1)[:, :hp]
+        kk = torch.repeat_interleave(ck, -(-hp // kvh), dim=1)[:, :hp]
         sco = torch.einsum("bhqd,bhsd->bhqs", qh.float(), kk.float())
     else:
         qg = qh.reshape(b, kvh, -1, 1, qh.shape[-1])
-        vv = cv
         sco = torch.einsum("bkgqd,bksd->bkgqs", qg.float(),
                            ck.float()).reshape(b, hp, 1, smax)
     sco = sco / (qh.shape[-1] ** 0.5)
-    spos = torch.arange(smax, device=x.device)
+    spos = s0 + torch.arange(smax, device=qh.device)
     pos_mask = spos <= cur_len
     if window:
         pos_mask &= spos > cur_len - window
-    sco = sco.masked_fill(~pos_mask[None, None, None], NEG_INF)
-    prob = torch.softmax(sco, dim=-1)
+    return sco.masked_fill(~pos_mask[None, None, None], NEG_INF)
+
+
+def _gqa_mix(prob, cv):
+    """prob (B, Hp, 1, S) · cv (B, KV, S, hd) → (B, Hp, 1, hd), float32."""
+    b, hp, _, smax = prob.shape
+    kvh = cv.shape[1]
+    group = -(-hp // kvh)
     if hp % kvh != 0:
-        out = torch.einsum("bhqs,bhsd->bhqd", prob, vv.float())
-    else:
-        out = torch.einsum("bkgqs,bksd->bkgqd",
-                           prob.reshape(b, kvh, group, 1, smax),
-                           vv.float()).reshape(b, hp, 1, -1)
-    out = out.to(x.dtype).transpose(1, 2)                   # (B, 1, Hp, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+        vv = torch.repeat_interleave(cv, group, dim=1)[:, :hp]
+        return torch.einsum("bhqs,bhsd->bhqd", prob, vv.float())
+    return torch.einsum("bkgqs,bksd->bkgqd",
+                        prob.reshape(b, kvh, group, 1, smax),
+                        cv.float()).reshape(b, hp, 1, -1)
+
+
+def _decode_attend(scores, mix, queries, keys, values, cur_len, *,
+                   seq_dim: int):
+    """``mix(softmax(scores(*queries, *keys, cur_len, 0)), values)`` over
+    caches with their sequence axis at ``seq_dim``.  Inside a mesh the
+    caches stay sharded along their sequence axis: each rank scores its
+    positions against the queries (gathered over the heads), the softmax
+    is taken across the shards (a max and a sum reduced over the sequence
+    axis), and each rank's part of the weighted sum is added up across
+    them."""
+    if sharding.ambient_mesh() is None:
+        prob = torch.softmax(scores(*queries, *keys, cur_len, 0), dim=-1)
+        return mix(prob, values)
+    bx, sx = sharding.axes_of(values, 0), sharding.axes_of(values, seq_dim)
+    s0 = sharding.mesh_offset(values, seq_dim)
+    cache_spec = sharding.P(*[bx if d == 0 else sx if d == seq_dim else None
+                              for d in range(values.ndim)])
+    q_specs = tuple(sharding.P(bx, *[None] * (qq.ndim - 1))
+                    for qq in queries)
+    sco_spec = sharding.P(bx, None, None, sx)
+    sco = sharding.local_map(
+        lambda *a: scores(*a, s0), (*queries, *keys, cur_len),
+        (*q_specs, *[cache_spec] * len(keys), None), sco_spec)
+    e = torch.exp(sco - sco.amax(-1, keepdim=True))
+    prob = e / e.sum(-1, keepdim=True)
+    return sharding.local_map(
+        mix, (prob, values), (sco_spec, cache_spec),
+        sharding.P(bx, None, None, None), partial=sx)
 
 
 # --------------------------------------------------------------------------- #
@@ -264,6 +410,13 @@ def _mla_qkv(p, cfg, x, positions):
 
 def mla_forward(p, cfg, x, positions, *, causal: bool = True) -> torch.Tensor:
     """Training/prefill MLA: expand latent to full k/v (FLOP-optimal for S≫1)."""
+    return _by_heads(lambda pl, xl, posl, _: _mla_forward(pl, cfg, xl, posl,
+                                                          causal),
+                     p, x, positions,
+                     _pos_spec(positions, sharding.axes_of(x, 0)))
+
+
+def _mla_forward(p, cfg, x, positions, causal):
     nope = cfg.mla_qk_nope_dim
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, positions)
     kv = torch.einsum("bsr,rhk->bshk", ckv, p["wkv_b"].to(x.dtype))
@@ -294,25 +447,41 @@ def mla_prefill(p, cfg, x, positions, cache: KVCache):
 def mla_decode(p, cfg, x, positions, cache: KVCache, cur_len):
     """Absorbed-form decode against the latent cache (B, Smax, latent + rope)."""
     nope = cfg.mla_qk_nope_dim
-    q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(p, cfg, x, positions)
+    proj = {k_: p[k_] for k_ in p if k_ != "wo"}
+
+    def qkv(pl, xl, posl):
+        q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(pl, cfg, xl, posl)
+        # absorb: q_eff (B,1,H,latent)
+        q_eff = torch.einsum("bshk,rhk->bshr", q_nope,
+                             pl["wkv_b"][..., :nope].to(xl.dtype))
+        return q_eff, q_rope, ckv_new, k_rope_new
+    q_eff, q_rope, ckv_new, k_rope_new = _decode_heads(
+        qkv, proj, x, positions, (("wq_b", 1), ("wq_b", 1), None, None))
     _write_at(cache.k, 1, cur_len, ckv_new)
     _write_at(cache.v, 1, cur_len, k_rope_new)
-    ck, cr = cache.k, cache.v
-    smax = ck.shape[1]
+    scale = (nope + cfg.mla_qk_rope_dim) ** 0.5
+    ctx = _decode_attend(
+        lambda qe, qr, ck, cr, cl, s0: _mla_scores(qe, qr, ck, cr, cl, s0,
+                                                   scale),
+        lambda prob, ck: torch.einsum("bshS,bSr->bshr", prob, ck.float()),
+        (q_eff, q_rope), (cache.k, cache.v), cache.k, cur_len, seq_dim=1)
 
-    w_uk = p["wkv_b"][..., :nope]                       # (latent, H, nope)
-    w_uv = p["wkv_b"][..., nope:]                       # (latent, H, v)
-    # absorb: q_eff (B,1,H,latent)
-    q_eff = torch.einsum("bshk,rhk->bshr", q_nope, w_uk.to(x.dtype))
+    def out_proj(pl, c):
+        w_uv = pl["wkv_b"][..., nope:]                  # (latent, H, v)
+        out = torch.einsum("bshr,rhk->bshk", c.to(x.dtype), w_uv.to(x.dtype))
+        return torch.einsum("bshk,hkd->bsd", out, pl["wo"].to(x.dtype))
+    return _out_proj(out_proj, {"wkv_b": p["wkv_b"], "wo": p["wo"]}, ctx,
+                     "wo", 0), cache
+
+
+def _mla_scores(q_eff, q_rope, ck, cr, cur_len, s0: int, scale: float):
+    """Masked absorbed-form scores (B, 1, H, S) against latent cache
+    positions ``s0 + [0, S)``."""
     sco = (torch.einsum("bshr,bSr->bshS", q_eff.float(), ck.float()) +
            torch.einsum("bshk,bSk->bshS", q_rope.float(), cr.float()))
-    sco = sco / ((nope + cfg.mla_qk_rope_dim) ** 0.5)
-    mask = torch.arange(smax, device=x.device) <= cur_len
-    sco = sco.masked_fill(~mask[None, None, None], NEG_INF)
-    prob = torch.softmax(sco, dim=-1)
-    ctx = torch.einsum("bshS,bSr->bshr", prob, ck.float())
-    out = torch.einsum("bshr,rhk->bshk", ctx.to(x.dtype), w_uv.to(x.dtype))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+    sco = sco / scale
+    mask = s0 + torch.arange(ck.shape[1], device=ck.device) <= cur_len
+    return sco.masked_fill(~mask[None, None, None], NEG_INF)
 
 
 # --------------------------------------------------------------------------- #
@@ -332,6 +501,11 @@ def cross_schema(cfg, mesh_model: int) -> dict:
 def cross_forward(p, cfg, x, enc_out) -> torch.Tensor:
     """Decoder cross-attention over encoder output (no cache needed: enc kv
     computed on the fly — enc seq is short)."""
+    return _by_heads(lambda pl, xl, el, _: _cross_forward(pl, xl, el), p, x,
+                     enc_out, sharding.P(sharding.axes_of(x, 0), None, None))
+
+
+def _cross_forward(p, x, enc_out):
     enc = enc_out.to(x.dtype)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype)).transpose(1, 2)
     k = torch.einsum("bsd,dhk->bshk", enc, p["wk"].to(x.dtype)).transpose(1, 2)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import sharding
 from .schema import PSpec
 
 
@@ -20,7 +21,13 @@ def norm_schema(cfg) -> dict:
 
 def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm, or LayerNorm where ``p`` has a bias; computed in float32 and
-    cast back to ``x``'s dtype."""
+    cast back to ``x``'s dtype (inside a mesh on each rank's rows)."""
+    rows = sharding.rows(x)
+    return sharding.local_map(lambda pl, xl: _norm(pl, xl, eps), (p, x),
+                              ("replicated", rows), rows)
+
+
+def _norm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     if "bias" in p:  # layernorm
         mu = xf.mean(-1, keepdim=True)
@@ -88,6 +95,14 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP; inside a mesh on each rank's rows and shard of the hidden
+    units, the output summed across the shards (tensor parallel)."""
+    rows = sharding.rows(x)
+    return sharding.local_map(_mlp, (p, x), (sharding.tp_specs(p), rows),
+                              rows, partial=sharding.axes_of(p["wi"], 1))
+
+
+def _mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = _matmul(x, p["wi"])
     if "wg" in p:  # swiglu
         h = F.silu(_matmul(x, p["wg"])) * h
@@ -109,7 +124,22 @@ def embed_schema(cfg, padded_vocab: int) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["tok"].to(dtype)[tokens]
+    if sharding.ambient_mesh() is None:
+        return p["tok"].to(dtype)[tokens]
+    # the vocab-sharded table: each rank looks up the rows it holds and the
+    # lookups are summed across the shards, no table gathered
+    table = p["tok"]
+    vx, bx = sharding.axes_of(table, 0), sharding.axes_of(tokens, 0)
+    v0 = sharding.mesh_offset(table, 0)
+
+    def look(t, tok):
+        at = tok.long() - v0
+        inside = (at >= 0) & (at < t.shape[0])
+        rows = t.to(dtype)[at.clamp(0, t.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return sharding.reduce_partial(sharding.local_map(
+        look, (table, tokens), (sharding.P(vx, None), sharding.P(bx, None)),
+        sharding.P(bx, None, None), partial=vx))
 
 
 def lm_head(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -117,4 +147,7 @@ def lm_head(p: dict, x: torch.Tensor) -> torch.Tensor:
     w = p.get("head")
     if w is None:
         w = p["tok"].T
-    return (x @ w.to(x.dtype)).float()
+    vx = sharding.axes_of(w, 1)
+    return sharding.local_map(lambda wl, xl: (xl @ wl.to(xl.dtype)).float(),
+                              (w, x), (sharding.P(None, vx), sharding.rows(x)),
+                              sharding.P(sharding.axes_of(x, 0), None, vx))

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import sharding
 from .schema import PSpec
 from .layers import mlp_schema, apply_mlp
 
@@ -70,22 +71,85 @@ def apply_moe(p, cfg, x, *, capacity: int):
     Grouped dispatch: one group per batch row, so the dispatch sort and
     position bookkeeping stay local to the group (S·k-element sorts).
     ``capacity`` is per group and static; the paper's predictor supplies it
-    (DESIGN §4), worst-case ``default_capacity`` is the fallback.
+    (DESIGN §4), worst-case ``default_capacity`` is the fallback.  Inside a
+    mesh each rank dispatches and combines its own groups; the experts
+    shard over `model`.
     """
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
-    dev = x.device
-    n = s * k
 
-    logits = (x @ p["router"].to(x.dtype)).float()                    # (B,S,E)
+    bx = sharding.axes_of(x, 0)
+    rows, toks = sharding.P(bx, None), sharding.P(bx, None, None)
+    lse, probs, gates, ids = sharding.local_map(
+        lambda rl, xl: _route(rl, xl, k), (p["router"], x),
+        (sharding.replicated(2), toks), (rows, toks, toks, toks))
+    buf, order, dest, keep, counts = sharding.local_map(
+        lambda xl, il: _dispatch(xl, il, e, capacity), (x, ids),
+        (toks, toks), (sharding.P(None, bx, None), rows, rows, rows, rows))
+
+    # ---- expert MLPs: one batched product over the experts ----
+    # pinned to (E@model, G·C@data) at training scale, as the JAX package
+    # pins its (G, E, C, d) buffers (its third pin, on the hidden
+    # activations, falls inside the experts' local block here)
+    pin = capacity >= 16
+    ep = sharding.P("model", ("pod", "data"), None)
+    if pin:
+        buf = sharding.constrain_spec(buf, ep)
+    w = {n: p[n] for n in ("wi", "wg", "wo")}
+    eb = sharding.P(sharding.axes_of(p["wi"], 0), bx, None)
+    out = sharding.local_map(lambda wl, bl: _experts(wl, bl, x.dtype),
+                             (w, buf), (sharding.tp_specs(w), eb), eb)
+    if pin:
+        out = sharding.constrain_spec(out, ep)
+
+    y = sharding.local_map(
+        lambda ol, orl, dl, kl, gl: _combine(ol, orl, dl, kl, gl, s, k),
+        (out, order, dest, keep, gates),
+        (sharding.P(None, bx, None), rows, rows, rows, toks), toks)
+
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x)
+
+    # ---- aux losses (Switch-style) ----
+    frac_assign = counts.sum(0).float() / (b * s * k)
+    mean_prob = probs.mean(dim=(0, 1))
+    lb = e * torch.sum(frac_assign * mean_prob)
+    zl = torch.mean(lse ** 2)
+    dropped = 1.0 - keep.float().mean()
+    return y, MoEAux(lb, zl, dropped, frac_assign)
+
+
+def _route(router, x, k: int):
+    """(the router logits' log-sum-exp, probs, top-k gates renormalised,
+    top-k expert ids)."""
+    logits = (x @ router.to(x.dtype)).float()                         # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k breaks ties to the lower index; torch.topk does not
     # promise to on the card.  Router probabilities are continuous, so ties
     # do not occur on real or random inputs.
     gates, ids = torch.topk(probs, k, dim=-1)                         # (B,S,k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return torch.logsumexp(logits, dim=-1), probs, gates, ids
 
-    # ---- sort-based dispatch, all groups at once ----
+
+def _experts(w, buf, dtype):
+    """The expert MLPs over the (E, G·C, d) buffer: one batched product
+    an expert matrix."""
+    h = torch.bmm(buf, w["wi"].to(dtype))
+    g = torch.bmm(buf, w["wg"].to(dtype))
+    h = F.silu(g).mul_(h)
+    del g
+    return torch.bmm(h, w["wo"].to(dtype))
+
+
+def _dispatch(x, ids, e: int, capacity: int):
+    """Sort-based dispatch of every group (batch row) of x (B, S, d) to the
+    (E, B·C, d) buffer.  Returns (buffer, each group's sort order, each
+    sorted assignment's slot, whether it kept one, counts (B, E))."""
+    b, s, d = x.shape
+    k = ids.shape[-1]
+    dev = x.device
+    n = s * k
     flat_e = ids.reshape(b, n)
     flat_t = torch.arange(s, device=dev).repeat_interleave(k)         # (n,)
     order = torch.argsort(flat_e, dim=-1, stable=True)                # (B,n)
@@ -103,32 +167,20 @@ def apply_moe(p, cfg, x, *, capacity: int):
     dest = torch.where(keep, (se * b + grp) * capacity + pos, slots)
     buf = torch.zeros((slots + 1, d), dtype=x.dtype, device=dev)
     buf.index_copy_(0, dest.reshape(-1), x[grp, st].reshape(-1, d))
-    buf = buf[:slots].view(e, b * capacity, d)
+    return buf[:slots].view(e, b * capacity, d), order, dest, keep, counts
 
-    # ---- expert MLPs: one batched product over the experts ----
-    h = torch.bmm(buf, p["wi"].to(x.dtype))
-    g = torch.bmm(buf, p["wg"].to(x.dtype))
-    h = F.silu(g).mul_(h)
-    del g
-    out = torch.bmm(h, p["wo"].to(x.dtype)).view(slots, d)
-    del h
 
-    # ---- combine: each assignment back to its (token, top-k slot) ----
+def _combine(out, order, dest, keep, gates, s: int, k: int):
+    """Each assignment's expert output (``out`` (E, B·C, d)) back to its
+    (token, top-k slot), weighted by its gate and summed over the k."""
+    b, n = dest.shape
+    d = out.shape[-1]
+    slots = out.shape[0] * out.shape[1]
+    out = out.reshape(slots, d)
     inv = torch.argsort(order, dim=-1)           # sorted position of (t, j)
     dest_tj = torch.gather(dest, 1, inv)                              # (B,n)
     keep_tj = torch.gather(keep, 1, inv)
     contrib = out[dest_tj.clamp(max=slots - 1)]                   # (B,n,d)
     contrib = contrib.masked_fill(~keep_tj[..., None], 0)
-    y = (contrib * gates.reshape(b, n, 1).to(x.dtype)).view(
+    return (contrib * gates.reshape(b, n, 1).to(out.dtype)).view(
         b, s, k, d).sum(2)
-
-    if "shared" in p:
-        y = y + apply_mlp(p["shared"], x)
-
-    # ---- aux losses (Switch-style) ----
-    frac_assign = counts.sum(0).float() / (b * s * k)
-    mean_prob = probs.mean(dim=(0, 1))
-    lb = e * torch.sum(frac_assign * mean_prob)
-    zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    dropped = 1.0 - keep.float().mean()
-    return y, MoEAux(lb, zl, dropped, frac_assign)

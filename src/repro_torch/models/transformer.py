@@ -34,6 +34,8 @@ from . import ssm as ssm_mod
 from .layers import (norm_schema, apply_norm, mlp_schema, apply_mlp,
                      embed_schema, embed_tokens, lm_head)
 from .schema import PSpec, stack_layers
+from .sharding import (P, ambient_mesh, axes_of, constrain_batch, local_map,
+                       roll_rows, rows, use_mesh, write_shard)
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -162,8 +164,10 @@ _SSM_DECODE = {"mamba": ssm_mod.mamba_decode,
 def _apply_block(p, cfg, kind, x, positions, aux: Aux, *, causal=True,
                  capacity=None):
     if kind in _SSM_FORWARD:
-        return x + _SSM_FORWARD[kind](p[kind], cfg,
-                                      apply_norm(p["ln1"], x)), aux
+        h = apply_norm(p["ln1"], x)
+        rows = P(axes_of(h, 0), None, None)
+        return x + local_map(lambda pl, hl: _SSM_FORWARD[kind](pl, cfg, hl),
+                             (p[kind], h), ("replicated", rows), rows), aux
     h = apply_norm(p["ln1"], x)
     if cfg.attention_type == "mla":
         a = attn_mod.mla_forward(p["attn"], cfg, h, positions, causal=causal)
@@ -215,7 +219,17 @@ def _remat_wrap(cfg, fn):
         if not torch.is_grad_enabled():
             return fn(*args)
         kw = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
-        return ckpt_util.checkpoint(fn, *args, use_reentrant=False, **kw)
+        mesh = ambient_mesh()
+        if mesh is None:
+            return ckpt_util.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+        def in_mesh(*a):
+            # recomputed in the backward, which runs on the autograd
+            # engine's own thread for a card's tensors
+            with use_mesh(mesh):
+                return fn(*a)
+        return ckpt_util.checkpoint(in_mesh, *args, use_reentrant=False,
+                                    **kw)
     return wrapped
 
 
@@ -224,6 +238,7 @@ def _repeat_fn(params, cfg, seg: SegmentPlan, positions, *, capacity,
     """One repeat of ``seg``: (x, aux, layer params, repeat index) → (x,
     aux), zamba2's shared block interleaved."""
     def body(xx, aux_c, layer_p, r):
+        xx = constrain_batch(xx, batch_over_model=not cfg.tensor_parallel)
         for j, kind in enumerate(seg.kinds):
             xx, aux_c = _apply_block(layer_p[f"pos{j}"], cfg, kind, xx,
                                      positions, aux_c, causal=causal,
@@ -253,6 +268,7 @@ def _run_encoder(params, cfg, frame_embeds):
                        device=x.device)[None].expand(x.shape[:2])
 
     def body(xx, layer_p):
+        xx = constrain_batch(xx, batch_over_model=not cfg.tensor_parallel)
         return _apply_block(layer_p["pos0"], cfg, "attn", xx, pos,
                             _zero_aux(xx.device), causal=False)[0]
 
@@ -285,7 +301,8 @@ def forward(params, cfg, batch, *, capacity: int | None = None):
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=dev)[None].expand(tokens.shape)
-    x = embed_tokens(params["embed"], tokens, dtype)
+    x = constrain_batch(embed_tokens(params["embed"], tokens, dtype),
+                        batch_over_model=not cfg.tensor_parallel)
     if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
         # early fusion: precomputed patch embeddings replace the first P slots
         pe = batch["patch_embeds"].to(dtype)
@@ -301,6 +318,7 @@ def forward(params, cfg, batch, *, capacity: int | None = None):
         seg = segment_plan(cfg)[0]
 
         def body(xx, aux_c, r):
+            xx = constrain_batch(xx, batch_over_model=not cfg.tensor_parallel)
             xx, aux_c = _apply_block(_layer(params["seg0"], r)["pos0"], cfg,
                                      "attn", xx, positions, aux_c,
                                      causal=True, capacity=capacity)
@@ -314,13 +332,19 @@ def forward(params, cfg, batch, *, capacity: int | None = None):
                                capacity=capacity)
 
     x = apply_norm(params["final_norm"], x)
-    logits = lm_head(params["embed"], x)
+    # vocab stays `model`-sharded through the CE (a max and a sum reduced)
+    logits = constrain_batch(
+        lm_head(params["embed"], x),
+        sharded_tail={2: "model"} if cfg.tensor_parallel else None,
+        batch_over_model=not cfg.tensor_parallel)
 
     if cfg.mtp_heads:  # deepseek MTP: predict t+2 from [h_t ; emb(t+1)]
         emb_next = embed_tokens(params["embed"],
-                                torch.roll(tokens, -1, dims=1), dtype)
+                                roll_rows(tokens, -1), dtype)
         h_mtp = torch.cat([x.to(dtype), emb_next], dim=-1)
-        h_mtp = h_mtp @ params["mtp"]["proj"].to(dtype)
+        h_mtp = local_map(lambda w, hl: hl @ w.to(dtype),
+                          (params["mtp"]["proj"], h_mtp),
+                          (P(None, None), rows(h_mtp)), rows(h_mtp))
         h_mtp, _ = _apply_block(params["mtp"]["block"], cfg, "attn", h_mtp,
                                 positions, _zero_aux(dev), capacity=capacity)
         h_mtp = apply_norm(params["mtp"]["norm"], h_mtp)
@@ -373,9 +397,8 @@ def init_cache(cfg, batch: int, max_len: int, mesh_model: int = 1, *,
 
 def _decode_block(p, cfg, kind, x, positions, cache, cur_len, *, window=0):
     if kind in _SSM_DECODE:
-        y, cache = _SSM_DECODE[kind](p[kind], cfg, apply_norm(p["ln1"], x),
-                                     cache)
-        return x + y, cache
+        return x + _ssm_decode(_SSM_DECODE[kind], p[kind], cfg,
+                               apply_norm(p["ln1"], x), cache), cache
     h = apply_norm(p["ln1"], x)
     if cfg.attention_type == "mla":
         a, cache = attn_mod.mla_decode(p["attn"], cfg, h, positions, cache,
@@ -392,6 +415,27 @@ def _decode_block(p, cfg, kind, x, positions, cache, cur_len, *, window=0):
     elif cfg.d_ff:
         x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x))
     return x, cache
+
+
+def _ssm_decode(fn, p, cfg, h, cache):
+    """A recurrent block's decode step, ``cache`` updated in place.  Inside
+    a mesh, as in its forward, each rank steps its own batch rows with the
+    block's weights and its rows' states whole, then keeps its shard of the
+    new states."""
+    rows = P(axes_of(h, 0), None, None)
+    states = tuple(P(axes_of(h, 0), *[None] * (c.ndim - 1)) for c in cache)
+    y, *new = local_map(
+        lambda pl, hl, *cl: _flat_step(fn(pl, cfg, hl, type(cache)(*cl))),
+        (p, h, *cache), ("replicated", rows, *states), (rows, *states))
+    if ambient_mesh() is not None:
+        for dst, src in zip(cache, new):
+            write_shard(dst, src)
+    return y
+
+
+def _flat_step(out):
+    y, cache = out
+    return (y, *cache)
 
 
 def decode_step(params, cfg, tokens, cache, cur_len, *, enc_out=None):

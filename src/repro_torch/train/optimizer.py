@@ -13,8 +13,9 @@ a Python float).  Decay applies to every leaf of two or more dimensions,
 as JAX's ``p.ndim >= 2``: with a segment's layer axis that includes its
 norm scales and biases (ROADMAP R8), while ``final_norm`` is not decayed.
 
-The state's sharding (JAX's ``state_specs``) belongs to ``models/
-sharding.py``, which the port does not have yet (ROADMAP Queue A).
+The state shards like its param (``state_specs``), or under ZeRO with
+``embed`` over data(+pod) as well (``zero_state_specs``); ``init_state``
+lays each moment out as its param is laid out.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.schema import tree_leaves, tree_map
+from repro_torch.models.sharding import laid_out_like
 
 
 class AdamState(NamedTuple):
@@ -71,10 +73,22 @@ def init_state(cfg: AdamWConfig, params) -> AdamState:
     leaf = tree_leaves(params)[0]
     return AdamState(
         torch.zeros((), dtype=torch.int32, device=leaf.device),
-        tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                 params),
-        tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                 params))
+        tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
+        tree_map(lambda p: torch.zeros_like(p, dtype=dt), params))
+
+
+def state_specs(param_specs) -> AdamState:
+    """State shards exactly like its param."""
+    from repro_torch.models.sharding import P
+    return AdamState(P(), param_specs, param_specs)
+
+
+def zero_state_specs(schema, rules, *, multi_pod: bool) -> AdamState:
+    """ZeRO: the state shards like its param and also ``embed`` over
+    data(+pod), whether or not the params do."""
+    from repro_torch.models.sharding import specs_from_schema
+    zero = dict(rules, embed=("pod", "data") if multi_pod else ("data",))
+    return state_specs(specs_from_schema(schema, zero))
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -87,7 +101,12 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, grads, state: AdamState, params):
-    """Returns (new_params, new_state, metrics dict)."""
+    """Returns (new_params, new_state, metrics dict).  On a mesh the update
+    runs in each moment's layout: a gradient is taken there first (its
+    partial sums reduced, and scattered where ZeRO shards the state) and a
+    new parameter goes back to its own layout."""
+    grads = unflatten(grads, [laid_out_like(g, m) for g, m in zip(
+        tree_leaves(grads), tree_leaves(state.mu))])
     gnorm = global_norm(grads)
     scale = torch.minimum(_f32(1.0, gnorm), _f32(cfg.clip_norm, gnorm)
                           / torch.maximum(gnorm, _f32(1e-9, gnorm)))
@@ -100,7 +119,8 @@ def apply_updates(cfg: AdamWConfig, grads, state: AdamState, params):
     b2, nb2 = _f32(cfg.b2, gnorm), _f32(1 - cfg.b2, gnorm)
     eps, wd = _f32(cfg.eps, gnorm), _f32(cfg.weight_decay, gnorm)
 
-    def upd(g, m, v, p):
+    def upd(g, m, v, p_own):
+        p = laid_out_like(p_own, m)
         g = g.float() * scale
         m32 = b1 * m.float() + nb1 * g
         v32 = b2 * v.float() + nb2 * g * g
@@ -109,7 +129,7 @@ def apply_updates(cfg: AdamWConfig, grads, state: AdamState, params):
         delta = mhat / (torch.sqrt(vhat) + eps)
         if p.dim() >= 2:  # decoupled weight decay on "matrices" (see R8)
             delta = delta + wd * p.float()
-        newp = (p.float() - lr * delta).to(p.dtype)
+        newp = laid_out_like((p.float() - lr * delta).to(p.dtype), p_own)
         return newp, m32.to(sd), v32.to(sd)
 
     out = [upd(g, m, v, p) for g, m, v, p in zip(

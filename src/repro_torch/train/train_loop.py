@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.models import transformer as tmod
 from repro_torch.models.schema import tree_leaves, tree_map
 from . import optimizer as opt_mod
@@ -22,14 +23,38 @@ MTP_WEIGHT = 0.3
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean CE over valid positions; logits fp32 (B,S,Vp), labels (B,S)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    """Mean CE over valid positions; logits fp32 (B,S,Vp), labels (B,S).
+    Inside a mesh the vocab stays sharded: the log-sum-exp takes a max and
+    a sum reduced across the shards."""
+    if sharding.ambient_mesh() is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        m = logits.detach().amax(-1, keepdim=True)
+        lse = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[
+            ..., 0]
+        gold = _gold_sharded(logits, labels)
     ce = lse - gold
     if valid is None:
         valid = torch.ones_like(ce, dtype=torch.bool)
     denom = torch.clamp(valid.sum(), min=1)
     return torch.where(valid, ce, torch.zeros_like(ce)).sum() / denom
+
+
+def _gold_sharded(logits, labels):
+    """Each position's logit of its label, the vocab sharded: each rank
+    picks the labels in its shard and the picks are summed across them."""
+    bx, vx = sharding.axes_of(logits, 0), sharding.axes_of(logits, -1)
+    v0 = sharding.mesh_offset(logits, -1)
+
+    def pick(lg, y):
+        at = y.long() - v0
+        inside = (at >= 0) & (at < lg.shape[-1])
+        g = torch.gather(lg, -1, at.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(inside, g[..., 0], torch.zeros_like(g[..., 0]))
+    return sharding.local_map(pick, (logits, labels),
+                              (sharding.P(bx, None, vx), sharding.P(bx, None)),
+                              sharding.P(bx, None), partial=vx)
 
 
 def loss_fn(params, cfg, batch, *, capacity: int | None = None):
@@ -44,9 +69,10 @@ def loss_fn(params, cfg, batch, *, capacity: int | None = None):
     loss = ce + MOE_LB_WEIGHT * aux.moe_lb + MOE_Z_WEIGHT * aux.moe_z
     metrics = {"ce": ce, "moe_lb": aux.moe_lb, "moe_dropped": aux.moe_dropped}
     if mtp_logits is not None:  # deepseek MTP: position i predicts token i+2
-        labels2 = torch.roll(labels, -1, dims=1)
+        labels2 = sharding.roll_rows(labels, -1)
         s = labels.shape[1]
-        valid2 = valid & (torch.arange(s, device=labels.device) < s - 1)
+        valid2 = valid & sharding.replicated_like(
+            torch.arange(s, device=labels.device) < s - 1, valid)
         mtp_ce = cross_entropy(mtp_logits, labels2, valid2)
         loss = loss + MTP_WEIGHT * mtp_ce
         metrics["mtp_ce"] = mtp_ce
@@ -62,10 +88,11 @@ def grads_of(params, cfg, batch, *, capacity: int | None = None):
     live = opt_mod.unflatten(params, leaves)
     with torch.enable_grad():
         loss, metrics = loss_fn(live, cfg, batch, capacity=capacity)
+        loss = sharding.replicate(loss)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: sharding.replicate(v.detach()) for k, v in metrics.items()}
     return (loss.detach(), metrics), opt_mod.unflatten(params, grads)
 
 

@@ -1802,3 +1802,99 @@ def test_dispatch_capacity_twin_on_the_card(card, group, frac):
     np.testing.assert_array_equal(got[2].cpu().numpy(),
                                   np.bincount(ids.reshape(-1), minlength=e))
     assert float(got[0]) == pytest.approx(plan_np.predicted_blocks, rel=1e-6)
+
+
+@pytest.fixture
+def card_mesh(card):
+    """A (1, 1) ("data", "model") mesh of the card over a one-rank NCCL
+    group, destroyed after the test."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    assert not dist.is_initialized()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "deepseek-v3-671b"])
+def test_sharded_train_step_on_the_card(card_mesh, name):
+    """A train step sharded on the card's (1, 1) NCCL mesh against the
+    unsharded step on the card (float32): loss, grad norm and the new
+    parameters within LM_TOL."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import schema, sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step
+    cfg = get_smoke_config(name)
+    sch = T.build_schema(cfg)
+    p = schema.init_params(sch, torch.Generator().manual_seed(9),
+                           torch.float32, "cpu")
+    p = schema.tree_map(lambda a: a.to("cuda"), p)
+    b = SyntheticLM(DataConfig(cfg.vocab_size, 24, 2, seed=1)).batch(0)
+    batch = {k: torch.from_numpy(b[k]).cuda() for k in ("tokens", "labels")}
+    opt_cfg = opt_mod.AdamWConfig(warmup_steps=1, total_steps=2, eps=1e-3)
+    step = make_train_step(cfg, opt_cfg)
+    want_p, _, want_m = step(p, opt_mod.init_state(opt_cfg, p), batch)
+    specs = sharding.specs_from_schema(sch, sharding.make_rules(
+        cfg, mesh_model=1, multi_pod=False))
+    dp = sharding.distribute_tree(p, specs, card_mesh)
+    db = {k: sharding.distribute(v, sharding.P("data", None), card_mesh)
+          for k, v in batch.items()}
+    with sharding.use_mesh(card_mesh):
+        got_p, _, got_m = step(dp, opt_mod.init_state(opt_cfg, dp), db)
+    for k in ("loss", "grad_norm"):
+        _lm_close(got_m[k].full_tensor(), want_m[k])
+    for g, w in zip(schema.tree_leaves(got_p), schema.tree_leaves(want_p)):
+        assert g.to_local().is_cuda
+        _lm_close(g.full_tensor(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "qwen2.5-32b",
+                                  "zamba2-7b"])
+def test_sharded_decode_on_the_card(card_mesh, name):
+    """Decode steps with parameters and caches laid out by the decode
+    specs (the caches' sequence axis on `model`) on the card's (1, 1) mesh
+    against unsharded decode on the card (float32): every step's logits and
+    the caches within LM_TOL."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import schema, sharding
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_smoke_config(name), dtype="float32")
+    sch = T.build_schema(cfg)
+    p = schema.init_params(sch, torch.Generator().manual_seed(9),
+                           torch.float32, "cpu")
+    p = schema.tree_map(lambda a: a.to("cuda"), p)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 6)).astype(np.int32)).cuda()
+    cache = T.init_cache(cfg, 2, 8, device="cuda")
+    dp = sharding.distribute_tree(p, sharding.specs_from_schema(
+        sch, sharding.make_rules(cfg, mesh_model=1, multi_pod=False)),
+        card_mesh)
+    dcache = sharding.distribute_tree(
+        T.init_cache(cfg, 2, 8, device="cuda"),
+        sharding.cache_spec_tree(cfg, 1, False), card_mesh)
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            cur = torch.tensor(t, dtype=torch.int32, device="cuda")
+            want, _ = T.decode_step(p, cfg, toks[:, t:t + 1], cache, cur)
+            with sharding.use_mesh(card_mesh):
+                got, _ = T.decode_step(
+                    dp, cfg, sharding.distribute(toks[:, t:t + 1],
+                                                 sharding.P("data", None),
+                                                 card_mesh),
+                    dcache, cur)
+            _lm_close(got.full_tensor(), want)
+    flat = lambda c: [x for v in (c.values() if isinstance(c, dict) else c)
+                      for x in flat(v)] if isinstance(c, (dict, tuple)) \
+        else [c]
+    for g, w in zip(flat(dcache), flat(cache)):
+        _lm_close(g.full_tensor(), w)
