@@ -64,6 +64,14 @@ only the panel entries of the B rows its row shard references
 unit and re-homes the lost shard's rows on the survivors
 (``core.recovery``).
 
+**Spans and counters** (``core.tracing``): while a profiler records,
+:func:`plan_spgemm` and :func:`execute` open the ranges ``repro_torch.plan``
+(``.validate``, ``.bin``, ``.flop``, ``.upload``, ``.predict``, ``.alloc``,
+``.panels``) and ``repro_torch.execute`` (``.operands``, ``.dispatch``,
+``.readback``, ``.replan``; a distributed plan's execute has the outer
+range alone); the counters ``plan.rows`` and ``replan.rows`` are always
+on.
+
 Public API::
 
     plan = plan_spgemm(a, b, use_kernel=True)   # route="auto"
@@ -93,6 +101,7 @@ from . import oracle
 from . import partition as part_mod
 from . import predictor as predictor_mod
 from . import profiles as profiles_mod
+from . import tracing
 from . import validate as validate_mod
 from .csr import COL_SENTINEL, CSRDevice
 from .errors import (CapacityExhaustedError, OperandValidationError,
@@ -873,6 +882,7 @@ def _device_capacity(nnz: int) -> int:
     return binning_mod.ceil_pow2(max(8, int(nnz)))
 
 
+@tracing.spanned("plan")
 def plan_spgemm(a: CSR, b: CSR, *, mesh=None, num_shards: int | None = None,
                 axis: str = "data", seed: int = 0, safety: float = 1.3,
                 route: str = "auto", use_kernel: bool = False,
@@ -942,7 +952,8 @@ def plan_spgemm(a: CSR, b: CSR, *, mesh=None, num_shards: int | None = None,
     dev = csr_mod.resolve_device(device)
     operands_validated = 0
     if validate:
-        validate_mod.validate_pair(a, b)
+        with tracing.span("plan.validate"):
+            validate_mod.validate_pair(a, b)
         operands_validated = 2
     elif a.ncols != b.nrows:
         raise OperandValidationError(
@@ -967,15 +978,19 @@ def plan_spgemm(a: CSR, b: CSR, *, mesh=None, num_shards: int | None = None,
     if template is not None:
         pop_quant = True
         template.grow_device_caps(a.nnz, b.nnz)
-        binplan = template.fit(a, b)
+        with tracing.span("plan.bin"):
+            binplan = template.fit(a, b)
     else:
         if pop_quant and deg_align <= 1:
             # quantized plans need quantized degree bounds, or the per-bucket
             # signatures (exact degree maxima) would fragment the key anyway
             deg_align = binning_mod.POW2_DEG_ALIGN
-        binplan = binning_mod.build_plan(a, b, route=route, min_rows=min_rows,
-                                         deg_align=deg_align)
-    flopr, total_flop = oracle.flop_per_row(a, b)
+        with tracing.span("plan.bin"):
+            binplan = binning_mod.build_plan(a, b, route=route,
+                                             min_rows=min_rows,
+                                             deg_align=deg_align)
+    with tracing.span("plan.flop"):
+        flopr, total_flop = oracle.flop_per_row(a, b)
     if sample_rows is None:
         sample_rows = (oracle.sample_rows(a.nrows, seed) if a.nrows
                        else np.zeros(0, dtype=np.int64))
@@ -988,16 +1003,19 @@ def plan_spgemm(a: CSR, b: CSR, *, mesh=None, num_shards: int | None = None,
         cap_b = _device_capacity(b.nnz)
     devpair = None
     if total_flop > 0 and sample_rows.size:
-        ad = csr_mod.to_device(a, capacity=cap_a, device=dev)
-        bd = csr_mod.to_device(b, capacity=cap_b, device=dev)
+        with tracing.span("plan.upload"):
+            ad = csr_mod.to_device(a, capacity=cap_a, device=dev)
+            bd = csr_mod.to_device(b, capacity=cap_b, device=dev)
         devpair = (ad, bd)
-        pred = predictor_mod.proposed_predict_binned(
-            ad, bd, torch.from_numpy(sample_rows.astype(np.int32)).to(dev),
-            binplan, use_kernel=use_kernel,
-            floprc=torch.from_numpy(flopr.astype(np.int32)).to(dev))
-        structure = pred.structure.cpu().numpy().astype(np.float64)
-        predicted_nnz = float(pred.nnz_total)
-        cr = float(pred.compression_ratio)
+        with tracing.span("plan.predict"):
+            pred = predictor_mod.proposed_predict_binned(
+                ad, bd,
+                torch.from_numpy(sample_rows.astype(np.int32)).to(dev),
+                binplan, use_kernel=use_kernel,
+                floprc=torch.from_numpy(flopr.astype(np.int32)).to(dev))
+            structure = pred.structure.cpu().numpy().astype(np.float64)
+            predicted_nnz = float(pred.nnz_total)
+            cr = float(pred.compression_ratio)
         if not np.isfinite(structure).all() or cr <= 0:
             # sampled rows had no products (f* = 0): fall back to the
             # upper-bound structure — always safe, never over-allocates
@@ -1014,18 +1032,19 @@ def plan_spgemm(a: CSR, b: CSR, *, mesh=None, num_shards: int | None = None,
         predicted_nnz = 0.0
         cr = 1.0
 
-    alloc = predictor_mod.BinnedAllocationPlan.from_prediction(
-        binplan, structure, flopr, safety=safety, pow2=pop_quant)
-    if template is not None:
-        # the family's grown capacities dominate the member's prediction
-        template.grow_caps(alloc.bucket_capacities)
-        caps = tuple(template.caps)
-        alloc = predictor_mod.BinnedAllocationPlan(
-            bucket_capacities=caps,
-            row_capacity=max(caps) if caps else 8,
-            total_capacity=sum(bk.n_rows * c
-                               for bk, c in zip(binplan.buckets, caps)),
-            safety=safety)
+    with tracing.span("plan.alloc"):
+        alloc = predictor_mod.BinnedAllocationPlan.from_prediction(
+            binplan, structure, flopr, safety=safety, pow2=pop_quant)
+        if template is not None:
+            # the family's grown capacities dominate the member's prediction
+            template.grow_caps(alloc.bucket_capacities)
+            caps = tuple(template.caps)
+            alloc = predictor_mod.BinnedAllocationPlan(
+                bucket_capacities=caps,
+                row_capacity=max(caps) if caps else 8,
+                total_capacity=sum(bk.n_rows * c
+                                   for bk, c in zip(binplan.buckets, caps)),
+                safety=safety)
     plan = SpgemmPlan(
         binning=binplan, alloc=alloc, structure=structure, flopr=flopr,
         predicted_nnz=predicted_nnz, compression_ratio=cr,
@@ -1042,15 +1061,18 @@ def plan_spgemm(a: CSR, b: CSR, *, mesh=None, num_shards: int | None = None,
         # upload (and the host references, which gate the fingerprint check)
         plan._planned_pair = ((a, b), (devpair[0], None) if n_panels
                               else devpair)
-    structure_p = flopr_p = None
-    if n_panels:
-        structure_p, flopr_p = _panel_tables(plan, a, b, int(n_panels),
-                                             deg_align)
     if mesh is not None or num_shards:
+        structure_p = flopr_p = None
+        if n_panels:
+            structure_p, flopr_p = _panel_tables(plan, a, b, int(n_panels),
+                                                 deg_align)
         _plan_shards(plan, a, mesh, num_shards, axis, template, structure_p,
                      flopr_p)
     elif n_panels:
-        _plan_panel_caps(plan, structure_p, flopr_p)
+        with tracing.span("plan.panels"):
+            _plan_panel_caps(plan, *_panel_tables(plan, a, b, int(n_panels),
+                                                  deg_align))
+    tracing.count("plan.rows", a.nrows)
     return plan
 
 
@@ -1926,6 +1948,7 @@ def _escalate(plan: SpgemmPlan, units: list, row_nnz: dict, caps,
         widen([c for _, c in bumps])
         for u, new_cap in bumps:
             rerun(u, new_cap, "bucket-retry")
+            tracing.count("replan.rows", len(row_nnz[u]))
             plan.retry_events.append(dict(
                 round=attempt, **tag(u), old_cap=int(caps[u]),
                 new_cap=new_cap, need=need[u]))
@@ -1942,6 +1965,7 @@ def _escalate(plan: SpgemmPlan, units: list, row_nnz: dict, caps,
         widen([c for _, _, c in exact])
         for u, n_ex, new_cap in exact:
             rerun(u, new_cap, "exact-fallback")
+            tracing.count("replan.rows", len(row_nnz[u]))
             plan.degradations.append(dict(
                 kind="exact_symbolic", **tag(u), old_cap=int(caps[u]),
                 new_cap=int(new_cap), need=int(n_ex)))
@@ -1965,7 +1989,8 @@ def _replan_local(plan: SpgemmPlan, ad, bd, out: SpGEMMOut,
     widens the output once, to its widest new capacity, and each re-run
     bucket's real rows are written into it in place."""
     buckets = plan.binning.buckets
-    n = out.row_nnz.cpu().numpy().astype(np.int64)
+    with tracing.span("execute.readback"):
+        n = out.row_nnz.cpu().numpy().astype(np.int64)
     tables = plan.device_args()
     bounds = plan.flop_bounds()
     col, val = out.col, out.val
@@ -2013,11 +2038,12 @@ def _replan_local(plan: SpgemmPlan, ad, bd, out: SpGEMMOut,
         if plan._template is not None:
             plan._template.grow_caps(caps)   # the family learns from the miss
 
-    overflow = _escalate(
-        plan, [i for i, bk in enumerate(buckets) if bk.n_rows],
-        {i: n[bk.rows] for i, bk in enumerate(buckets)},
-        list(plan.alloc.bucket_capacities), int(out.overflow),
-        rerun, exact_need, commit, widen)
+    with tracing.span("execute.replan"):
+        overflow = _escalate(
+            plan, [i for i, bk in enumerate(buckets) if bk.n_rows],
+            {i: n[bk.rows] for i, bk in enumerate(buckets)},
+            list(plan.alloc.bucket_capacities), int(out.overflow),
+            rerun, exact_need, commit, widen)
     if overflow is None:
         return out
     return SpGEMMOut(col, val, out.row_nnz,
@@ -2037,9 +2063,10 @@ def _replan_local_panels(plan: SpgemmPlan, ad, bps, out: PanelSpgemmOut,
     npan = plan.n_panels
     keys = [(i, p) for i in range(len(buckets)) for p in range(npan)]
     flat = [out.row_nnz[i][p] for i, p in keys]
-    host = dict(zip(keys, np.split(
-        torch.cat(flat).cpu().numpy().astype(np.int64),
-        np.cumsum([n.shape[0] for n in flat])[:-1]))) if flat else {}
+    with tracing.span("execute.readback"):
+        host = dict(zip(keys, np.split(
+            torch.cat(flat).cpu().numpy().astype(np.int64),
+            np.cumsum([n.shape[0] for n in flat])[:-1]))) if flat else {}
     cols = [list(bc) for bc in out.cols]
     vals = [list(bv) for bv in out.vals]
     tables = plan.device_args()
@@ -2073,11 +2100,12 @@ def _replan_local_panels(plan: SpgemmPlan, ad, bps, out: PanelSpgemmOut,
     def commit(caps) -> None:
         plan.panel_caps = caps
 
-    overflow = _escalate(
-        plan, [(i, p) for i, bk in enumerate(buckets) if bk.n_rows
-               for p in range(npan)],
-        host, np.asarray(plan.panel_caps, dtype=np.int64).copy(),
-        int(out.overflow), rerun, exact_need, commit)
+    with tracing.span("execute.replan"):
+        overflow = _escalate(
+            plan, [(i, p) for i, bk in enumerate(buckets) if bk.n_rows
+                   for p in range(npan)],
+            host, np.asarray(plan.panel_caps, dtype=np.int64).copy(),
+            int(out.overflow), rerun, exact_need, commit)
     if overflow is None:
         return out
     return PanelSpgemmOut(tuple(tuple(bc) for bc in cols),
@@ -2356,31 +2384,35 @@ def _execute_panels(plan: SpgemmPlan, a, b, cache: PlanCache
     # (the common serving identity) skips it
     planned = (plan._planned_pair[0] if plan._planned_pair is not None
                else (None, None))
-    if b is not planned[1]:
-        b = _check_panel_operand(plan, b)
-    ad = _coerce_one(plan, a, "a", 0)
+    with tracing.span("execute.operands"):
+        if b is not planned[1]:
+            b = _check_panel_operand(plan, b)
+        ad = _coerce_one(plan, a, "a", 0)
+        bps = _panel_operands_local(plan, b)
     metas = tuple(
         tuple(_panel_meta(bk, plan.panel_deg_b[i],
                           int(plan.panel_caps[i, p]))
               for p in range(plan.n_panels))
         for i, bk in enumerate(plan.binning.buckets))
-    run = cache.executor(plan.key, lambda: _build_local_panel_executor(
-        metas, plan.use_kernel, masked=plan.pop_quant))
-    bps = _panel_operands_local(plan, b)
-    try:
-        out = _invoke_executor(run, dict(unit="local-panels"), ad, bps,
-                               plan.device_args(), plan.panel_flop_bounds(),
-                               plan.valid_rows(), **_wave_budget(plan))
-    except StragglerError as e:
-        # a straggling wave replays per (bucket × panel) unit — completed
-        # units checkpoint in the recovery ledger
-        from . import recovery as recovery_mod
-        out = recovery_mod.recover_local_panels(plan, ad, bps, cache, e)
+    with tracing.span("execute.dispatch"):
+        run = cache.executor(plan.key, lambda: _build_local_panel_executor(
+            metas, plan.use_kernel, masked=plan.pop_quant))
+        try:
+            out = _invoke_executor(run, dict(unit="local-panels"), ad, bps,
+                                   plan.device_args(),
+                                   plan.panel_flop_bounds(),
+                                   plan.valid_rows(), **_wave_budget(plan))
+        except StragglerError as e:
+            # a straggling wave replays per (bucket × panel) unit — completed
+            # units checkpoint in the recovery ledger
+            from . import recovery as recovery_mod
+            out = recovery_mod.recover_local_panels(plan, ad, bps, cache, e)
     if plan.retry_policy is not None:
         out = _replan_local_panels(plan, ad, bps, out, cache)
     return out
 
 
+@tracing.spanned("execute")
 def execute(plan: SpgemmPlan, a, b, *, mesh=None,
             cache: PlanCache | None = None):
     """Run the planned numeric phase on the plan's device.
@@ -2416,22 +2448,24 @@ def execute(plan: SpgemmPlan, a, b, *, mesh=None,
         return _execute_dist(plan, a, b, mesh, cache)
     if plan.n_panels:
         return _execute_panels(plan, a, b, cache)
-    ad = _coerce_one(plan, a, "a", 0)
-    bd = _coerce_one(plan, b, "b", 1)
+    with tracing.span("execute.operands"):
+        ad = _coerce_one(plan, a, "a", 0)
+        bd = _coerce_one(plan, b, "b", 1)
     metas = tuple(_bucket_meta(bk, cap)
                   for bk, cap in zip(plan.binning.buckets,
                                      plan.alloc.bucket_capacities))
-    run = cache.executor(
-        plan.key, lambda: _build_local_executor(
-            metas, plan.shape_a[0], plan.alloc.row_capacity,
-            plan.use_kernel, masked=plan.pop_quant))
-    try:
-        out = _invoke_executor(run, dict(unit="local"), ad, bd,
-                               plan.device_args(), plan.flop_bounds(),
-                               plan.valid_rows(), **_wave_budget(plan))
-    except StragglerError as e:
-        from . import recovery as recovery_mod
-        out = recovery_mod.recover_local(plan, ad, bd, cache, e)
+    with tracing.span("execute.dispatch"):
+        run = cache.executor(
+            plan.key, lambda: _build_local_executor(
+                metas, plan.shape_a[0], plan.alloc.row_capacity,
+                plan.use_kernel, masked=plan.pop_quant))
+        try:
+            out = _invoke_executor(run, dict(unit="local"), ad, bd,
+                                   plan.device_args(), plan.flop_bounds(),
+                                   plan.valid_rows(), **_wave_budget(plan))
+        except StragglerError as e:
+            from . import recovery as recovery_mod
+            out = recovery_mod.recover_local(plan, ad, bd, cache, e)
     if plan.retry_policy is not None:
         out = _replan_local(plan, ad, bd, out, cache)
     return out
